@@ -1,0 +1,294 @@
+"""Batched joint CTC / attention beam search with RNN-LM shallow fusion.
+
+Combined score ``(1-ctc_w) * logP_att + ctc_w * CTCPrefixScore +
+lm_w * logP_lm``; ``min_len_ratio``/``max_len_ratio`` bounds from the
+encoded length; eos finalization with length-normalized ranking. The whole
+batch advances K hypotheses per step as (B, K, ...) tensors, decoder and LM
+states folded to (B*K, ...), attention against the unexpanded cache. This
+is the JAX package's exact (non-amp) path, step for step.
+
+Ties: ``lax.top_k`` prefers the lowest index among equal values, and the
+finished set's NEG_INF placeholders are mass ties. ``torch.topk`` promises
+no tie order, so every top-K here is a stable descending sort.
+
+Not ported yet (a non-default value raises NotImplementedError): ``amp``
+(``auto`` resolves to off), ``psi_kernel``, ``psi_quant``, ``ctc_window``,
+``approx_topk``, ``ctc_candidates > 0``, ``fold_logp: true`` and the
+embedding-fusion ``plugin``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..models.asr import ASR
+from ..models.lm import RNNLM
+from ..ops import ctc_prefix
+from ..utils.text import EOS_IDX, PAD_IDX
+
+NEG_INF = -1e30
+
+# config key -> values that select the path ported here
+_PORTED = {
+    "amp": ("auto", False, None),
+    "psi_kernel": (False, "auto", None),
+    "psi_quant": (False, None),
+    "ctc_window": (0, None),
+    "approx_topk": (False, None),
+    "ctc_candidates": (0, None),
+    "fold_logp": ("auto", False, None),
+}
+
+
+class BeamOutput(NamedTuple):
+    tokens: torch.Tensor   # (B, K, L) emitted tokens (no sos/eos), 0-padded
+    lengths: torch.Tensor  # (B, K)
+    scores: torch.Tensor   # (B, K) length-normalized, sorted desc
+
+
+def top_k(x: torch.Tensor, k: int):
+    """Top-k over the last axis with ``lax.top_k``'s tie order (lowest index
+    first among equal values)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _gather_k(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, K, ...) gathered along the beam axis by idx (B, K)."""
+    i = idx.reshape(idx.shape + (1,) * (x.ndim - 2)).expand(
+        idx.shape + x.shape[2:])
+    return torch.gather(x, 1, i)
+
+
+def _backtrace(vs: torch.Tensor, ks: torch.Tensor, fin_step: torch.Tensor,
+               fin_slot: torch.Tensor, L: int) -> torch.Tensor:
+    """Token sequences from the per-step lineage records vs/ks (S, B, K):
+    token written into / parent slot of each new slot at step s. Returns
+    (B, K, L), zero-padded past each hypothesis's length."""
+    S = vs.shape[0]
+    slot = fin_slot
+    toks = [None] * S
+    for s in range(S - 1, -1, -1):
+        active = s < fin_step
+        tok = torch.gather(vs[s], 1, slot)
+        par = torch.gather(ks[s], 1, slot)
+        slot = torch.where(active, par, slot)
+        toks[s] = torch.where(active, tok, torch.zeros_like(tok))
+    return torch.stack(toks, dim=2)[:, :, :L]
+
+
+class BeamDecoder:
+    def __init__(self, model: ASR, decode_cfg: Dict[str, Any],
+                 lm: Optional[RNNLM] = None, plugin=None):
+        if not model.enable_att:
+            raise ValueError("beam decoder needs the attention decoder")
+        if plugin is not None:
+            raise NotImplementedError("embedding-fusion plugin is not ported yet")
+        for key, ok in _PORTED.items():
+            if key in decode_cfg and decode_cfg[key] not in ok:
+                raise NotImplementedError(
+                    f"decode.{key}={decode_cfg[key]!r} is not ported yet")
+        self.model = model
+        self.beam = int(decode_cfg.get("beam_size", 4))
+        if self.beam > 256:
+            raise ValueError("packed finished-set metadata assumes beam <= 256")
+        self.min_len_ratio = float(decode_cfg.get("min_len_ratio", 0.0))
+        self.max_len_ratio = float(decode_cfg.get("max_len_ratio", 1.0))
+        self.lm_weight = float(decode_cfg.get("lm_weight", 0.0))
+        cw = decode_cfg.get("ctc_weight", 0.0)
+        self.ctc_weight = float(cw) if model.enable_ctc else 0.0
+        self.lm = lm if self.lm_weight > 0 else None
+        self.use_ctc = self.ctc_weight > 0
+        es = decode_cfg.get("early_stop", "auto")
+        self.early_stop = True if es == "auto" else bool(es)
+        self.early_stop_slack = float(decode_cfg.get("early_stop_slack", 0.05))
+        self.last_steps = None  # steps the last forward ran (early exit)
+
+    @torch.no_grad()
+    def forward(self, feat: torch.Tensor, feat_len: torch.Tensor) -> BeamOutput:
+        model, K = self.model, self.beam
+        V = model.vocab_size
+        enc, enc_len = model.encode(feat, feat_len)
+        B, T, _ = enc.shape
+        dev = enc.device
+        L = max(1, int(math.ceil(self.max_len_ratio * T)))
+
+        cache = model.attention.precompute(enc, enc_len)
+        dec_state = model.decoder.init_state(B * K, dev)
+        align0 = model.attention.init_align(cache)
+        align = align0[:, None].expand((B, K) + align0.shape[1:])
+
+        # per-utterance bounds are f32 ceilings, as in the JAX package
+        # (0.6 * 5 is 3.0000000000000004 in double but 3.0 in f32)
+        enc_len_f = enc_len.to(torch.float32)
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+        min_len = torch.ceil(f32(self.min_len_ratio) * enc_len_f).to(torch.int32)
+        max_len = torch.clamp(torch.ceil(f32(self.max_len_ratio) * enc_len_f)
+                              .to(torch.int32), min=1)
+
+        if self.use_ctc:
+            ctc_lp = ctc_prefix.pad_ctc_log_probs(model.ctc_output(enc), enc_len)
+            ctc_probs = torch.exp(ctc_lp)
+            r_state, psi_prev = ctc_prefix.init_state(ctc_lp, K)
+            blank_lp = torch.clamp(ctc_lp[:, :, 0], min=ctc_prefix.CLIP)
+        else:
+            ctc_lp = ctc_probs = r_state = blank_lp = None
+            psi_prev = torch.zeros((B, K), device=dev)
+
+        use_lm = self.lm is not None
+        lm_state = self.lm.init_state(B * K, dev) if use_lm else None
+
+        carry = {
+            "last": torch.full((B, K), EOS_IDX, dtype=torch.int64, device=dev),
+            "valid": (torch.arange(K, device=dev)[None] == 0).expand(B, K),
+            "base": torch.zeros((B, K), device=dev),
+            "psi": psi_prev,
+            "r": r_state,
+            "dec_state": dec_state,
+            "align": align,
+            "lm_state": lm_state,
+            # finished hypotheses: normalized score + (step << 8 | slot)
+            "fin_meta": torch.zeros((B, K), dtype=torch.int64, device=dev),
+            "fin_norm": torch.full((B, K), NEG_INF, device=dev),
+        }
+        aw, cw, lw = 1.0 - self.ctc_weight, self.ctc_weight, self.lm_weight
+        vocab_ids = torch.arange(V, device=dev)
+        cont_keep = (vocab_ids != EOS_IDX) & (vocab_ids != PAD_IDX)
+        slot_ids = torch.arange(K, device=dev)[None]
+        batch_base = torch.arange(B, device=dev)[:, None] * K
+        neg_inf = torch.full((), NEG_INF, device=dev)
+
+        def step(carry, t: int):
+            last_flat = carry["last"].reshape(B * K)
+            logits, new_dec, new_align, _ = model.decode_step_beam(
+                cache, carry["dec_state"], carry["align"], last_flat, K)
+            logp_att = F.log_softmax(logits, -1).reshape(B, K, V)
+            if use_lm:
+                lm_logits, new_lm = self.lm.step(carry["lm_state"], last_flat)
+                logp_lm = F.log_softmax(lm_logits.reshape(B, K, V), -1)
+            else:
+                new_lm = None
+                logp_lm = torch.zeros((B, K, V), device=dev)
+            base = carry["base"]
+
+            # eos / finalization scores
+            ctc_eos = (ctc_prefix.final_score(carry["r"]) if self.use_ctc
+                       else torch.zeros((B, K), device=dev))
+            tot_eos = (base + aw * logp_att[:, :, EOS_IDX] + cw * ctc_eos
+                       + lw * logp_lm[:, :, EOS_IDX])
+            eos_ok = carry["valid"] & ((t + 1 >= min_len[:, None])
+                                       | (t + 1 >= max_len[:, None]))
+            # mask after normalizing: NEG_INF/(t+1) would outrank the
+            # finished set's NEG_INF placeholders
+            norm_eos = torch.where(eos_ok, tot_eos / float(max(t + 1, 1)),
+                                   neg_inf)
+            all_norm = torch.cat([carry["fin_norm"], norm_eos], dim=1)
+            meta_new = ((t << 8) + slot_ids).expand(B, K)
+            all_meta = torch.cat([carry["fin_meta"], meta_new], dim=1)
+            fin_norm, fin_idx = top_k(all_norm, K)
+            fin_meta = torch.gather(all_meta, 1, fin_idx)
+
+            # continuation scores
+            step_score = aw * logp_att + lw * logp_lm
+            masked = torch.where(cont_keep[None, None, :], step_score, neg_inf)
+            if self.use_ctc:
+                psi, _ = ctc_prefix.score_candidates(
+                    ctc_lp, carry["r"], carry["last"],
+                    torch.full((B, K), t, device=dev), with_state=False,
+                    probs=ctc_probs)
+                tot = base[:, :, None] + masked + cw * psi
+            else:
+                psi = None
+                tot = base[:, :, None] + masked
+            alive = carry["valid"] & (t < max_len[:, None])
+            tot = torch.where(alive[..., None], tot, neg_inf)
+            top_tot, top_idx = top_k(tot.reshape(B, K * V), K)
+            new_valid = top_tot > NEG_INF / 2
+            k_idx = top_idx // V
+            v_idx = top_idx % V
+            if self.use_ctc:
+                psi_g = torch.gather(psi.reshape(B, K * V), 1, top_idx)
+                new_base = top_tot - cw * psi_g
+            else:
+                psi_g = carry["psi"]
+                new_base = top_tot
+
+            flat_sel = (batch_base + k_idx).reshape(B * K)
+            sel = lambda s: type(s)(*(x[:, flat_sel] if x is not None else None
+                                      for x in s))
+            out = {
+                "last": v_idx,
+                "valid": new_valid,
+                "base": new_base,
+                "dec_state": sel(new_dec),
+                "align": _gather_k(new_align, k_idx),
+                "lm_state": sel(new_lm) if use_lm else None,
+                "fin_meta": fin_meta,
+                "fin_norm": fin_norm,
+                "psi": psi_g,
+                "r": carry["r"],
+            }
+            if self.use_ctc:
+                # recompute the CTC state for the K winners only
+                _, r_g = ctc_prefix.score_candidates(
+                    ctc_lp, _gather_k(carry["r"], k_idx),
+                    _gather_k(carry["last"], k_idx),
+                    torch.full((B, K), t, device=dev),
+                    cand_ids=v_idx[..., None], blank_lp=blank_lp)
+                out["r"] = r_g[:, :, 0]
+            return out, (v_idx, k_idx)
+
+        # L+1 steps: step t offers finalization to length-t hypotheses, then
+        # expands to length t+1; the last step only finalizes
+        S = L + 1
+        if not self.early_stop:
+            vs, ks = [], []
+            for t in range(S):
+                carry, (v, kk) = step(carry, t)
+                vs.append(v)
+                ks.append(kk)
+            vs, ks = torch.stack(vs), torch.stack(ks)
+            self.last_steps = S
+        else:
+            # exact early exit, tested once per 4-step block (one host sync):
+            # stop once no live hypothesis can still beat the K-th finished
+            # score. Steps past S are no-ops (every slot is dead).
+            UN = 4
+            S4 = ((S + UN - 1) // UN) * UN
+            vs = torch.zeros((S4, B, K), dtype=torch.int64, device=dev)
+            ks = torch.zeros((S4, B, K), dtype=torch.int64, device=dev)
+            m_hi = torch.clamp(max_len + 1, min=1).to(torch.float32)
+            slack = self.early_stop_slack
+            t = 0
+            while t < S4 and self._can_improve(carry, t, cw, max_len,
+                                               min_len, m_hi, slack):
+                for j in range(UN):
+                    carry, (v, kk) = step(carry, t + j)
+                    vs[t + j] = v
+                    ks[t + j] = kk
+                t += UN
+            self.last_steps = t
+        fin_step = carry["fin_meta"] >> 8
+        fin_slot = carry["fin_meta"] & 0xFF
+        tokens = _backtrace(vs, ks, fin_step, fin_slot, L)
+        return BeamOutput(tokens, fin_step, carry["fin_norm"])
+
+    @staticmethod
+    def _can_improve(c, t, cw, max_len, min_len, m_hi, slack) -> bool:
+        """Can any live hypothesis still enter the finished top-K? Per-step
+        score increments are <= 0, so a live total ``tot`` finalizes at
+        best at tot/(max_len+1) (tot < 0) or tot/(t+1) (tot >= 0)."""
+        tot = c["base"] + cw * c["psi"]
+        alive = c["valid"] & (t <= max_len[:, None])
+        m_lo = torch.clamp(torch.clamp(min_len, min=1), min=t + 1
+                           ).to(torch.float32)
+        bound = torch.where(tot < 0.0, tot / m_hi[:, None], tot / m_lo[:, None])
+        bound = torch.where(alive, bound, torch.full((), NEG_INF,
+                                                     device=tot.device))
+        best_live = torch.amax(bound, dim=1)
+        worst_fin = torch.amin(c["fin_norm"], dim=1)
+        can = alive.any(dim=1) & (best_live >= worst_fin - slack)
+        return bool(can.any())

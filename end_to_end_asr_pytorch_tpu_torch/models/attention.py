@@ -1,0 +1,125 @@
+"""Attention for the beam decoder: scaled-dot and location-aware.
+
+Modes ``'dot' | 'loc'``, multi-head (``num_head``, merged by ``w_merge``),
+softmax ``temperature`` and optional value projection (``v_proj``), as in
+the JAX package. Key/value projections are computed once per utterance
+(``precompute``); ``step_beam`` advances K hypotheses against the
+unexpanded (B, ...) cache.
+
+The location features are a plain ``F.conv1d`` over the summed previous
+alignment. XLA's ``SAME`` padding for an even kernel is asymmetric (low
+``(ks-1)//2``, high ``ks//2``), so the alignment is padded explicitly; a
+symmetric ``padding=`` would drop a frame. The JAX package's lane padding
+of the head dim (``d_pad``) and Toeplitz band are TPU layout devices that
+change no number and are not carried over.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..utils.init import const, uniform
+
+
+class AttCache(NamedTuple):
+    keys: torch.Tensor      # (B, H, T, dim) projected keys
+    values: torch.Tensor    # (B, T, H*v_dim) or raw enc (B, T, Dk)
+    mask: torch.Tensor      # (B, T) bool valid
+    inv_len: torch.Tensor   # (B, 1) 1/enc_len
+
+
+class Attention(nn.Module):
+    """Parameters as in the JAX package: w_q (Dq, H*dim), w_k (Dk, H*dim),
+    w_v (Dk, H*v_dim) | None, w_merge (H*v_dim, v_dim) | None, and for 'loc'
+    loc_conv (F, 1, ks) (torch conv1d layout), w_f (F, dim), bias (H*dim,),
+    v_energy (H, dim)."""
+
+    def __init__(self, cfg: Dict[str, Any], query_dim: int, key_dim: int,
+                 generator=None, device=None):
+        super().__init__()
+        self.mode = cfg.get("mode", "loc")
+        if self.mode not in ("dot", "loc"):
+            raise NotImplementedError(f"attention mode {self.mode!r}")
+        self.num_head = int(cfg.get("num_head", 1))
+        self.dim = int(cfg.get("dim", 300))
+        self.temperature = float(cfg.get("temperature", 0.5))
+        self.v_proj = bool(cfg.get("v_proj", True))
+        self.loc_kernel_size = int(cfg.get("loc_kernel_size", 100))
+        self.loc_kernel_num = int(cfg.get("loc_kernel_num", 10))
+        self.query_dim = query_dim
+        self.key_dim = key_dim
+        self.v_dim = self.dim if self.v_proj else key_dim
+        self.context_dim = self.v_dim
+        H, d = self.num_head, self.dim
+        g, dev = generator, device
+        self.w_q = uniform((query_dim, H * d), query_dim, g, dev)
+        self.w_k = uniform((key_dim, H * d), key_dim, g, dev)
+        self.w_v = (uniform((key_dim, H * self.v_dim), key_dim, g, dev)
+                    if self.v_proj else None)
+        self.w_merge = (uniform((H * self.v_dim, self.v_dim), H * self.v_dim,
+                                g, dev) if H > 1 else None)
+        self.loc_conv = self.w_f = self.bias = self.v_energy = None
+        if self.mode == "loc":
+            ks, nf = self.loc_kernel_size, self.loc_kernel_num
+            self.loc_conv = uniform((nf, 1, ks), ks, g, dev)
+            self.w_f = uniform((nf, d), nf, g, dev)
+            self.bias = const(H * d, 0.0, dev)
+            self.v_energy = uniform((H, d), d, g, dev)
+
+    def precompute(self, enc: torch.Tensor, enc_len: torch.Tensor) -> AttCache:
+        """enc (B, T, Dk), enc_len (B,) -> cached projections."""
+        B, T, _ = enc.shape
+        keys = (enc @ self.w_k).reshape(B, T, self.num_head, self.dim)
+        keys = keys.permute(0, 2, 1, 3)
+        vals = enc @ self.w_v if self.w_v is not None else enc
+        mask = torch.arange(T, device=enc.device)[None, :] < enc_len[:, None]
+        inv_len = 1.0 / torch.clamp(enc_len, min=1).to(torch.float32)
+        return AttCache(keys, vals, mask, inv_len[:, None])
+
+    def init_align(self, cache: AttCache) -> torch.Tensor:
+        """Alignment 'before step 0': uniform over valid frames (B, H, T)."""
+        B, H, T, _ = cache.keys.shape
+        uni = torch.where(cache.mask[:, None, :], cache.inv_len[:, :, None],
+                          torch.zeros((), device=cache.keys.device))
+        return uni.expand(B, H, T)
+
+    def loc_features(self, a: torch.Tensor) -> torch.Tensor:
+        """a (N, T) summed alignment -> (N, T, F) location conv features
+        with XLA 'SAME' (low (ks-1)//2, high ks//2) padding."""
+        ks = self.loc_conv.shape[-1]
+        ap = F.pad(a[:, None, :], ((ks - 1) // 2, ks // 2))
+        return F.conv1d(ap, self.loc_conv).transpose(1, 2)
+
+    def step_beam(self, cache: AttCache, query: torch.Tensor,
+                  prev_align: torch.Tensor):
+        """query (B, K, Dq), prev_align (B, K, H, T) ->
+        (context (B, K, context_dim), align (B, K, H, T))."""
+        B, H, T, d = cache.keys.shape
+        K = query.shape[1]
+        q = (query @ self.w_q).reshape(B, K, H, d)
+        if self.mode == "dot":
+            energy = torch.einsum("bkhd,bhtd->bkht", q, cache.keys)
+        else:
+            a = prev_align.sum(dim=2).reshape(B * K, T)
+            f = (self.loc_features(a) @ self.w_f).reshape(B, K, T, d)
+            qb = q + self.bias.reshape(H, d)[None, None]
+            tanh_arg = (qb[:, :, :, None, :] + cache.keys[:, None]
+                        + f[:, :, None, :, :])               # (B, K, H, T, d)
+            energy = torch.einsum("bkhtd,hd->bkht", torch.tanh(tanh_arg),
+                                  self.v_energy)
+        energy = energy / self.temperature
+        energy = torch.where(cache.mask[:, None, None, :], energy,
+                             torch.full((), -1e30, device=energy.device))
+        align = torch.softmax(energy, dim=-1)                 # (B, K, H, T)
+        if self.w_v is not None:
+            vals = cache.values.reshape(B, T, H, self.v_dim)
+            ctx = torch.einsum("bkht,bthv->bkhv", align, vals)
+        else:
+            ctx = torch.einsum("bkht,btv->bkhv", align, cache.values)
+        ctx = ctx.reshape(B, K, H * self.v_dim)
+        if self.w_merge is not None:
+            ctx = ctx @ self.w_merge
+        return ctx, align

@@ -1,0 +1,109 @@
+"""Recurrent cores: LSTM / GRU cells and time-major masked scans.
+
+Gate order follows torch (i, f, g, o for the LSTM; r, z, n for the GRU).
+The LSTM keeps a single bias ``b = b_ih + b_hh``; the GRU keeps separate
+biases because its n-gate applies the reset gate between them. Weights are
+stored as the JAX package stores them: ``w_ih`` (D, G), ``w_hh`` (H, G).
+
+``lstm_scan`` sends a CUDA f32 input with zero initial state through the K2
+kernel (``ops/cuda/lstm_kernel.py``); the GRU scan stays plain.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from ..utils.init import const, uniform
+from . import cuda as cuda_kernels
+from .cuda.lstm_kernel import lstm_scan_fused, lstm_scan_plain
+
+
+class LSTMWeights(nn.Module):
+    """w_ih (D, 4H), w_hh (H, 4H), b (4H,). Uniform(+-1/sqrt(H)) init with
+    forget-gate bias 1."""
+
+    def __init__(self, in_dim: int, hidden: int, generator=None, device=None,
+                 forget_bias: float = 1.0):
+        super().__init__()
+        self.w_ih = uniform((in_dim, 4 * hidden), hidden, generator, device)
+        self.w_hh = uniform((hidden, 4 * hidden), hidden, generator, device)
+        self.b = const(4 * hidden, 0.0, device)
+        self.b[hidden:2 * hidden] = forget_bias
+
+
+class GRUWeights(nn.Module):
+    """w_ih (D, 3H), w_hh (H, 3H), b_ih (3H,), b_hh (3H,)."""
+
+    def __init__(self, in_dim: int, hidden: int, generator=None, device=None):
+        super().__init__()
+        self.w_ih = uniform((in_dim, 3 * hidden), hidden, generator, device)
+        self.w_hh = uniform((hidden, 3 * hidden), hidden, generator, device)
+        self.b_ih = const(3 * hidden, 0.0, device)
+        self.b_hh = const(3 * hidden, 0.0, device)
+
+
+def cell_weights(module: str, in_dim: int, hidden: int, generator=None,
+                 device=None) -> nn.Module:
+    cls = LSTMWeights if module == "lstm" else GRUWeights
+    return cls(in_dim, hidden, generator=generator, device=device)
+
+
+def lstm_cell(w: LSTMWeights, h: torch.Tensor, c: torch.Tensor,
+              x_proj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step given the precomputed input projection x@w_ih + b."""
+    H = h.shape[-1]
+    gates = x_proj + h @ w.w_hh
+    i, f, g, o = gates.split(H, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def gru_cell(w: GRUWeights, h: torch.Tensor, x_proj: torch.Tensor
+             ) -> torch.Tensor:
+    """One GRU step given x_proj = x@w_ih + b_ih (torch gate order r, z, n)."""
+    H = h.shape[-1]
+    h_proj = h @ w.w_hh + w.b_hh
+    r = torch.sigmoid(x_proj[..., :H] + h_proj[..., :H])
+    z = torch.sigmoid(x_proj[..., H:2 * H] + h_proj[..., H:2 * H])
+    n = torch.tanh(x_proj[..., 2 * H:] + r * h_proj[..., 2 * H:])
+    return (1.0 - z) * n + z * h
+
+
+def lstm_scan(w: LSTMWeights, x: torch.Tensor, mask: torch.Tensor,
+              reverse: bool = False, h0=None, c0=None) -> torch.Tensor:
+    """x (T, B, D) time-major, mask (T, B) bool (a contiguous valid prefix
+    per sequence) -> (T, B, H). Padded steps emit zeros and hold the carry."""
+    x_proj = x @ w.w_ih + w.b
+    if (h0 is None and c0 is None and x.is_cuda and x.dtype == torch.float32
+            and cuda_kernels.USE_KERNELS):
+        return lstm_scan_fused(x_proj.contiguous(), w.w_hh.contiguous(),
+                               mask.contiguous(), reverse)
+    return lstm_scan_plain(x_proj, w.w_hh, mask, reverse, h0, c0)
+
+
+def gru_scan(w: GRUWeights, x: torch.Tensor, mask: torch.Tensor,
+             reverse: bool = False, h0=None) -> torch.Tensor:
+    """GRU analogue of lstm_scan (plain PyTorch)."""
+    T, B, _ = x.shape
+    H = w.w_hh.shape[0]
+    x_proj = x @ w.w_ih + w.b_ih
+    h = torch.zeros((B, H), dtype=x.dtype, device=x.device) if h0 is None else h0
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    ys = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        h_new = gru_cell(w, h, x_proj[t])
+        m = mask[t][:, None]
+        h = torch.where(m, h_new, h)
+        ys[t] = torch.where(m, h_new, zero)
+    return torch.stack(ys)
+
+
+def bidirectional(scan_fn, w_fwd, w_bwd, x: torch.Tensor, mask: torch.Tensor,
+                  **kw) -> torch.Tensor:
+    """Concat forward and (length-aware) backward passes: (T, B, 2H)."""
+    fwd = scan_fn(w_fwd, x, mask, reverse=False, **kw)
+    bwd = scan_fn(w_bwd, x, mask, reverse=True, **kw)
+    return torch.cat([fwd, bwd], dim=-1)

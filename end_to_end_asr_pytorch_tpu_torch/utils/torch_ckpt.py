@@ -1,0 +1,224 @@
+"""Load a reference-layout ASR ``state_dict`` (``torch.save``) into the
+port's modules.
+
+Same key rules as the JAX package's ``translate_asr_state_dict``: keys are
+resolved by suffix with alias lists per slot, recurrent modules are found by
+torch's parameter-name pattern (``weight_ih_l{n}[_reverse]``) in state_dict
+order, every tensor is shape-checked, and unmatched slots raise with the
+candidate keys listed. Layouts: nn.Linear (out, in) -> (in, out); LSTM
+gates stay (i, f, g, o) with ``b = bias_ih + bias_hh``; GRU biases stay
+separate; convolution weights are already in PyTorch's layout, which the
+port keeps. The RNN-LM loader is not ported yet.
+"""
+from __future__ import annotations
+
+import re
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models.asr import ASR
+from .weights import assign
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+
+
+class KeyResolver:
+    """Suffix-alias key lookup over a flat state_dict with consumption
+    tracking."""
+
+    def __init__(self, sd: Dict[str, Any]):
+        self.sd = OrderedDict(
+            (k[7:] if k.startswith("module.") else k, v) for k, v in sd.items())
+        self.used: set = set()
+
+    def find(self, suffixes: List[str], shape=None, scope: str = "",
+             required: bool = True, numel=None) -> Optional[np.ndarray]:
+        for suf in suffixes:
+            for k, v in self.sd.items():
+                if k in self.used or not k.startswith(scope):
+                    continue
+                if not (k == suf or k.endswith("." + suf)):
+                    continue
+                a = _np(v)
+                if shape is not None and tuple(a.shape) != tuple(shape):
+                    continue
+                if numel is not None and a.size != numel:
+                    continue
+                self.used.add(k)
+                return a
+        if required:
+            cands = [k for k in self.sd if k.startswith(scope)
+                     and k not in self.used]
+            raise KeyError(
+                f"torch checkpoint: no key matching {suffixes} "
+                f"(scope={scope!r}, shape={shape}); unconsumed keys under "
+                f"scope: {cands[:20]}")
+        return None
+
+    def rnn_groups(self, scope: str = "") -> List[Dict[str, np.ndarray]]:
+        """One dict per (module, layer) in state_dict order with keys like
+        'weight_ih', 'bias_hh', 'weight_ih_reverse'."""
+        groups: "OrderedDict[tuple, Dict[str, np.ndarray]]" = OrderedDict()
+        pat = re.compile(r"(weight|bias)_(ih|hh)(?:_l(\d+))?(_reverse)?$")
+        for k, v in self.sd.items():
+            if k in self.used or not k.startswith(scope):
+                continue
+            m = pat.search(k)
+            if not m or (m.start() > 0 and k[m.start() - 1] != "."):
+                continue
+            prefix = k[:m.start()].rstrip(".")
+            layer = int(m.group(3)) if m.group(3) is not None else 0
+            name = f"{m.group(1)}_{m.group(2)}" + (m.group(4) or "")
+            groups.setdefault((prefix, layer), {})[name] = _np(v)
+            self.used.add(k)
+        return list(groups.values())
+
+
+def _cell(out: Dict[str, np.ndarray], prefix: str, module: str,
+          g: Dict[str, np.ndarray], reverse: bool = False) -> None:
+    s = "_reverse" if reverse else ""
+    out[f"{prefix}.w_ih"] = g[f"weight_ih{s}"].T
+    out[f"{prefix}.w_hh"] = g[f"weight_hh{s}"].T
+    if module == "lstm":
+        out[f"{prefix}.b"] = g[f"bias_ih{s}"] + g.get(f"bias_hh{s}", 0.0)
+    else:
+        out[f"{prefix}.b_ih"] = g[f"bias_ih{s}"]
+        out[f"{prefix}.b_hh"] = g.get(f"bias_hh{s}",
+                                      np.zeros_like(g[f"bias_ih{s}"]))
+
+
+def translate_asr_state_dict(sd: Dict[str, Any], model: ASR
+                             ) -> Dict[str, np.ndarray]:
+    """Reference ASR state_dict -> {port parameter name: array} for
+    ``model``'s configuration."""
+    res = KeyResolver(sd)
+    params = dict(model.state_dict())
+    shape = lambda name: tuple(params[name].shape)
+    out: Dict[str, np.ndarray] = {}
+
+    enc = model.encoder
+    if enc.prenet is not None:   # resolve before rnn_groups claims keys
+        n_conv = 4 if hasattr(enc.prenet, "k4") else 2
+        kind = "vgg" if n_conv == 4 else "cnn"
+        for i in range(1, n_conv + 1):
+            out[f"encoder.prenet.k{i}"] = res.find(
+                [f"conv{i}.weight", f"{kind}_conv{i}.weight"], scope="encoder")
+            out[f"encoder.prenet.b{i}"] = res.find(
+                [f"conv{i}.bias", f"{kind}_conv{i}.bias"], scope="encoder")
+
+    groups = res.rnn_groups(scope="encoder")
+    if len(groups) != len(enc.layers):
+        raise ValueError(f"torch checkpoint: found {len(groups)} recurrent "
+                         f"modules under 'encoder', model has "
+                         f"{len(enc.layers)} layers")
+    for li, (layer, g) in enumerate(zip(enc.layers, groups)):
+        p = f"encoder.layers.{li}"
+        _cell(out, f"{p}.fwd", layer.module, g)
+        if layer.bwd is not None:
+            if "weight_ih_reverse" not in g:
+                raise ValueError(f"torch checkpoint: encoder layer {li} is "
+                                 "bidirectional in the model but the "
+                                 "checkpoint has no _reverse weights")
+            _cell(out, f"{p}.bwd", layer.module, g, reverse=True)
+        if layer.ln_scale is not None:
+            out[f"{p}.ln_scale"] = res.find(
+                ["ln.weight", "layer_norm.weight", "norm.weight"],
+                shape=shape(f"{p}.ln_scale"), scope="encoder")
+            out[f"{p}.ln_bias"] = res.find(
+                ["ln.bias", "layer_norm.bias", "norm.bias"],
+                shape=shape(f"{p}.ln_bias"), scope="encoder")
+        if layer.w_proj is not None:
+            out[f"{p}.w_proj"] = res.find(
+                ["pj.weight", "proj.weight", "linear.weight"],
+                shape=shape(f"{p}.w_proj")[::-1], scope="encoder").T
+            out[f"{p}.b_proj"] = res.find(
+                ["pj.bias", "proj.bias", "linear.bias"],
+                shape=shape(f"{p}.b_proj"), scope="encoder")
+
+    if model.ctc_w is not None:
+        out["ctc_w"] = res.find(["ctc_layer.weight", "ctc_out.weight",
+                                 "ctc.weight"], shape=shape("ctc_w")[::-1]).T
+        out["ctc_b"] = res.find(["ctc_layer.bias", "ctc_out.bias", "ctc.bias"],
+                                shape=shape("ctc_b"))
+
+    if model.embed is not None:
+        out["embed"] = res.find(["pre_embed.weight", "embed.weight",
+                                 "embedding.weight"], shape=shape("embed"))
+        _attention(res, model, shape, out)
+        dec_groups = res.rnn_groups(scope="decoder") or res.rnn_groups()
+        if len(dec_groups) != len(model.decoder.cells):
+            raise ValueError(
+                f"torch checkpoint: found {len(dec_groups)} recurrent modules "
+                f"for the decoder, model has {len(model.decoder.cells)}")
+        for ci, g in enumerate(dec_groups):
+            _cell(out, f"decoder.cells.{ci}", model.decoder.module, g)
+        out["char_w"] = res.find(["char_trans.weight", "char_out.weight",
+                                  "output_layer.weight"],
+                                 shape=shape("char_w")[::-1]).T
+        out["char_b"] = res.find(["char_trans.bias", "char_out.bias",
+                                  "output_layer.bias"], shape=shape("char_b"))
+    return out
+
+
+def _attention(res: KeyResolver, model: ASR, shape, out) -> None:
+    att = model.attention
+    # prefer an explicit (possibly nested) attention module scope so the
+    # bare 'bias' suffix cannot bind an unrelated module's bias
+    sc = ""
+    for k in res.sd:
+        i = k.find("attention.")
+        if i == 0 or (i > 0 and k[i - 1] == "."):
+            sc = k[:i + len("attention.")]
+            break
+    lin = lambda sufs, name: res.find(sufs, shape=shape(name)[::-1], scope=sc).T
+    out["attention.w_q"] = lin(["proj_q.weight", "query_proj.weight",
+                                "q_proj.weight"], "attention.w_q")
+    out["attention.w_k"] = lin(["proj_k.weight", "key_proj.weight",
+                                "k_proj.weight"], "attention.w_k")
+    if att.w_v is not None:
+        out["attention.w_v"] = lin(["proj_v.weight", "value_proj.weight",
+                                    "v_proj.weight"], "attention.w_v")
+    if att.w_merge is not None:
+        out["attention.w_merge"] = lin(["merge_head.weight", "merge.weight",
+                                        "out_proj.weight"], "attention.w_merge")
+    if att.loc_conv is not None:
+        nf, in_ch, k = shape("attention.loc_conv")
+        w = res.find(["loc_conv.weight", "location_conv.weight"],
+                     numel=k * in_ch * nf, scope=sc)
+        if w.shape != (nf, in_ch, k):
+            raise ValueError(f"torch checkpoint: loc_conv shape {w.shape} does "
+                             f"not match the single-channel convention "
+                             f"({nf}, {in_ch}, {k})")
+        out["attention.loc_conv"] = w
+        out["attention.w_f"] = lin(["loc_proj.weight", "loc_linear.weight"],
+                                   "attention.w_f")
+        bias_sufs = (["att_bias", "loc_bias", "bias"] if sc
+                     else ["att_bias", "loc_bias"])
+        out["attention.bias"] = res.find(bias_sufs, shape=shape("attention.bias"),
+                                         scope=sc)
+        v_shape = shape("attention.v_energy")
+        out["attention.v_energy"] = res.find(
+            ["gen_energy.weight", "v_energy.weight", "energy.weight"],
+            numel=int(np.prod(v_shape)), scope=sc).reshape(v_shape)
+
+
+def load_asr_state_dict(sd: Dict[str, Any], model: ASR) -> ASR:
+    """Fill ``model`` in place from a reference ASR state_dict."""
+    return assign(model, translate_asr_state_dict(sd, model),
+                  "torch checkpoint")
+
+
+def load_torch_checkpoint(path: str, model: ASR) -> Dict[str, Any]:
+    """torch.load a reference checkpoint ({'model': state_dict, ...} or a
+    bare state_dict) into ``model``. Returns {'model', 'global_step'}."""
+    ck = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ck, dict) and "model" in ck:
+        sd, step = ck["model"], int(ck.get("global_step", 0))
+    else:
+        sd, step = ck, 0
+    return {"model": load_asr_state_dict(sd, model), "global_step": step}

@@ -1,0 +1,76 @@
+"""Weight bridge: arrays keyed by the JAX package's parameter-tree paths ->
+the port's ASR / LM modules, which then compute the same functions.
+
+Keys are the paths ``jax.tree_util.keystr`` prints for ``ASRParams`` /
+``RNNLMParams`` leaves (``.encoder.layers[0].fwd.w_ih``); the port's module
+attributes carry the same names (``encoder.layers.0.fwd.w_ih``). Matmul
+weights keep the JAX (in, out) layout; only convolution kernels change
+layout, to PyTorch's: VGG HWIO -> OIHW, CNN (k, in, out) -> (out, in, k),
+the location conv (k, 1, F) -> (F, 1, k). This module imports no JAX: the
+caller flattens the tree.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..models.asr import ASR
+from ..models.lm import RNNLM
+
+
+def port_name(path: str) -> str:
+    """'.encoder.layers[0].fwd.w_ih' -> 'encoder.layers.0.fwd.w_ih'."""
+    return re.sub(r"\[(\d+)\]", r".\1", path).lstrip(".")
+
+
+def _to_port_layout(name: str, a: np.ndarray) -> np.ndarray:
+    if re.search(r"(^|\.)prenet\.k\d$", name):
+        return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.transpose(2, 1, 0)
+    if re.search(r"(^|\.)loc_conv$", name):
+        return a.transpose(2, 1, 0)
+    return a
+
+
+def assign(module: nn.Module, arrays: Dict[str, np.ndarray],
+           what: str) -> nn.Module:
+    """Copy ``{port parameter name: array in the port's layout}`` into
+    ``module``. Every parameter must be supplied with its shape, and no key
+    may be left over."""
+    sd = module.state_dict()
+    missing = sorted(set(sd) - set(arrays))
+    extra = sorted(set(arrays) - set(sd))
+    if missing or extra:
+        raise KeyError(f"{what}: missing {missing[:10]}, "
+                       f"unexpected {extra[:10]}")
+    with torch.no_grad():
+        for name, t in sd.items():
+            a = arrays[name]
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{what}: {name} has shape {a.shape}, "
+                                 f"the model expects {tuple(t.shape)}")
+            t.copy_(torch.tensor(np.asarray(a), dtype=torch.float32))
+    return module
+
+
+def load_arrays(module: nn.Module, arrays: Dict[str, Any]) -> nn.Module:
+    """Copy ``{jax_path: array}`` (JAX layout) into ``module``."""
+    got = {}
+    for k, v in arrays.items():
+        name = port_name(k)
+        got[name] = _to_port_layout(name, np.asarray(v, dtype=np.float32))
+    return assign(module, got, "weight bridge")
+
+
+def asr_from_arrays(input_size: int, vocab_size: int, cfg: Dict[str, Any],
+                    arrays: Dict[str, Any], device: Optional[str] = None) -> ASR:
+    return load_arrays(ASR(input_size, vocab_size, cfg, device=device), arrays)
+
+
+def lm_from_arrays(vocab_size: int, cfg: Dict[str, Any],
+                   arrays: Dict[str, Any], device: Optional[str] = None
+                   ) -> RNNLM:
+    return load_arrays(RNNLM(vocab_size, cfg, device=device), arrays)
