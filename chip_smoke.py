@@ -1,26 +1,48 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--seed 0] [--batch 32]
+    python3 chip_smoke.py [--seed 0] [--batch 32] [--phases k1,k2,...]
 
 Phases, each printing one JSON line:
-  1. device  - the card (nvidia-smi name and power limit), torch / CUDA versions
-  2. build   - nvcc builds every kernel of the serving path from csrc/
-  3. k1      - the fbank kernel against its plain PyTorch version at
-               B utterances of 7 s with ragged lengths (log-mel atol 1e-3)
-  4. k2      - the LSTM scan kernel against its plain version at H=512,
-               T=176, both directions, ragged masks (atol 1e-4), at B=128
-               and at the slice's batch
-  5. slice   - bench.py's model at full width (VGG + 3x BiLSTM-512,
-               loc attention 300 / kernel 100, LSTM-512 decoder and LM,
-               beam 8, V=31, CTC 0.3 + LM 0.3) with random weights from
-               --seed: three timed decode batches with the kernels (the
-               main path; every kernel must have been launched there), one
-               with the plain versions, both on the card; then a breakdown
-               of one batch (host-clock split and a torch.profiler pass)
-  6. entry   - python -m end_to_end_asr_pytorch_tpu_torch.transcribe on
-               two WAVs with a reference-layout checkpoint
-Then a line with the per-kernel measurements ({"kernels": [...]}), the
+  device      - the card (nvidia-smi name and power limit), torch / CUDA
+  build       - nvcc builds every kernel (csrc/*.cu), all started together
+  k1          - the fbank kernel against its plain PyTorch version at
+                B utterances of 7 s with ragged lengths (log-mel atol 1e-3)
+  k2          - the LSTM scan kernel against its plain version at H=512,
+                T=176, both directions, ragged masks (atol 1e-4), at B=128
+                and at the slice's batch
+  k2b         - K2's residual outputs (cell states, gates) and the LSTM
+                backward kernel against their plain versions and against
+                autograd through the plain scan, same shapes (residuals and
+                dxp atol 1e-4, dW_hh within 1e-3 of its max magnitude)
+  k3          - the CTC forward-backward kernel against its plain version
+                at B=128 and the slice's batch, T=176, U=96, V=31, ragged
+                lengths, repeated labels, one infeasible row (NLL rtol 1e-5,
+                gradient atol 1e-5)
+  slice       - serving main path: bench.py's model at full width (VGG +
+                3x BiLSTM-512, loc attention 300 / kernel 100, LSTM-512
+                decoder and LM, beam 8, V=31, CTC 0.3 + LM 0.3) with random
+                weights from --seed: three timed decode batches with the
+                kernels (K1 and K2 must launch), one with the plain
+                versions; then a breakdown of one batch
+  entry       - python -m end_to_end_asr_pytorch_tpu_torch.transcribe on
+                two WAVs with a reference-layout checkpoint
+  train       - training main path: the port's solver with bench.py's model
+                at full width, Adadelta (lr 1, eps 1e-8, clip 5), joint
+                0.5 CTC + 0.5 CE, teacher forcing 0.9, B waves of 7 s with
+                U=96 labels: a warm-up step, 5 timed steps (each must
+                launch K1 once, K2 and K2b once per encoder scan, K3
+                once), one profiled step split by the step's own profiler
+                ranges, then one step from the same weights and
+                generator with the kernels and with the plain versions
+                (at tf 1.0 loss rel 1e-4 and every gradient within 1e-3 of
+                its max magnitude; at tf 0.9 reported)
+  train_entry - python -m end_to_end_asr_pytorch_tpu_torch.train on a
+                generated synthetic corpus (32 train / 8 dev utterances,
+                bench.py's model, 4 steps, validation every 2), then
+                transcribe of two dev WAVs with its latest.pth
+Then a line with the per-kernel measurements ({"kernels": [...]}: K1 and K2
+launches counted on the slice's run, K2b and K3 on the train run), the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed phase
 ends the run with a non-zero exit code. Needs CUDA: without it the script
 fails before printing a result.
@@ -33,7 +55,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from collections import OrderedDict
 from pathlib import Path
 
 import numpy as np
@@ -107,44 +128,6 @@ def make_waves(n, seed, secs=SECS, sr=16000):
     for b, n_b in enumerate(lens):
         waves[b, n_b:] = 0.0
     return waves, lens
-
-
-def export_asr_state_dict(model):
-    """Port ASR module -> reference-layout torch state_dict (the layout the
-    port's utils/torch_ckpt.py reads)."""
-    import torch
-    sd = OrderedDict()
-    t = lambda x: x.detach().cpu().clone()
-
-    def rnn(prefix, cell, suffix):
-        sd[f"{prefix}.weight_ih{suffix}"] = t(cell.w_ih.T)
-        sd[f"{prefix}.weight_hh{suffix}"] = t(cell.w_hh.T)
-        sd[f"{prefix}.bias_ih{suffix}"] = t(cell.b)
-        sd[f"{prefix}.bias_hh{suffix}"] = torch.zeros_like(t(cell.b))
-
-    pre = model.encoder.prenet
-    for i in (1, 2, 3, 4):
-        sd[f"encoder.layers.0.conv{i}.weight"] = t(getattr(pre, f"k{i}"))
-        sd[f"encoder.layers.0.conv{i}.bias"] = t(getattr(pre, f"b{i}"))
-    for li, layer in enumerate(model.encoder.layers):
-        rnn(f"encoder.layers.{li + 1}.layer", layer.fwd, "_l0")
-        rnn(f"encoder.layers.{li + 1}.layer", layer.bwd, "_l0_reverse")
-    sd["ctc_layer.weight"] = t(model.ctc_w.T)
-    sd["ctc_layer.bias"] = t(model.ctc_b)
-    sd["pre_embed.weight"] = t(model.embed)
-    a = model.attention
-    sd["attention.proj_q.weight"] = t(a.w_q.T)
-    sd["attention.proj_k.weight"] = t(a.w_k.T)
-    sd["attention.proj_v.weight"] = t(a.w_v.T)
-    sd["attention.loc_conv.weight"] = t(a.loc_conv)
-    sd["attention.loc_proj.weight"] = t(a.w_f.T)
-    sd["attention.bias"] = t(a.bias)
-    sd["attention.gen_energy.weight"] = t(a.v_energy)
-    for ci, cell in enumerate(model.decoder.cells):
-        rnn("decoder.layers", cell, f"_l{ci}")
-    sd["char_trans.weight"] = t(model.char_w.T)
-    sd["char_trans.bias"] = t(model.char_b)
-    return sd
 
 
 def phase_k1(frontend, batch, seed):
@@ -241,6 +224,164 @@ def phase_k2(seed, slice_batch, T=176, H=512):
             "library_ms": cuda_ms(library, 10)}
         emit({"phase": "k2", "T": T, "B": B, "H": H,
               "cudnn_full_length_max_abs_err": lib_err, **records[B]})
+    return records[slice_batch]
+
+
+def phase_k2b(seed, slice_batch, T=176, H=512):
+    """K2's residual outputs and K2b against their plain versions, both
+    directions, ragged masks, at B=128 and at the slice's batch; K2b's dxp
+    and dW_hh also against autograd through the plain scan."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
+    rng = np.random.RandomState(seed + 4)
+    s = 1.0 / math.sqrt(H)
+    w_hh = torch.from_numpy(rng.uniform(-s, s, (H, 4 * H)).astype(np.float32)).cuda()
+    cudnn = torch.nn.LSTM(4 * H, H).cuda()
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(torch.eye(4 * H, device="cuda"))
+        cudnn.weight_hh_l0.copy_(w_hh.T)
+        cudnn.bias_ih_l0.zero_()
+        cudnn.bias_hh_l0.zero_()
+    records = {}
+    for B in (128, slice_batch):
+        xp = torch.from_numpy(rng.randn(T, B, 4 * H).astype(np.float32)).cuda()
+        dys = torch.from_numpy(rng.randn(T, B, H).astype(np.float32)).cuda()
+        lens = rng.randint(T // 2, T + 1, size=B)
+        lens[0] = T
+        mask = torch.from_numpy(np.arange(T)[:, None] < lens[None, :]).cuda()
+        res_err = dxp_err = dw_rel = ag_dxp_err = ag_dw_rel = 0.0
+        for reverse in (False, True):
+            got = lk.lstm_scan_fused(xp, w_hh, mask, reverse, residuals=True)
+            ref = lk.lstm_scan_fwd_plain(xp, w_hh, mask, reverse)
+            dxp, dw = lk.lstm_bwd_fused(got[2], got[1], got[0], mask, w_hh,
+                                        dys, reverse)
+            pdxp, pdw = lk.lstm_scan_bwd_plain(ref[2], ref[1], ref[0], mask,
+                                               w_hh, dys, reverse)
+            x = xp.clone().requires_grad_(True)
+            w = w_hh.clone().requires_grad_(True)
+            lk.lstm_scan_plain(x, w, mask, reverse).backward(dys)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in (*got, dxp, dw)),
+                  "K2 residuals / K2b output not finite")
+            res_err = max(res_err, *(float((a - b).abs().max())
+                                     for a, b in zip(got, ref)))
+            dxp_err = max(dxp_err, float((dxp - pdxp).abs().max()))
+            dw_rel = max(dw_rel, float((dw - pdw).abs().max() / pdw.abs().max()))
+            ag_dxp_err = max(ag_dxp_err, float((dxp - x.grad).abs().max()))
+            ag_dw_rel = max(ag_dw_rel, float((dw - w.grad).abs().max()
+                                             / w.grad.abs().max()))
+        check(res_err <= 1e-4, f"K2 residuals max abs err {res_err} at B={B}")
+        check(dxp_err <= 1e-4 and ag_dxp_err <= 1e-4,
+              f"K2b dxp max abs err {dxp_err} / {ag_dxp_err} at B={B}")
+        check(dw_rel <= 1e-3 and ag_dw_rel <= 1e-3,
+              f"K2b dW_hh err / max |dW| {dw_rel} / {ag_dw_rel} at B={B}")
+        ys, cs, gates = lk.lstm_scan_fused(xp, w_hh, mask, True, residuals=True)
+        fwd_res_ms = cuda_ms(lambda: lk.lstm_scan_fused(xp, w_hh, mask, True,
+                                                        residuals=True), 10)
+        fwd_ms = cuda_ms(lambda: lk.lstm_scan_fused(xp, w_hh, mask, True), 10)
+        xl = xp.clone().requires_grad_(True)
+
+        def lib_fwd():
+            return cudnn(xl)[0]
+
+        def lib_fwd_bwd():
+            cudnn(xl)[0].backward(dys)
+
+        lib_fwd_ms = cuda_ms(lib_fwd, 10)
+        lib_ms = cuda_ms(lib_fwd_bwd, 10) - lib_fwd_ms
+        # reads gates, cs, ys, dys, mask, W_hh; writes dxp and dW_hh; the
+        # recurrent product and the dW_hh GEMM each 2*T*B*H*4H operations
+        nbytes = 4 * (T * B * (4 * H + 3 * H + 4 * H) + T * B + 2 * H * 4 * H)
+        flops = T * (4 * B * 4 * H * H + 20 * B * H)
+        b_ms, b_by = bound(nbytes, flops)
+        fb_ms, fb_by = bound(4 * (T * B * 4 * H + H * 4 * H + T * B
+                                  + T * B * (H + H + 4 * H)), T * 2 * B * H * 4 * H)
+        records[B] = {
+            "name": "lstm_bwd_fused", "route": "cuda",
+            "source": "end_to_end_asr_pytorch_tpu_torch/csrc/lstm_scan.cu",
+            "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py:185",
+            "max_abs_err": dxp_err,
+            "ms": cuda_ms(lambda: lk.lstm_bwd_fused(gates, cs, ys, mask, w_hh,
+                                                    dys, True), 10),
+            "plain_ms": cuda_ms(lambda: lk.lstm_scan_bwd_plain(
+                gates, cs, ys, mask, w_hh, dys, True), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        emit({"phase": "k2b", "T": T, "B": B, "H": H,
+              "residual_max_abs_err": res_err, "dw_err_over_max": dw_rel,
+              "autograd_dxp_max_abs_err": ag_dxp_err,
+              "autograd_dw_err_over_max": ag_dw_rel,
+              "k2_residuals_ms": fwd_res_ms, "k2_serving_ms": fwd_ms,
+              "k2_residuals_plain_ms": cuda_ms(lambda: lk.lstm_scan_fwd_plain(
+                  xp, w_hh, mask, True), 3),
+              "k2_residuals_library_ms": lib_fwd_ms,
+              "k2_residuals_bound_ms": fb_ms, "k2_residuals_bound_by": fb_by,
+              **records[B]})
+    return records[slice_batch]
+
+
+def ctc_case(B, seed, T=176, U=96, V=31):
+    """Log-probs (B, T, V) and labels in [3, V) for K3: ragged logit and
+    label lengths, repeated labels, and one infeasible row (the last)."""
+    import torch
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy(rng.randn(B, T, V).astype(np.float32) * 2.0)
+    lp = torch.log_softmax(logits, dim=-1)
+    labels = rng.randint(3, V, size=(B, U)).astype(np.int32)
+    labels[:, 1::7] = labels[:, 0:-1:7]          # repeats: s -> s+2 skip off
+    lab_len = rng.randint(U // 2, U + 1, size=B).astype(np.int32)
+    lab_len[0] = U
+    logit_len = rng.randint(3 * T // 4, T + 1, size=B).astype(np.int32)
+    logit_len[0] = T
+    logit_len[-1] = lab_len[-1] // 2                 # no feasible alignment
+    for b in range(B):
+        labels[b, lab_len[b]:] = 0
+    return lp, torch.from_numpy(logit_len), torch.from_numpy(labels), \
+        torch.from_numpy(lab_len)
+
+
+def phase_k3(seed, slice_batch):
+    """K3 against its plain version at B=128 and the slice's batch, T=176,
+    U=96, V=31; F.ctc_loss forward+backward as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import ctc_kernel as ck
+    records = {}
+    for B in (128, slice_batch):
+        lp, ll, lab, lab_len = (t.cuda() for t in ctc_case(B, seed + 5))
+        emit_, skip, eidx, _ = ck.prepare(lp, lab, lab_len)
+        nll, grad = ck.ctc_loss_fused(emit_, skip, ll, eidx)
+        pnll, pgrad = ck.ctc_loss_plain(emit_, skip, ll, eidx)
+        torch.cuda.synchronize()
+        feas = pnll < 1e29
+        check(int((~feas).sum()) == 1 and bool(nll[-1] > 1e29),
+              "K3 infeasible row not reported as such")
+        check(bool(torch.isfinite(grad).all()) and bool((grad[-1] == 0).all()),
+              "K3 gradient not finite, or non-zero on the infeasible row")
+        nll_rel = float(((nll - pnll).abs() / pnll.abs())[feas].max())
+        g_err = float((grad - pgrad).abs().max())
+        check(nll_rel <= 1e-5, f"K3 NLL max rel err {nll_rel} at B={B}")
+        check(g_err <= 1e-5, f"K3 gradient max abs err {g_err} at B={B}")
+        lpl = lp.transpose(0, 1).contiguous().requires_grad_(True)
+
+        def library():
+            F.ctc_loss(lpl, lab, ll, lab_len, reduction="sum",
+                       zero_infinity=True).backward()
+
+        T, S = emit_.shape[1], emit_.shape[2]
+        cells = int((ll.long() * (2 * lab_len.long() + 1)).sum())
+        nbytes = 4 * (2 * B * T * S + B * S + 4 * B)
+        b_ms, b_by = bound(nbytes, 40 * cells)
+        records[B] = {
+            "name": "ctc_loss_fused", "route": "cuda",
+            "source": "end_to_end_asr_pytorch_tpu_torch/csrc/ctc_loss.cu",
+            "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/ctc_kernel.py:149",
+            "max_abs_err": g_err,
+            "ms": cuda_ms(lambda: ck.ctc_loss_fused(emit_, skip, ll, eidx), 20),
+            "plain_ms": cuda_ms(lambda: ck.ctc_loss_plain(emit_, skip, ll, eidx), 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(library, 20)}
+        emit({"phase": "k3", "B": B, "T": T, "S": S, "V": lp.shape[-1],
+              "nll_max_rel_err": nll_rel, "infeasible_rows": 1, **records[B]})
     return records[slice_batch]
 
 
@@ -360,6 +501,7 @@ def phase_entry(model, seed):
     import torch
     import yaml
     from end_to_end_asr_pytorch_tpu_torch.data.audio_io import write_wav
+    from end_to_end_asr_pytorch_tpu_torch.utils.torch_ckpt import asr_state_dict
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         d = Path(d)
         (d / "vocab.txt").write_text("\n".join(CHARS) + "\n")
@@ -370,7 +512,7 @@ def phase_entry(model, seed):
                "decode": {k: v for k, v in DECODE_CFG.items()
                           if k != "lm_weight"}}
         (d / "cfg.yaml").write_text(yaml.safe_dump(cfg))
-        torch.save({"model": export_asr_state_dict(model), "global_step": 0},
+        torch.save({"model": asr_state_dict(model), "global_step": 0},
                    str(d / "asr.pth"))
         rng = np.random.RandomState(seed + 3)
         wavs = []
@@ -395,12 +537,268 @@ def phase_entry(model, seed):
               "stderr_tail": proc.stderr.strip().splitlines()[-1:]})
 
 
+TRAIN_HPARAS = {"optimizer": "Adadelta", "lr": 1.0, "eps": 1e-8,
+                "lr_scheduler": "fixed", "tf_start": 0.9, "tf_end": 0.9,
+                "tf_step": 1, "GRAD_CLIP": 5.0}
+U_TRAIN = 96
+
+
+def train_batch(batch, seed, device, U=U_TRAIN, V=3 + len(CHARS)):
+    """make_waves' waves with labels in [3, V), lengths proportional to
+    each wave's length (the longest U), padded to U."""
+    import torch
+    w, wl = make_waves(batch, seed)
+    rng = np.random.RandomState(seed)
+    lab_len = np.maximum(1, np.round(U * wl / wl.max())).astype(np.int64)
+    text = rng.randint(3, V, size=(batch, U)).astype(np.int64)
+    text[np.arange(U)[None, :] >= lab_len[:, None]] = 0
+    return tuple(torch.from_numpy(a).to(device) for a in (w, wl, text, lab_len))
+
+
+def make_solver(device, seed, workdir):
+    """The port's training solver with bench.py's model at full width
+    (random weights from ``seed``), set up as ``train.py`` sets it up but
+    without a corpus."""
+    from types import SimpleNamespace
+    from end_to_end_asr_pytorch_tpu_torch.solvers.train_asr import Solver
+    cfg = {"data": {"corpus": {"name": "none"}, "audio": AUDIO_CFG,
+                    "text": {"mode": "character"}},
+           "model": MODEL_CFG, "hparas": dict(TRAIN_HPARAS)}
+    paras = SimpleNamespace(config="smoke_train.yaml", name=None, seed=seed,
+                            logdir=str(workdir / "log"),
+                            ckpdir=str(workdir / "ckpt"), load=None,
+                            njobs=0, no_msg=True, cpu=device.type == "cpu")
+    solver = Solver(cfg, paras)
+    solver.feat_dim, solver.vocab_size = AUDIO_CFG["feat_dim"], 3 + len(CHARS)
+    solver.set_model()
+    return solver
+
+
+def _launch_counts():
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import (
+        ctc_kernel, fbank_kernel, lstm_kernel)
+    return {"fbank_fused": fbank_kernel.fbank_fused,
+            "lstm_scan_fused": lstm_kernel.lstm_scan_fused,
+            "lstm_bwd_fused": lstm_kernel.lstm_bwd_fused,
+            "ctc_loss_fused": ctc_kernel.ctc_loss_fused}
+
+
+def phase_train(batch, seed, device, n_steps=5):
+    """Training steps of bench.py's model at full width (the train main
+    path): one warm-up step, ``n_steps`` timed steps with the kernels and
+    their launch counts per step, one profiled step,
+    and one step from the same weights and generator with the kernels and
+    with the plain versions, compared."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        solver = make_solver(device, seed, Path(d))
+    data = train_batch(batch, seed + 6, device)
+    enc = MODEL_CFG["encoder"]
+    n_scans = len(enc["dim"]) * (2 if enc["bidirection"] else 1)
+    per_step = {"fbank_fused": 1, "lstm_scan_fused": n_scans,
+                "lstm_bwd_fused": n_scans, "ctc_loss_fused": 1}
+    solver.train_step(*data)                       # warm-up
+    torch.cuda.synchronize()
+    counters = _launch_counts()
+    for fn in counters.values():
+        fn.launches = 0
+    steps = []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        m = solver.train_step(*data)
+        steps.append({k: fn.launches for k, fn in counters.items()})
+        for fn in counters.values():
+            fn.launches = 0
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_steps
+    check(all(st == per_step for st in steps),
+          f"every train step must launch {per_step}, got {steps}")
+    launches = {k: sum(st[k] for st in steps) for k in per_step}
+    metrics = {k: float(v) for k, v in m.items()}
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"non-finite train metrics {metrics}")
+    emit({"phase": "train", "batch": batch, "secs": SECS, "labels": U_TRAIN,
+          "steps": n_steps, "ms_per_step": dt * 1e3, "utts_per_s": batch / dt,
+          "launches_per_step": {k: n / n_steps for k, n in launches.items()},
+          "metrics_last_step": metrics,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    train_breakdown(solver, data)
+    compare = {tf: train_compare(solver, data, tf, cuda_kernels)
+               for tf in (1.0, TRAIN_HPARAS["tf_start"])}
+    c = compare[1.0]
+    check(c["loss_rel_diff"] <= 1e-4,
+          f"train loss kernel vs plain rel diff {c['loss_rel_diff']}")
+    check(c["worst_grad_err_over_max"] <= 1e-3,
+          f"train gradient kernel vs plain {c['worst_grad']}: "
+          f"{c['worst_grad_err_over_max']}")
+    emit({"phase": "train_compare", **{f"tf_{k}": v for k, v in compare.items()}})
+    return launches, n_steps
+
+
+TRAIN_RANGES = ("train.frontend", "asr.encode", "asr.ctc_head",
+                "asr.label_scan", "train.loss", "train.backward",
+                "train.optimizer")
+
+
+def train_breakdown(solver, data):
+    """One profiled kernel-path step: the host-clock span of each profiler
+    range of ``Solver.train_step`` / ``ASR.forward`` (the step enqueues
+    work without synchronising, so a span is host time), the device busy /
+    idle share, device launches and the largest device ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.train_step(*data)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    avgs = prof.key_averages()
+    host = {e.key: e.cpu_time_total / 1e3 for e in avgs
+            if e.key in TRAIN_RANGES and e.device_type == DeviceType.CPU}
+    check(set(host) == set(TRAIN_RANGES),
+          f"profiled step lacks ranges {set(TRAIN_RANGES) - set(host)}")
+    # device-side events only (kernels, copies): an operator's own row
+    # repeats the time of the kernels it launched, and a range's device
+    # annotation spans the kernels inside it
+    evts = [e for e in avgs
+            if e.device_type == DeviceType.CUDA and dev(e) > 0
+            and e.key not in TRAIN_RANGES
+            and not getattr(e, "is_user_annotation", False)]
+    check(len(evts) > 0, "the profiler recorded no device time")
+    busy_ms = sum(dev(e) for e in evts) / 1e3
+    top = {}
+    for e in evts:
+        top[e.key[:90]] = top.get(e.key[:90], 0.0) + dev(e) / 1e3
+    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:10])
+    emit({"phase": "train_breakdown",
+          "host_ms": {k: host[k] for k in TRAIN_RANGES},
+          "host_ranges_sum_ms": sum(host.values()),
+          "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": 1.0 - busy_ms / prof_ms,
+          "device_kernel_launches": sum(e.count for e in evts),
+          "top_device_ms": top})
+
+
+def train_compare(solver, data, tf_rate, cuda_kernels):
+    """One step's loss and raw gradients with the kernels and with their
+    plain versions, from the same weights, optimizer state and generator
+    state (the weights are restored after each)."""
+    import torch
+    saved = {k: v.detach().clone() for k, v in solver.params.items()}
+    opt_state = (solver.optimizer.count.clone(),
+                 {n: {s: v.clone() for s, v in d.items()}
+                  for n, d in solver.optimizer.slots.items()})
+    gen_state = solver.gen.get_state()
+    tf = (solver.tf_start, solver.tf_end)
+    solver.tf_start = solver.tf_end = tf_rate
+    out = []
+    try:
+        for use in (True, False):
+            cuda_kernels.USE_KERNELS = use
+            solver.gen.set_state(gen_state)
+            m = solver.train_step(*data)
+            out.append((float(m["loss"]), {k: p.grad.detach().clone()
+                                           for k, p in solver.params.items()}))
+            with torch.no_grad():
+                for k, p in solver.params.items():
+                    p.copy_(saved[k])
+            solver.optimizer.count = opt_state[0].clone()
+            solver.optimizer.slots = {n: {s: v.clone() for s, v in d.items()}
+                                      for n, d in opt_state[1].items()}
+    finally:
+        cuda_kernels.USE_KERNELS = True
+        solver.tf_start, solver.tf_end = tf
+    (lk, gk), (lp, gp) = out
+    bad = [k for k, g in gk.items()
+           if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    check(not bad, f"kernel-path gradients not finite or all zero: {bad[:5]}")
+    errs = {k: float((gk[k] - gp[k]).abs().max() / gp[k].abs().max())
+            for k in gk}
+    worst = max(errs, key=errs.get)
+    return {"loss_kernel": lk, "loss_plain": lp,
+            "loss_rel_diff": abs(lk - lp) / abs(lp),
+            "worst_grad": worst, "worst_grad_err_over_max": errs[worst],
+            "n_params": len(gk)}
+
+
+def phase_train_entry(seed):
+    """python -m end_to_end_asr_pytorch_tpu_torch.train on a generated
+    synthetic corpus with bench.py's model (4 steps, validation every 2),
+    then the port's transcribe on two dev WAVs with its latest.pth."""
+    import yaml
+    from end_to_end_asr_pytorch_tpu_torch.data.synthetic import generate_corpus
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = Path(d)
+        corpus = generate_corpus(str(d / "synth"), n_train=32, n_dev=8,
+                                 n_test=0, seed=seed)
+        cfg = {"data": {"corpus": {"name": "synthetic", "path": str(corpus),
+                                   "train_split": ["train-clean"],
+                                   "dev_split": ["dev-clean"],
+                                   "bucketing": True, "batch_size": 16},
+                        "audio": dict(AUDIO_CFG, frame_length=25, frame_shift=10,
+                                      delta_order=0),
+                        "text": {"mode": "character",
+                                 "vocab_file": str(corpus / "vocab.txt")}},
+               "model": MODEL_CFG,
+               "hparas": {"curriculum": 0, "valid_step": 2, "max_step": 4,
+                          "optimizer": "Adadelta", "lr": 1.0, "eps": 1e-8,
+                          "lr_scheduler": "fixed", "tf_start": 1.0,
+                          "tf_end": 0.9, "tf_step": 4, "PROGRESS_STEP": 1},
+               "decode": {k: v for k, v in DECODE_CFG.items()
+                          if k != "lm_weight"}}
+        (d / "las.yaml").write_text(yaml.safe_dump(cfg))
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "end_to_end_asr_pytorch_tpu_torch.train",
+             "--config", str(d / "las.yaml"), "--seed", str(seed),
+             "--logdir", str(d / "log"), "--ckpdir", str(d / "ckpt")],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        train_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"train exited {proc.returncode}: {proc.stderr[-2000:]}")
+        exp = f"las_sd{seed}"
+        ckpt = d / "ckpt" / exp / "latest.pth"
+        check(ckpt.exists(), f"train wrote no {ckpt}")
+        log = [json.loads(ln) for ln in
+               (d / "log" / exp / "log.jsonl").read_text().splitlines()]
+        losses = [v for e in log if e["name"] == "loss"
+                  for v in e["value"].values()]
+        check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
+              f"logged losses {losses}")
+        wavs = sorted(str(p) for p in (corpus / "dev-clean").rglob("*.wav"))[:2]
+        t0 = time.perf_counter()
+        proc2 = subprocess.run(
+            [sys.executable, "-m", "end_to_end_asr_pytorch_tpu_torch.transcribe",
+             "--config", str(d / "las.yaml"), "--load", str(ckpt),
+             "--output", str(d / "out.tsv"), *wavs],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        check(proc2.returncode == 0,
+              f"transcribe exited {proc2.returncode}: {proc2.stderr[-2000:]}")
+        rows = (d / "out.tsv").read_text().strip().split("\n")
+        check(len(rows) == 2 and all("\t" in r for r in rows),
+              f"transcribe TSV rows: {rows!r}")
+        emit({"phase": "train_entry", "train_seconds": train_s,
+              "transcribe_seconds": time.perf_counter() - t0,
+              "steps_logged": sorted({e["step"] for e in log}),
+              "last_losses": [e["value"] for e in log if e["name"] == "loss"][-2:],
+              "train_stdout_tail": proc.stdout.strip().splitlines()[-2:],
+              "rows": len(rows)})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=32)
-    ap.add_argument("--phases", default="k1,k2,slice,entry",
+    ap.add_argument("--phases",
+                    default="k1,k2,k2b,k3,slice,entry,train,train_entry",
                     help="comma list of phases after build (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -423,7 +821,7 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    secs = build.build(["fbank", "lstm_scan"])
+    secs = build.build(["fbank", "lstm_scan", "ctc_loss"])
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in build.build_log.items()}
@@ -435,6 +833,10 @@ def main():
         kernels["fbank_fused"] = phase_k1(frontend, args.batch, args.seed)
     if "k2" in phases:
         kernels["lstm_scan_fused"] = phase_k2(args.seed, args.batch)
+    if "k2b" in phases:
+        kernels["lstm_bwd_fused"] = phase_k2b(args.seed, args.batch)
+    if "k3" in phases:
+        kernels["ctc_loss_fused"] = phase_k3(args.seed, args.batch)
     if "slice" in phases:
         model, launches = phase_slice(frontend, args.batch, args.seed, device)
         for name, n in launches.items():
@@ -442,6 +844,13 @@ def main():
                 kernels[name]["launches"] = n
         if "entry" in phases:
             phase_entry(model, args.seed)
+    if "train" in phases:
+        launches, _ = phase_train(args.batch, args.seed, device)
+        for name in ("lstm_bwd_fused", "ctc_loss_fused"):
+            if name in kernels:
+                kernels[name]["launches"] = launches[name]
+    if "train_entry" in phases:
+        phase_train_entry(args.seed)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: r.get(k) for k in order} for r in kernels.values()]})

@@ -7,6 +7,13 @@ import yaml
 
 _TOP_LEVEL = ("data", "model", "hparas")
 
+# framework defaults merged under every solver's hparas
+default_hparas: Dict[str, Any] = {
+    "GRAD_CLIP": 5.0,        # global-norm gradient clipping
+    "PROGRESS_STEP": 100,    # console progress every N steps
+    "DEV_N_EXAMPLE": 4,      # dev examples logged during validation
+}
+
 
 def load_config(path: str) -> Dict[str, Any]:
     with open(path, "r", encoding="utf-8") as f:
@@ -25,3 +32,10 @@ def load_config(path: str) -> Dict[str, Any]:
     if data["text"].get("mode") not in ("character", "word", "subword"):
         raise ValueError(f"unknown text mode {data['text'].get('mode')!r}")
     return cfg
+
+
+def merge_hparas(hparas: Dict[str, Any]) -> Dict[str, Any]:
+    """An experiment's hparas merged over ``default_hparas``."""
+    out = dict(default_hparas)
+    out.update(hparas or {})
+    return out

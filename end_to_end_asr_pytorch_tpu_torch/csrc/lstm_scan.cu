@@ -1,36 +1,53 @@
-// Masked LSTM forward time scan (K2, forward only) for Hopper, full f32.
+// Masked LSTM time scan for Hopper, full f32: forward (K2, with optional
+// training residuals) and backward (K2b).
 //
-// Replaces end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py:_run_fwd
-// (reached through lstm_scan_fused). x_proj (T, B, 4H) = x @ W_ih + b is
-// computed outside; the kernel walks all T steps of
+// Forward: replaces end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py:
+// _run_fwd (reached through lstm_scan_fused). x_proj (T, B, 4H) = x @ W_ih + b
+// is computed outside; the kernel walks all T steps of
 //   gates = x_proj[t] + h @ W_hh ; c' = s(f) c + s(i) tanh(g) ; h' = s(o) tanh(c')
 // in torch gate order (i, f, g, o). Masked steps hold the carry and emit 0.
 // `reverse` walks time from T-1 down to 0 by index, which is the TPU
 // wrapper's flip of x_proj and mask without the copies (valid because masks
-// are contiguous prefixes).
+// are contiguous prefixes). When `cs_out` / `gates_out` are non-null the
+// kernel also writes the residuals the backward needs, as _fwd_kernel does:
+// the carried cell state (T, B, H) and the post-activation gates (T, B, 4H);
+// when they are null (serving) it writes neither.
+//
+// Backward: replaces lstm_kernel.py:_bwd_kernel / _run_bwd. It walks time
+// opposite to the forward and emits dxp (T, B, 4H), the gradient of x_proj;
+// dW_hh = hs_prev^T . dxp is one GEMM outside the kernel, as in the TPU
+// wrapper. Per step: dh = dh_carry + dys[t]; with tc = tanh(c_t),
+//   dc = dc_carry + dh o (1 - tc^2), dgates = m [dc g i(1-i), dc c_prev f(1-f),
+//   dc i (1-g^2), dh tc o(1-o)], dh_prev = dgates . W_hh^T,
+//   dh_carry <- dh_prev + (1-m) dh_carry, dc_carry <- m dc f + (1-m) dc_carry.
+// Masked steps give zero gate gradients, both carries pass through them and
+// their dys is dropped. "Previous step" is t-1 for a forward scan and t+1
+// for a reversed one (zero at the first step walked by the forward).
 //
 // Bound on the H100: the T serial steps, each a (B, H) x (H, 4H) product in
 // f32 (no tensor cores at full f32: 67 TFLOP/s), plus one grid-wide barrier
-// per step. Design: ONE persistent cooperative launch per (layer,
-// direction). Block j owns U hidden units across all four gates, so the gate
-// epilogue needs no cross-block reduction; its (H x 4U) slice of W_hh stays
-// in shared memory for the whole scan and its cell state stays in shared
-// memory too. Each step a block loads its threads' gate inputs and mask
-// first (they do not depend on h, so their HBM latency overlaps the
-// product), then streams h_{t-1} (kept k-major, (H, B), in a double buffer
-// in global memory / L2) through a 64 KB shared-memory chunk (128 rows of h
-// per chunk at U=4), accumulates 2 rows x 4 gates per thread in registers,
-// writes its slice of h_t and y_t, and meets the other blocks at
-// grid.sync(). U is a template constant, so the chunk indexing is shifts.
-// The grid must be co-resident; the wrapper checks it with the occupancy
-// API and cudaLaunchCooperativeKernel refuses a grid that is not.
+// per step. Design, the same for both directions of the pass: ONE persistent
+// cooperative launch per (layer, direction). Block j owns U hidden units
+// across all four gates; its slice of W_hh (4U columns in the forward, U
+// rows in the backward, stored as float4 over the gates) and its carries
+// stay in shared memory for the whole scan. Each step a block first loads
+// its threads' step inputs (they do not depend on the product, so their HBM
+// latency overlaps it), then streams the previous step's full h (forward,
+// (H, B)) or full dgates (backward, (H, B) of float4: the backward product
+// reduces over all 4H gate columns, so every block needs all of them)
+// through a 64 KB shared-memory chunk, accumulates in registers, writes its
+// slice of the step's outputs into a global double buffer and meets the
+// other blocks at grid.sync(). U is a template constant, so the chunk
+// indexing is shifts. The grid must be co-resident; the wrapper checks it
+// with the occupancy API and cudaLaunchCooperativeKernel refuses a grid that
+// is not.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
 
 #define NT 256     // threads per block
-#define HS 16384   // floats of the shared-memory chunk of h (64 KB)
+#define HS 16384   // floats of the shared-memory chunk (64 KB)
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
@@ -42,6 +59,7 @@ template <int U>
 __global__ void __launch_bounds__(NT) lstm_fwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ whh,
     const float* __restrict__ mask, float* __restrict__ ys, float* hbuf,
+    float* __restrict__ cs_out, float* __restrict__ gates_out,
     int T, int B, int H, int reverse) {
   constexpr int RP = NT / U;
   constexpr int RB = 2 * RP;
@@ -53,6 +71,7 @@ __global__ void __launch_bounds__(NT) lstm_fwd_kernel(
   float* h_s = (float*)(smem4 + H * U);      // KC x RB chunk of h, k-major
   float* c_s = h_s + HS;                     // B x U cell state
   const int u0 = blockIdx.x * U;
+  const bool keep = cs_out != nullptr;
 
   for (int idx = threadIdx.x; idx < H * U; idx += NT) {
     const int k = idx / U, u = idx % U;
@@ -108,45 +127,181 @@ __global__ void __launch_bounds__(NT) lstm_fwd_kernel(
       for (int j = 0; j < 2; ++j) {
         const int row = r0 + 2 * rp + j;
         if (row >= B) continue;
+        const float gi = sigmoidf_(a[j][0]), gf = sigmoidf_(a[j][1]);
+        const float gg = tanhf(a[j][2]), go = sigmoidf_(a[j][3]);
         const float c_old = c_s[row * U + u];
         const float h_old = hprev[(size_t)unit * B + row];
-        const float c_new = sigmoidf_(a[j][1]) * c_old
-                            + sigmoidf_(a[j][0]) * tanhf(a[j][2]);
-        const float h_new = sigmoidf_(a[j][3]) * tanhf(c_new);
-        c_s[row * U + u] = m[j] * c_new + (1.f - m[j]) * c_old;
+        const float c_new = gf * c_old + gi * gg;
+        const float h_new = go * tanhf(c_new);
+        const float c_keep = m[j] * c_new + (1.f - m[j]) * c_old;
+        const size_t o = (size_t)t * B + row;
+        c_s[row * U + u] = c_keep;
         hnext[(size_t)unit * B + row] = m[j] * h_new + (1.f - m[j]) * h_old;
-        ys[((size_t)t * B + row) * H + unit] = m[j] * h_new;
+        ys[o * H + unit] = m[j] * h_new;
+        if (keep) {
+          cs_out[o * H + unit] = c_keep;
+          float* gr = gates_out + o * G + unit;
+          gr[0] = gi; gr[H] = gf; gr[2 * H] = gg; gr[3 * H] = go;
+        }
       }
     }
     grid.sync();
   }
 }
 
-typedef void (*lstm_fn)(const float*, const float*, const float*, float*,
-                        float*, int, int, int, int);
+// Backward (K2b). Block j owns units u0..u0+U-1: w_s[k*U + u] holds
+// W_hh[u0+u, g*H + k] for the four gates g, dgbuf[k*B + row] the previous
+// walked step's dgates of unit k (float4 over the gates). Rows per pass are
+// rb = min(RB, B rounded up to even), so a small batch streams longer chunks.
+template <int U>
+__global__ void __launch_bounds__(NT) lstm_bwd_kernel(
+    const float* __restrict__ gates, const float* __restrict__ cs,
+    const float* __restrict__ dys, const float* __restrict__ mask,
+    const float* __restrict__ whh, float* __restrict__ dxp, float4* dgbuf,
+    int T, int B, int H, int reverse) {
+  constexpr int RP = NT / U;
+  constexpr int RB = 2 * RP;
+  constexpr int HS4 = HS / 4;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem4[];
+  const int G = 4 * H;
+  float4* w_s = smem4;                       // H*U
+  float4* d_s = smem4 + H * U;               // kc x rb chunk of dgates
+  float* dh_s = (float*)(d_s + HS4);         // B x U: (1-m) dh_carry
+  float* dc_s = dh_s + B * U;                // B x U: dc_carry
+  const int u0 = blockIdx.x * U;
 
-static lstm_fn kernel_for(int U) {
-  switch (U) {
-    case 1: return lstm_fwd_kernel<1>;
-    case 2: return lstm_fwd_kernel<2>;
-    case 4: return lstm_fwd_kernel<4>;
-    case 8: return lstm_fwd_kernel<8>;
-    case 16: return lstm_fwd_kernel<16>;
-    case 32: return lstm_fwd_kernel<32>;
-    case 64: return lstm_fwd_kernel<64>;
-    case 128: return lstm_fwd_kernel<128>;
-    default: return nullptr;
+  for (int idx = threadIdx.x; idx < H * U; idx += NT) {
+    const int k = idx / U, u = idx % U;
+    const float* row = whh + (size_t)(u0 + u) * G + k;
+    w_s[idx] = make_float4(row[0], row[H], row[2 * H], row[3 * H]);
+  }
+  for (int idx = threadIdx.x; idx < B * U; idx += NT) {
+    dh_s[idx] = 0.f;
+    dc_s[idx] = 0.f;
+  }
+  __syncthreads();
+
+  const int rp = threadIdx.x % RP;
+  const int u = threadIdx.x / RP;
+  const int unit = u0 + u;
+  const int rb = min(RB, (B + 1) & ~1);
+  const int kc = HS4 / rb;
+  const bool active = 2 * rp < rb;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? s : T - 1 - s;
+    const int tp = reverse ? t + 1 : t - 1;
+    const bool has_prev = tp >= 0 && tp < T;
+    const float4* dprev = dgbuf + (size_t)((s + 1) & 1) * H * B;
+    float4* dnext = dgbuf + (size_t)(s & 1) * H * B;
+    for (int r0 = 0; r0 < B; r0 += rb) {
+      float gi[2], gf[2], gg[2], go[2], ct[2], cp[2], dy[2], m[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = r0 + 2 * rp + j;
+        const bool ok = active && row < B;
+        const size_t o = (size_t)t * B + (ok ? row : 0);
+        const float* gr = gates + o * G + unit;
+        gi[j] = ok ? gr[0] : 0.f;
+        gf[j] = ok ? gr[H] : 0.f;
+        gg[j] = ok ? gr[2 * H] : 0.f;
+        go[j] = ok ? gr[3 * H] : 0.f;
+        ct[j] = ok ? cs[o * H + unit] : 0.f;
+        cp[j] = (ok && has_prev) ? cs[((size_t)tp * B + row) * H + unit] : 0.f;
+        dy[j] = ok ? dys[o * H + unit] : 0.f;
+        m[j] = ok ? mask[o] : 0.f;
+      }
+      float acc[2] = {0.f, 0.f};
+      for (int k0 = 0; k0 < H; k0 += kc) {
+        for (int idx = threadIdx.x; idx < kc * rb; idx += NT) {
+          const int kk = idx / rb, r = idx % rb;
+          const int row = r0 + r;
+          d_s[idx] = (k0 + kk < H && row < B)
+                         ? dprev[(size_t)(k0 + kk) * B + row] : zero4;
+        }
+        __syncthreads();
+        if (active) {
+          const int kmax = min(kc, H - k0);
+#pragma unroll 4
+          for (int kk = 0; kk < kmax; ++kk) {
+            const float4 w = w_s[(k0 + kk) * U + u];
+            const float4 d0 = d_s[kk * rb + 2 * rp];
+            const float4 d1 = d_s[kk * rb + 2 * rp + 1];
+            acc[0] = fmaf(d0.x, w.x, acc[0]); acc[0] = fmaf(d0.y, w.y, acc[0]);
+            acc[0] = fmaf(d0.z, w.z, acc[0]); acc[0] = fmaf(d0.w, w.w, acc[0]);
+            acc[1] = fmaf(d1.x, w.x, acc[1]); acc[1] = fmaf(d1.y, w.y, acc[1]);
+            acc[1] = fmaf(d1.z, w.z, acc[1]); acc[1] = fmaf(d1.w, w.w, acc[1]);
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = r0 + 2 * rp + j;
+        if (!active || row >= B) continue;
+        const int ci = row * U + u;
+        const float dh_carry = acc[j] + dh_s[ci];
+        const float dh = dh_carry + dy[j];
+        const float tc = tanhf(ct[j]);
+        const float dov = dh * tc;
+        const float dc = dc_s[ci] + dh * go[j] * (1.f - tc * tc);
+        const float di = dc * gg[j], dg = dc * gi[j], df = dc * cp[j];
+        const float4 dgt = make_float4(
+            m[j] * (di * gi[j] * (1.f - gi[j])),
+            m[j] * (df * gf[j] * (1.f - gf[j])),
+            m[j] * (dg * (1.f - gg[j] * gg[j])),
+            m[j] * (dov * go[j] * (1.f - go[j])));
+        dh_s[ci] = (1.f - m[j]) * dh_carry;
+        dc_s[ci] = m[j] * (dc * gf[j]) + (1.f - m[j]) * dc_s[ci];
+        float* out = dxp + ((size_t)t * B + row) * G + unit;
+        out[0] = dgt.x; out[H] = dgt.y; out[2 * H] = dgt.z; out[3 * H] = dgt.w;
+        dnext[(size_t)unit * B + row] = dgt;
+      }
+    }
+    grid.sync();
   }
 }
 
-extern "C" size_t lstm_smem_bytes(int B, int H, int U) {
-  return (size_t)H * U * sizeof(float4) + (size_t)(HS + B * U) * sizeof(float);
+typedef void (*lstm_fwd_fn)(const float*, const float*, const float*, float*,
+                            float*, float*, float*, int, int, int, int);
+typedef void (*lstm_bwd_fn)(const float*, const float*, const float*,
+                            const float*, const float*, float*, float4*, int,
+                            int, int, int);
+
+#define LSTM_KERNEL_FOR(KERNEL, FN_T)                 \
+  static FN_T KERNEL##_for(int U) {                   \
+    switch (U) {                                      \
+      case 1: return KERNEL<1>;                       \
+      case 2: return KERNEL<2>;                       \
+      case 4: return KERNEL<4>;                       \
+      case 8: return KERNEL<8>;                       \
+      case 16: return KERNEL<16>;                     \
+      case 32: return KERNEL<32>;                     \
+      case 64: return KERNEL<64>;                     \
+      case 128: return KERNEL<128>;                   \
+      default: return nullptr;                        \
+    }                                                 \
+  }
+LSTM_KERNEL_FOR(lstm_fwd_kernel, lstm_fwd_fn)
+LSTM_KERNEL_FOR(lstm_bwd_kernel, lstm_bwd_fn)
+
+// Dynamic shared memory of one block: the W_hh slice (float4 per unit and
+// k), the 64 KB chunk, and the carries (one B x U array forward, two back).
+extern "C" size_t lstm_smem_bytes(int B, int H, int U, int bwd) {
+  return (size_t)H * U * sizeof(float4) +
+         (size_t)(HS + (bwd ? 2 : 1) * B * U) * sizeof(float);
 }
 
-// Blocks of the U-unit kernel that can be resident at once on the whole
-// card (0 when one block's shared memory does not fit).
-extern "C" int lstm_max_coresident(int B, int H, int U, int* out) {
-  lstm_fn fn = kernel_for(U);
+static void* kernel_ptr(int U, int bwd) {
+  return bwd ? (void*)lstm_bwd_kernel_for(U) : (void*)lstm_fwd_kernel_for(U);
+}
+
+// Blocks of the U-unit kernel (forward, or backward when bwd) that can be
+// resident at once on the whole card (0 when one block's shared memory does
+// not fit).
+extern "C" int lstm_max_coresident(int B, int H, int U, int bwd, int* out) {
+  void* fn = kernel_ptr(U, bwd);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -156,7 +311,7 @@ extern "C" int lstm_max_coresident(int B, int H, int U, int* out) {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = lstm_smem_bytes(B, H, U);
+  const size_t smem = lstm_smem_bytes(B, H, U, bwd);
   *out = 0;
   if (smem > (size_t)optin) return 0;
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -168,21 +323,42 @@ extern "C" int lstm_max_coresident(int B, int H, int U, int* out) {
   return 0;
 }
 
-extern "C" int lstm_fwd_launch(const float* xp, const float* whh,
-                               const float* mask, float* ys, float* hbuf,
-                               int T, int B, int H, int U, int reverse,
-                               void* stream) {
-  lstm_fn fn = kernel_for(U);
-  if (fn == nullptr || H % U != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = lstm_smem_bytes(B, H, U);
+static int launch(void* fn, int U, int H, size_t smem, void** args,
+                  void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  void* args[] = {(void*)&xp, (void*)&whh, (void*)&mask, (void*)&ys,
-                  (void*)&hbuf, (void*)&T, (void*)&B, (void*)&H,
-                  (void*)&reverse};
-  e = cudaLaunchCooperativeKernel((void*)fn, dim3(H / U), dim3(NT), args,
-                                  smem, (cudaStream_t)stream);
+  e = cudaLaunchCooperativeKernel(fn, dim3(H / U), dim3(NT), args, smem,
+                                  (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// cs_out / gates_out may both be null (no residuals).
+extern "C" int lstm_fwd_launch(const float* xp, const float* whh,
+                               const float* mask, float* ys, float* hbuf,
+                               float* cs_out, float* gates_out, int T, int B,
+                               int H, int U, int reverse, void* stream) {
+  void* fn = kernel_ptr(U, 0);
+  if (fn == nullptr || H % U != 0 || (cs_out == nullptr) != (gates_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&xp, (void*)&whh, (void*)&mask, (void*)&ys,
+                  (void*)&hbuf, (void*)&cs_out, (void*)&gates_out, (void*)&T,
+                  (void*)&B, (void*)&H, (void*)&reverse};
+  return launch(fn, U, H, lstm_smem_bytes(B, H, U, 0), args, stream);
+}
+
+// dgbuf: 2 * H * B float4, zero-filled by the caller.
+extern "C" int lstm_bwd_launch(const float* gates, const float* cs,
+                               const float* dys, const float* mask,
+                               const float* whh, float* dxp, void* dgbuf,
+                               int T, int B, int H, int U, int reverse,
+                               void* stream) {
+  void* fn = kernel_ptr(U, 1);
+  if (fn == nullptr || H % U != 0) return (int)cudaErrorInvalidValue;
+  float4* dg = (float4*)dgbuf;
+  void* args[] = {(void*)&gates, (void*)&cs, (void*)&dys, (void*)&mask,
+                  (void*)&whh, (void*)&dxp, (void*)&dg, (void*)&T, (void*)&B,
+                  (void*)&H, (void*)&reverse};
+  return launch(fn, U, H, lstm_smem_bytes(B, H, U, 1), args, stream);
 }

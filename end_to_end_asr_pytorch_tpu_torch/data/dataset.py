@@ -1,0 +1,217 @@
+"""Dataset loading and fixed-shape batching (the port's copy of the JAX
+package's ``data/dataset.py``, ASR side).
+
+``load_dataset(...) -> (tr_set, dv_set, feat_dim, vocab_size, tokenizer,
+msg)``. Batches carry raw waveforms, padded so that the frame count is a
+multiple of ``frame_quantum`` (64 frames) and the label length a multiple of
+``text_quantum`` (16 tokens): few distinct shapes. PCM16-exact waveforms
+travel as int16 (the front end dequantizes them bit-exactly). Bucketing sorts
+by length, chunks into batches and shuffles the batch order per epoch;
+``shuffle=False`` gives the ascending order of curriculum learning.
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+from collections import OrderedDict, deque
+from typing import Any, Dict, Iterator, List, Optional
+
+import numpy as np
+
+from .librispeech import LibriDataset
+from ..ops.audio import create_transform
+from ..utils.text import load_text_encoder
+
+DEFAULT_CACHE_BYTES = 2 << 30  # 2 GiB of decoded waveforms
+HOP = 160  # 10 ms at 16 kHz; kept in sync with ops/audio defaults
+
+
+class LRUWaveCache:
+    """Byte-budget LRU for decoded waveforms; items larger than the whole
+    budget are never cached. Thread-safe (the n_jobs pool shares it)."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = int(max_bytes)
+        self._items: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self.nbytes = 0
+        self._lock = threading.Lock()
+
+    def get(self, key: int) -> Optional[np.ndarray]:
+        with self._lock:
+            w = self._items.get(key)
+            if w is not None:
+                self._items.move_to_end(key)
+            return w
+
+    def put(self, key: int, wave: np.ndarray) -> None:
+        nb = wave.nbytes
+        with self._lock:
+            if nb > self.max_bytes or key in self._items:
+                return
+            while self.nbytes + nb > self.max_bytes and self._items:
+                _, old = self._items.popitem(last=False)
+                self.nbytes -= old.nbytes
+            self._items[key] = wave
+            self.nbytes += nb
+
+    def __len__(self):
+        return len(self._items)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class AudioBatchLoader:
+    """Iterable over fixed-shape numpy batches: wave, wave_len, text,
+    text_len, name, text_raw."""
+
+    def __init__(self, dataset: LibriDataset, batch_size: int,
+                 frame_quantum: int = 64, text_quantum: int = 16,
+                 shuffle: bool = True, ascending: bool = False,
+                 seed: int = 0, cache_waves: bool = True, n_jobs: int = 0,
+                 bucketing: bool = True,
+                 cache_bytes: int = DEFAULT_CACHE_BYTES):
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.n_jobs = n_jobs
+        self.frame_quantum = frame_quantum
+        self.text_quantum = text_quantum
+        self.shuffle = shuffle and not ascending
+        self.ascending = ascending
+        self.rng = np.random.RandomState(seed)
+        self._wave_cache: Optional[LRUWaveCache] = (
+            LRUWaveCache(cache_bytes) if cache_waves and cache_bytes > 0
+            else None)
+        n = len(dataset)
+        idx = list(range(n))  # the dataset is sorted ascending by size
+        if not bucketing:
+            self.rng.shuffle(idx)
+        self.batches = [idx[i:i + batch_size] for i in range(0, n, batch_size)]
+
+    def __len__(self):
+        return len(self.batches)
+
+    @staticmethod
+    def _pack_i16(w: np.ndarray) -> np.ndarray:
+        """PCM16-exact waveforms as int16 (half the cache and the transfer);
+        anything else stays float32."""
+        if w.dtype == np.int16:
+            return w
+        s = w.astype(np.float64) * 32768.0
+        if (s.size and -32768.0 <= s.min() and s.max() <= 32767.0
+                and np.array_equal(s, np.rint(s))):
+            return s.astype(np.int16)
+        return w
+
+    def _wave(self, i: int) -> np.ndarray:
+        if self._wave_cache is not None:
+            w = self._wave_cache.get(i)
+            if w is None:
+                w = self._pack_i16(self.ds.load_wave(i))
+                self._wave_cache.put(i, w)
+            return w
+        return self._pack_i16(self.ds.load_wave(i))
+
+    def _pad_samples(self, s_max: int) -> int:
+        t_pad = _round_up(s_max // HOP + 1, self.frame_quantum)
+        s_pad = (t_pad - 1) * HOP
+        if s_pad < s_max:
+            t_pad += self.frame_quantum
+            s_pad = (t_pad - 1) * HOP
+        return s_pad
+
+    def make_batch(self, ids: List[int]) -> Dict[str, Any]:
+        waves = [self._wave(i) for i in ids]
+        texts = [self.ds.text_ids(i) for i in ids]
+        s_pad = self._pad_samples(max(len(w) for w in waves))
+        u_pad = _round_up(max(len(t) for t in texts), self.text_quantum)
+        B = len(ids)
+        wave_dtype = (np.int16 if all(w.dtype == np.int16 for w in waves)
+                      else np.float32)
+        if wave_dtype == np.float32:
+            waves = [w.astype(np.float32) / 32768.0
+                     if w.dtype == np.int16 else w for w in waves]
+        wave = np.zeros((B, s_pad), wave_dtype)
+        wave_len = np.zeros((B,), np.int32)
+        text = np.zeros((B, u_pad), np.int32)
+        text_len = np.zeros((B,), np.int32)
+        for b, (w, t) in enumerate(zip(waves, texts)):
+            wave[b, :len(w)] = w
+            wave_len[b] = len(w)
+            text[b, :len(t)] = t
+            text_len[b] = len(t)
+        return {"wave": wave, "wave_len": wave_len, "text": text,
+                "text_len": text_len,
+                "name": [self.ds.utt_id(i) for i in ids],
+                "text_raw": [self.ds.text_raw(i) for i in ids]}
+
+    def epoch_iter(self, shuffle: Optional[bool] = None
+                   ) -> Iterator[Dict[str, Any]]:
+        """One epoch in shuffled batch order, or ascending with
+        shuffle=False. With n_jobs > 0 a pool of n_jobs threads assembles up
+        to 2*n_jobs batches ahead, delivered in order; closing the generator
+        early cancels the pending work."""
+        order = list(range(len(self.batches)))
+        if self.shuffle if shuffle is None else shuffle:
+            self.rng.shuffle(order)
+        if self.n_jobs <= 0:
+            for bi in order:
+                yield self.make_batch(self.batches[bi])
+            return
+        from concurrent.futures import ThreadPoolExecutor
+        window = max(2, 2 * self.n_jobs)
+        ex = ThreadPoolExecutor(max_workers=self.n_jobs)
+        futs: "deque" = deque()
+        it = iter(order)
+        try:
+            for bi in itertools.islice(it, window):
+                futs.append(ex.submit(self.make_batch, self.batches[bi]))
+            while futs:
+                item = futs.popleft().result()
+                nxt = next(it, None)
+                if nxt is not None:
+                    futs.append(ex.submit(self.make_batch, self.batches[nxt]))
+                yield item
+        finally:
+            while futs:
+                futs.popleft().cancel()
+            ex.shutdown(wait=False, cancel_futures=True)
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        return self.epoch_iter()
+
+
+def _make_corpus(corpus_cfg: Dict[str, Any], splits, tokenizer) -> LibriDataset:
+    name = corpus_cfg.get("name", "librispeech").lower()
+    if name in ("librispeech", "synthetic"):  # synthetic uses libri layout
+        return LibriDataset(corpus_cfg["path"], splits, tokenizer)
+    raise NotImplementedError(f"corpus {name!r}")
+
+
+def load_dataset(n_jobs: int, ascending: bool, corpus: Dict[str, Any],
+                 audio: Dict[str, Any], text: Dict[str, Any],
+                 frame_quantum: int = 64):
+    """Training data: (tr_set, dv_set, feat_dim, vocab_size, tokenizer,
+    msg). ``ascending`` gives the train set curriculum order."""
+    tokenizer = load_text_encoder(text["mode"], text["vocab_file"])
+    _, feat_dim = create_transform(audio)
+    bs = int(corpus.get("batch_size", 8))
+    bucketing = bool(corpus.get("bucketing", True))
+    cache_bytes = int(corpus.get("cache_bytes", DEFAULT_CACHE_BYTES))
+    tr_ds = _make_corpus(corpus, corpus["train_split"], tokenizer)
+    dv_ds = _make_corpus(corpus, corpus["dev_split"], tokenizer)
+    tr_set = AudioBatchLoader(tr_ds, bs, frame_quantum=frame_quantum,
+                              shuffle=not ascending, ascending=ascending,
+                              n_jobs=n_jobs, bucketing=bucketing,
+                              cache_bytes=cache_bytes)
+    dv_set = AudioBatchLoader(dv_ds, bs, frame_quantum=frame_quantum,
+                              shuffle=False, cache_bytes=cache_bytes)
+    msg = [
+        f"I/O spec  | audio feat = {audio.get('feat_type', 'fbank')} "
+        f"(dim {feat_dim}) | tokenizer = {text['mode']} "
+        f"(vocab {tokenizer.vocab_size})",
+        f"Corpus    | {corpus.get('name')} at {corpus['path']} | "
+        f"train {len(tr_ds)} utts / dev {len(dv_ds)} utts | batch {bs}",
+    ]
+    return tr_set, dv_set, feat_dim, tokenizer.vocab_size, tokenizer, msg

@@ -1,10 +1,38 @@
-"""Greedy CTC best-path decoding (used by ``transcribe`` for CTC-only models)."""
+"""Greedy decoding: CTC best path and the attention decoder's self-fed
+argmax (validation and CTC-only transcription)."""
 from __future__ import annotations
 
 import torch
+
+from ..models.asr import ASR
+from ..utils.text import EOS_IDX
 
 
 def ctc_greedy(ctc_output: torch.Tensor) -> torch.Tensor:
     """(B, T, V) log-probs -> (B, T) best-path ids (collapse happens in the
     tokenizer's ignore_repeat decode)."""
     return torch.argmax(ctc_output, dim=-1).to(torch.int32)
+
+
+def att_greedy(model: ASR, enc: torch.Tensor, enc_len: torch.Tensor,
+               max_step: int) -> torch.Tensor:
+    """Self-fed argmax decode for up to ``max_step`` steps -> (B, max_step)
+    int32 ids; a row emits <eos> for every step after its first <eos>. The
+    loop stops once every row is done: the remaining steps would all write
+    <eos>, which the output is pre-filled with, so the output is identical
+    to running all ``max_step`` steps."""
+    B = enc.shape[0]
+    cache, state, align = model.init_decode(enc, enc_len)
+    ids = torch.full((B, max_step), EOS_IDX, dtype=torch.int32,
+                     device=enc.device)
+    prev = torch.full((B,), EOS_IDX, dtype=torch.int64, device=enc.device)
+    done = torch.zeros((B,), dtype=torch.bool, device=enc.device)
+    for t in range(max_step):
+        logits, state, align, _ = model.decode_step(cache, state, align, prev)
+        pred = torch.where(done, EOS_IDX, torch.argmax(logits, dim=-1))
+        ids[:, t] = pred.to(torch.int32)
+        done = done | (pred == EOS_IDX)
+        prev = pred
+        if bool(done.all()):
+            break
+    return ids

@@ -1,18 +1,22 @@
-"""The ASR model: encoder + optional CTC head + optional attention decoder
-(inference side). ``ctc_weight > 0`` enables the CTC head, ``< 1`` the
-attention decoder, as in the JAX package."""
+"""The ASR model: encoder + optional CTC head + optional attention decoder.
+``ctc_weight > 0`` enables the CTC head, ``< 1`` the attention decoder, as in
+the JAX package. ``forward`` is the teacher-forced training pass: a Python
+loop over label steps (the JAX package's ``lax.scan``; its remat and unroll
+are XLA devices that change no number and are not carried over)."""
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..utils.init import const, uniform
 from .attention import Attention, AttCache
 from .decoder import Decoder, DecoderState
-from .encoder import Encoder
+from .encoder import Encoder, dropout
+from ..utils.text import EOS_IDX
 
 
 class ASR(nn.Module):
@@ -29,6 +33,7 @@ class ASR(nn.Module):
             raise ValueError(f"ctc_weight {self.ctc_weight} not in [0, 1]")
         self.enable_ctc = self.ctc_weight > 0.0
         self.enable_att = self.ctc_weight < 1.0
+        self.emb_drop = float(cfg.get("emb_drop", 0.0))
         g, dev = generator, device
         self.encoder = Encoder(input_size, cfg["encoder"], g, dev)
         enc_dim = self.encoder.out_dim
@@ -50,8 +55,9 @@ class ASR(nn.Module):
                                   self.decoder.out_dim, g, dev)
             self.char_b = const(vocab_size, 0.0, dev)
 
-    def encode(self, feat: torch.Tensor, feat_len: torch.Tensor):
-        return self.encoder(feat, feat_len)
+    def encode(self, feat: torch.Tensor, feat_len: torch.Tensor,
+               train: bool = False, generator=None):
+        return self.encoder(feat, feat_len, train=train, generator=generator)
 
     def ctc_logits(self, enc: torch.Tensor) -> torch.Tensor:
         return enc @ self.ctc_w + self.ctc_b
@@ -68,6 +74,99 @@ class ASR(nn.Module):
         b = c0.b if self.decoder.module == "lstm" else c0.b_ih
         return {"emb_proj": self.embed @ c0.w_ih[:E] + b,
                 "w_ctx": c0.w_ih[E:]}
+
+    def init_decode(self, enc: torch.Tensor, enc_len: torch.Tensor):
+        """-> (attention cache, zero decoder state, initial alignment)."""
+        cache = self.attention.precompute(enc, enc_len)
+        state = self.decoder.init_state(enc.shape[0], device=enc.device)
+        return cache, state, self.attention.init_align(cache)
+
+    def decode_step(self, cache: AttCache, state: DecoderState,
+                    prev_align: torch.Tensor, prev_token: torch.Tensor, *,
+                    train: bool = False, generator=None, tables=None):
+        """One label-synchronous step: prev_token (B,) -> (logits (B, V),
+        state, align (B, H, T), context). Attention is queried with the
+        previous decoder state, then the decoder consumes
+        [emb(prev_token) ; context] (or the ``tables`` lookup, which needs
+        emb_drop == 0)."""
+        context, align = self.attention.step(cache, self.decoder.query(state),
+                                             prev_align)
+        if tables is not None:
+            oh = F.one_hot(prev_token.long(), self.vocab_size).to(
+                tables["emb_proj"].dtype)
+            x0 = oh @ tables["emb_proj"] + context @ tables["w_ctx"]
+            dec_out, state = self.decoder.step(state, x0_proj=x0, train=train,
+                                               generator=generator)
+        else:
+            emb = self.embed[prev_token.long()]
+            if train and self.emb_drop > 0:
+                emb = dropout(emb, self.emb_drop, generator)
+            dec_out, state = self.decoder.step(
+                state, torch.cat([emb, context], dim=-1), train=train,
+                generator=generator)
+        logits = dec_out @ self.char_w + self.char_b
+        return logits, state, align, context
+
+    def forward(self, feat: torch.Tensor, feat_len: torch.Tensor,
+                decode_step: int, tf_rate: float = 1.0,
+                teacher: Optional[torch.Tensor] = None, *,
+                train: bool = False, generator=None):
+        """-> (ctc_output (B, T', V) | None, encode_len (B,),
+        att_output (B, U, V) | None, att_align (B, U, H, T') | None,
+        dec_state: the final top-layer hidden (B, dec_dim) | None).
+
+        Step 0 is fed <sos>; each later step one Bernoulli(tf_rate) coin for
+        the whole batch, drawn from ``generator``, picks the teacher token or
+        the previous step's argmax. ``teacher=None`` self-feeds every step.
+        Its parts are profiler ranges (``asr.encode``, ``asr.ctc_head``,
+        ``asr.label_scan``)."""
+        with record_function("asr.encode"):
+            enc, enc_len = self.encode(feat, feat_len, train=train,
+                                       generator=generator if train else None)
+        ctc_out = att_out = att_align = dec_state = None
+        if self.enable_ctc:
+            with record_function("asr.ctc_head"):
+                ctc_out = self.ctc_output(enc)
+        if self.enable_att and decode_step > 0:
+            with record_function("asr.label_scan"):
+                att_out, att_align, dec_state = self.label_scan(
+                    enc, enc_len, decode_step, tf_rate, teacher, train=train,
+                    generator=generator)
+        return ctc_out, enc_len, att_out, att_align, dec_state
+
+    def label_scan(self, enc: torch.Tensor, enc_len: torch.Tensor,
+                   decode_step: int, tf_rate: float = 1.0,
+                   teacher: Optional[torch.Tensor] = None, *,
+                   train: bool = False, generator=None):
+        """The attention decoder over ``decode_step`` label steps ->
+        (att_output (B, U, V), att_align (B, U, H, T'), final top-layer
+        hidden (B, dec_dim)); see ``forward``."""
+        B = enc.shape[0]
+        dev = enc.device
+        cache, state, align = self.init_decode(enc, enc_len)
+        sos = torch.full((B, 1), EOS_IDX, dtype=torch.int64, device=dev)
+        if teacher is not None:
+            coins = torch.rand(decode_step, generator=generator,
+                               device=dev) <= tf_rate
+            coins[0] = True
+            tf_toks = torch.cat([sos, teacher[:, :decode_step - 1].long()], 1)
+        else:
+            coins = torch.arange(decode_step, device=dev) == 0
+            tf_toks = sos.expand(B, decode_step)
+        tables = (self.precompute_decode_tables()
+                  if (self.emb_drop == 0.0 or not train) else None)
+        pred = sos[:, 0]
+        logits_all, aligns = [], []
+        for u in range(decode_step):
+            prev = torch.where(coins[u], tf_toks[:, u], pred)
+            logits, state, align, _ = self.decode_step(
+                cache, state, align, prev, train=train,
+                generator=generator if train else None, tables=tables)
+            pred = torch.argmax(logits, dim=-1)
+            logits_all.append(logits)
+            aligns.append(align)
+        return (torch.stack(logits_all, dim=1), torch.stack(aligns, dim=1),
+                self.decoder.query(state))
 
     def decode_step_beam(self, cache: AttCache, state: DecoderState,
                          prev_align: torch.Tensor, prev_token: torch.Tensor,

@@ -1,10 +1,14 @@
-"""Attention for the beam decoder: scaled-dot and location-aware.
+"""Attention for the decoders and the training label scan: scaled-dot and
+location-aware.
 
 Modes ``'dot' | 'loc'``, multi-head (``num_head``, merged by ``w_merge``),
 softmax ``temperature`` and optional value projection (``v_proj``), as in
 the JAX package. Key/value projections are computed once per utterance
 (``precompute``); ``step_beam`` advances K hypotheses against the
-unexpanded (B, ...) cache.
+unexpanded (B, ...) cache and ``step`` one hypothesis (the differentiable
+step of the teacher-forced label scan and of greedy decoding).
+``use_pallas_train: true`` (the fused training step, kernel K7) is not
+ported yet and raises.
 
 The location features are a plain ``F.conv1d`` over the summed previous
 alignment. XLA's ``SAME`` padding for an even kernel is asymmetric (low
@@ -43,6 +47,10 @@ class Attention(nn.Module):
         self.mode = cfg.get("mode", "loc")
         if self.mode not in ("dot", "loc"):
             raise NotImplementedError(f"attention mode {self.mode!r}")
+        if cfg.get("use_pallas_train", False):
+            raise NotImplementedError(
+                "attention.use_pallas_train: the fused training attention "
+                "kernel (K7) is not ported yet")
         self.num_head = int(cfg.get("num_head", 1))
         self.dim = int(cfg.get("dim", 300))
         self.temperature = float(cfg.get("temperature", 0.5))
@@ -92,6 +100,14 @@ class Attention(nn.Module):
         ks = self.loc_conv.shape[-1]
         ap = F.pad(a[:, None, :], ((ks - 1) // 2, ks // 2))
         return F.conv1d(ap, self.loc_conv).transpose(1, 2)
+
+    def step(self, cache: AttCache, query: torch.Tensor,
+             prev_align: torch.Tensor):
+        """query (B, Dq), prev_align (B, H, T) ->
+        (context (B, context_dim), align (B, H, T)): ``step_beam`` with one
+        hypothesis, the same arithmetic as the JAX package's ``step``."""
+        ctx, align = self.step_beam(cache, query[:, None], prev_align[:, None])
+        return ctx[:, 0], align[:, 0]
 
     def step_beam(self, cache: AttCache, query: torch.Tensor,
                   prev_align: torch.Tensor):

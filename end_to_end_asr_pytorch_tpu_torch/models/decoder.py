@@ -1,5 +1,6 @@
 """Speller / decoder: stacked LSTM or GRU cells advanced one label step at a
-time over an explicit ``DecoderState`` (inference only)."""
+time over an explicit ``DecoderState``. ``dropout`` applies between layers
+in training steps only, its masks drawn from the caller's generator."""
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -8,6 +9,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import rnn as rnn_ops
+from .encoder import dropout
 
 
 class DecoderState(NamedTuple):
@@ -22,6 +24,7 @@ class Decoder(nn.Module):
         self.module = cfg.get("module", "LSTM").lower()
         self.dim = int(cfg["dim"])
         self.layers = int(cfg.get("layer", 1))
+        self.dropout = float(cfg.get("dropout", 0.0))
         self.out_dim = self.dim
         cells, d = [], in_dim
         for _ in range(self.layers):
@@ -39,6 +42,7 @@ class Decoder(nn.Module):
         return state.h[-1]
 
     def step(self, state: DecoderState, x: Optional[torch.Tensor] = None, *,
+             train: bool = False, generator=None,
              x0_proj: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, DecoderState]:
         """x (B, in_dim) -> (output (B, dim), new state). ``x0_proj`` (B, G)
@@ -60,5 +64,7 @@ class Decoder(nn.Module):
                 h_new = rnn_ops.gru_cell(w, state.h[i], x_proj)
             hs.append(h_new)
             inp = h_new
+            if train and self.dropout > 0 and i < self.layers - 1:
+                inp = dropout(h_new, self.dropout, generator)
         return inp, DecoderState(
             torch.stack(hs), torch.stack(cs) if self.module == "lstm" else None)

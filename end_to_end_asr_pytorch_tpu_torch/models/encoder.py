@@ -2,12 +2,15 @@
 
 Same configuration schema and numerics as the JAX package's encoder:
 ``prenet: 'vgg' | 'cnn' | ''``; per-layer ``module``, ``bidirection``,
-``dim``, ``layer_norm``, ``proj`` and pyramidal ``sample_rate`` with
-``sample_style 'drop' | 'concat'``. Inference only (dropout is off).
+``dim``, ``dropout``, ``layer_norm``, ``proj`` and pyramidal
+``sample_rate`` with ``sample_style 'drop' | 'concat'``. Dropout runs only
+with ``train=True``, its masks drawn from the caller's ``torch.Generator``.
 
 VGG layout follows the JAX package: features reshape to
 (B, T, in_ch, freq), the 3x3 convs treat time as height and frequency as
-width, the 2x2 max-pools floor, and the output is flattened channel-major.
+width, the 2x2 max-pools floor (``F.max_pool2d``, the same values as the
+JAX package's ``reduce_window``), and the output is flattened
+channel-major.
 The feat_dim split: divisible by 13 => feat_dim/13 channels of 13 bins,
 else divisible by 40 => feat_dim/40 channels of 40 bins.
 """
@@ -29,6 +32,19 @@ def _as_list(v, n):
             raise ValueError(f"config list length {len(v)} != layers {n}")
         return list(v)
     return [v] * n
+
+
+def dropout(h: torch.Tensor, rate: float, generator: torch.Generator
+            ) -> torch.Tensor:
+    """Inverted dropout, keep mask drawn from ``generator`` (on h's device).
+    A training step must pass its generator: without one it raises rather
+    than train with no dropout."""
+    if generator is None:
+        raise ValueError(f"dropout {rate} in a training step needs a "
+                         "torch.Generator")
+    keep = 1.0 - rate
+    u = torch.rand(h.shape, generator=generator, device=h.device)
+    return h * (u < keep).to(h.dtype) / keep
 
 
 def same_pad(length: int, kernel: int, stride: int):
@@ -100,9 +116,10 @@ class RNNLayer(nn.Module):
     """One (Bi)RNN layer + optional layer norm / projection + subsampling."""
 
     def __init__(self, in_dim: int, module: str, dim: int, bidirection: bool,
-                 layer_norm: bool, sample_rate: int, sample_style: str,
-                 proj: bool, generator=None, device=None):
+                 dropout: float, layer_norm: bool, sample_rate: int,
+                 sample_style: str, proj: bool, generator=None, device=None):
         super().__init__()
+        self.dropout = float(dropout)
         if sample_style not in ("drop", "concat"):
             raise ValueError(f"unsupported sample_style {sample_style!r}")
         self.module = module.lower()
@@ -124,7 +141,8 @@ class RNNLayer(nn.Module):
                                    device)
             self.b_proj = const(rnn_out, 0.0, device)
 
-    def forward(self, x: torch.Tensor, x_len: torch.Tensor):
+    def forward(self, x: torch.Tensor, x_len: torch.Tensor, train=False,
+                generator=None):
         """x (B, T, D) -> (B, T', out_dim), new lengths."""
         xt = x.transpose(0, 1)                        # (T, B, D)
         T = xt.shape[0]
@@ -139,6 +157,8 @@ class RNNLayer(nn.Module):
             mu = h.mean(-1, keepdim=True)
             var = h.var(-1, unbiased=False, keepdim=True)
             h = (h - mu) * torch.rsqrt(var + 1e-5) * self.ln_scale + self.ln_bias
+        if train and self.dropout > 0:
+            h = dropout(h, self.dropout, generator)
         if self.w_proj is not None:
             h = torch.tanh(h @ self.w_proj + self.b_proj)
         if self.sample_rate > 1:
@@ -164,6 +184,7 @@ class Encoder(nn.Module):
                            else [cfg["dim"]])
         n = len(dims)
         bidir = bool(cfg.get("bidirection", True))
+        drop = _as_list(cfg.get("dropout", 0.0), n)
         layer_norm = _as_list(cfg.get("layer_norm", False), n)
         proj = _as_list(cfg.get("proj", False), n)
         sample_rate = _as_list(cfg.get("sample_rate", 1), n)
@@ -181,7 +202,8 @@ class Encoder(nn.Module):
             raise NotImplementedError(f"prenet {prenet!r}")
         layers = []
         for i in range(n):
-            layer = RNNLayer(in_dim, module, dims[i], bidir, layer_norm[i],
+            layer = RNNLayer(in_dim, module, dims[i], bidir, drop[i],
+                             layer_norm[i],
                              sample_rate[i], sample_style, proj[i],
                              generator, device)
             layers.append(layer)
@@ -189,12 +211,13 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.out_dim = in_dim
 
-    def forward(self, feat: torch.Tensor, feat_len: torch.Tensor):
+    def forward(self, feat: torch.Tensor, feat_len: torch.Tensor,
+                train: bool = False, generator=None):
         h, h_len = feat, feat_len
         if self.prenet is not None:
             h, h_len = self.prenet(h, h_len)
         for layer in self.layers:
-            h, h_len = layer(h, h_len)
+            h, h_len = layer(h, h_len, train=train, generator=generator)
         T = h.shape[1]
         mask = (torch.arange(T, device=h.device)[None, :] < h_len[:, None])[..., None]
         return torch.where(mask, h, torch.zeros((), device=h.device)), h_len

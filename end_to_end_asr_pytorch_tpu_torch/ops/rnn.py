@@ -5,8 +5,11 @@ The LSTM keeps a single bias ``b = b_ih + b_hh``; the GRU keeps separate
 biases because its n-gate applies the reset gate between them. Weights are
 stored as the JAX package stores them: ``w_ih`` (D, G), ``w_hh`` (H, G).
 
-``lstm_scan`` sends a CUDA f32 input with zero initial state through the K2
-kernel (``ops/cuda/lstm_kernel.py``); the GRU scan stays plain.
+``lstm_scan`` with zero initial state goes through ``LSTMScan``
+(``ops/cuda/lstm_kernel.py``), whose backward is the hand-written
+reverse-time recurrence: K2 / K2b for a CUDA input (which raise unless it
+is f32), their plain versions for CPU tensors. With an initial state it runs the plain scan under autograd, as
+the JAX package does. The GRU scan stays plain.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch.nn as nn
 
 from ..utils.init import const, uniform
 from . import cuda as cuda_kernels
-from .cuda.lstm_kernel import lstm_scan_fused, lstm_scan_plain
+from .cuda.lstm_kernel import LSTMScan, lstm_scan_plain
 
 
 class LSTMWeights(nn.Module):
@@ -77,10 +80,10 @@ def lstm_scan(w: LSTMWeights, x: torch.Tensor, mask: torch.Tensor,
     """x (T, B, D) time-major, mask (T, B) bool (a contiguous valid prefix
     per sequence) -> (T, B, H). Padded steps emit zeros and hold the carry."""
     x_proj = x @ w.w_ih + w.b
-    if (h0 is None and c0 is None and x.is_cuda and x.dtype == torch.float32
-            and cuda_kernels.USE_KERNELS):
-        return lstm_scan_fused(x_proj.contiguous(), w.w_hh.contiguous(),
-                               mask.contiguous(), reverse)
+    if h0 is None and c0 is None:
+        use_kernel = x.is_cuda and cuda_kernels.USE_KERNELS
+        return LSTMScan.apply(x_proj.contiguous(), w.w_hh.contiguous(),
+                              mask.contiguous(), reverse, use_kernel)
     return lstm_scan_plain(x_proj, w.w_hh, mask, reverse, h0, c0)
 
 

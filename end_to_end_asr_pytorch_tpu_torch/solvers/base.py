@@ -1,0 +1,70 @@
+"""BaseSolver: the experiment lifecycle of the JAX package's
+``solvers/base.py``: hparas merged over the framework defaults, experiment
+name ``<config stem or --name>_sd<seed>``, log and checkpoint directories,
+``verbose`` / ``progress`` / ``write_log``.
+
+Logs go to ``<logdir>/<exp>/log.jsonl``, one JSON object per entry
+(``{"step", "name", "value"}``, the value a dict of scalars or a text),
+in place of the JAX package's TensorBoard writer.
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any, Dict, Union
+
+from ..config import merge_hparas
+from ..utils.device import resolve_device
+
+
+class BaseSolver:
+    def __init__(self, config: Dict[str, Any], paras):
+        self.config = config
+        self.paras = paras
+        for k, v in merge_hparas(config.get("hparas", {})).items():
+            setattr(self, k, v)
+        name = getattr(paras, "name", None) or Path(paras.config).stem
+        self.exp_name = f"{name}_sd{paras.seed}"
+        self.logdir = Path(paras.logdir) / self.exp_name
+        self.ckpdir = Path(paras.ckpdir) / self.exp_name
+        self.ckpdir.mkdir(parents=True, exist_ok=True)
+        self.logdir.mkdir(parents=True, exist_ok=True)
+        self.device = resolve_device("cpu" if getattr(paras, "cpu", False)
+                                     else None)
+        self.step = 0
+        self._log = None
+
+    def verbose(self, msg):
+        if not getattr(self.paras, "no_msg", False):
+            for m in (msg if isinstance(msg, list) else [msg]):
+                print(f"[INFO] {m}", flush=True)
+
+    def progress(self, msg: str):
+        if not getattr(self.paras, "no_msg", False):
+            print(f"[{self.step}] {msg}", flush=True)
+
+    def write_log(self, log_name: str, value: Union[Dict[str, float], str]):
+        """A dict of scalars or a text, as one line of log.jsonl."""
+        if isinstance(value, dict):
+            value = {k: float(v) for k, v in value.items() if v is not None}
+            if not value:
+                return
+        if self._log is None:
+            self._log = open(self.logdir / "log.jsonl", "a", encoding="utf-8")
+        self._log.write(json.dumps({"step": self.step, "name": log_name,
+                                    "value": value}) + "\n")
+        self._log.flush()
+
+    def close(self):
+        if self._log is not None:
+            self._log.close()
+            self._log = None
+
+    def load_data(self):
+        raise NotImplementedError
+
+    def set_model(self):
+        raise NotImplementedError
+
+    def exec(self):
+        raise NotImplementedError

@@ -1,0 +1,283 @@
+"""ASR training solver, the port of the JAX package's
+``solvers/train_asr.py``.
+
+Scheduled teacher forcing (linear ``tf_start -> tf_end`` over ``tf_step``),
+loss ``ctc_weight * CTC + (1 - ctc_weight) * CE(ignore pad 0)`` with the
+zero-infinity rule (a row whose CTC NLL is ~1e30, no feasible alignment,
+adds nothing), curriculum epochs in ascending length order, periodic
+``validate()`` with greedy decoding and WER / CER for both heads, and
+``best_att.pth`` / ``best_ctc.pth`` / ``latest.pth`` in the reference
+layout. The CTC term goes through K3 on the card (``use_pallas_ctc:
+auto | true``) or the plain autograd CTC (``false``, and ``auto`` on the
+CPU); the encoder's LSTMs through K2 / K2b. The step runs eagerly, one
+batch at a time, with no host synchronisation between progress prints.
+"""
+from __future__ import annotations
+
+import math
+import time
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from .base import BaseSolver
+from ..data.dataset import load_dataset
+from ..decode.greedy import att_greedy, ctc_greedy
+from ..models.asr import ASR
+from ..ops.audio import create_transform
+from ..ops.ctc import ctc_loss, ctc_loss_k3
+from ..optim import Optimizer
+from ..utils.metrics import cal_er
+from ..utils.torch_ckpt import load_torch_checkpoint, save_checkpoint
+
+DEV_STEP_RATIO = 1.2  # decode-step headroom during validation
+
+
+def masked_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy with ignore_index=0 (pad), mean over valid tokens."""
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    mask = (targets != 0).to(nll.dtype)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def asr_loss(ctc_out, enc_len, att_out, text, text_len, ctc_weight: float,
+             ctc_loss_fn) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The joint loss of the JAX solver's ``loss_fn``: per-row CTC NLL over
+    max(text_len, 1), rows with NLL >= 1e29 dropped, summed over the number
+    of rows with a label; plus the masked CE of the attention head."""
+    valid = text_len > 0
+    n_valid = torch.clamp(valid.sum(), min=1)
+    metrics: Dict[str, torch.Tensor] = {}
+    total = torch.zeros((), device=text.device)
+    if ctc_out is not None:
+        nll = ctc_loss_fn(ctc_out, enc_len, text, text_len)
+        per = nll / torch.clamp(text_len, min=1)
+        ctc_l = torch.sum(torch.where(valid & (nll < 1e29), per,
+                                      torch.zeros_like(per))) / n_valid
+        total = total + ctc_weight * ctc_l
+        metrics["ctc_loss"] = ctc_l
+    if att_out is not None:
+        att_l = masked_ce(att_out, text)
+        total = total + (1.0 - ctc_weight) * att_l
+        metrics["att_loss"] = att_l
+    metrics["loss"] = total
+    return total, metrics
+
+
+def check_supported(config) -> None:
+    """Raise on the options whose parts are not ported yet."""
+    h, model = config.get("hparas", {}), config["model"]
+    todo = []
+    if h.get("amp", False):
+        todo.append("hparas.amp (bf16 training)")
+    if config["data"].get("audio", {}).get("augment"):
+        todo.append("data.audio.augment (SpecAugment)")
+    plugin = model.get("plugin")
+    if plugin and plugin.get("enabled", True):
+        todo.append("model.plugin (embedding regularizer)")
+    if int(config.get("model_parallel", 1)) > 1:
+        todo.append("model_parallel > 1")
+    fmt = config.get("ckpt_format", "native")
+    if fmt == "orbax":
+        todo.append("ckpt_format: orbax")
+    elif fmt != "native":
+        raise ValueError(f"ckpt_format {fmt!r} (want native|orbax)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + ", ".join(todo))
+
+
+class Solver(BaseSolver):
+    def __init__(self, config, paras):
+        super().__init__(config, paras)
+        check_supported(config)
+        self.best_wer = {"att": 3.0, "ctc": 3.0}
+        h = config["hparas"]
+        self.max_step = int(h.get("max_step", 1000))
+        self.valid_step = int(h.get("valid_step", 500))
+        self.tf_start = float(h.get("tf_start", 1.0))
+        self.tf_end = float(h.get("tf_end", 1.0))
+        self.tf_step = int(h.get("tf_step", 1))
+        self.curriculum = int(h.get("curriculum", 0))
+
+    # ----------------------------------------------------------------- data
+    def load_data(self):
+        (self.tr_set, self.dv_set, self.feat_dim, self.vocab_size,
+         self.tokenizer, msg) = load_dataset(self.paras.njobs,
+                                             self.curriculum > 0,
+                                             **self.config["data"])
+        self.verbose(msg)
+
+    # ---------------------------------------------------------------- model
+    def set_model(self):
+        dev = self.device
+        self.frontend, _ = create_transform(self.config["data"]["audio"],
+                                            device=dev)
+        init = torch.Generator().manual_seed(self.paras.seed)
+        self.model = ASR(self.feat_dim, self.vocab_size, self.config["model"],
+                         generator=init, device=dev)
+        self.model.requires_grad_(True)
+        self.params = dict(self.model.named_parameters())
+        self.ctc_weight = self.model.ctc_weight
+        self.optimizer = Optimizer(self.config["hparas"], grad_clip=self.GRAD_CLIP)
+        self.optimizer.init(self.params)
+        # dropout masks and teacher-forcing coins
+        self.gen = torch.Generator(device=dev).manual_seed(self.paras.seed + 1)
+        use_k3 = self.config["hparas"].get("use_pallas_ctc", "auto")
+        if use_k3 == "auto":
+            use_k3 = dev.type == "cuda"
+        self.ctc_loss_fn = ctc_loss_k3 if use_k3 else ctc_loss
+        n_params = sum(p.numel() for p in self.params.values())
+        self.verbose(f"ASR model | ctc_weight {self.ctc_weight} | params "
+                     f"{n_params / 1e6:.2f}M | device {dev} | CTC "
+                     f"{'K3' if use_k3 else 'plain'}")
+        if self.paras.load:
+            ck = load_torch_checkpoint(self.paras.load, self.model)
+            if ck["optimizer"] is not None:
+                self.optimizer.load_state_dict(ck["optimizer"])
+            self.step = ck["global_step"]
+            self.verbose(f"Loaded ckpt {self.paras.load} @ step {self.step}")
+
+    def tf_rate(self) -> float:
+        frac = min(max(self.step / max(self.tf_step, 1), 0.0), 1.0)
+        return self.tf_start - (self.tf_start - self.tf_end) * frac
+
+    def _to_device(self, batch):
+        dev = self.device
+        return (torch.from_numpy(batch["wave"]).to(dev),
+                torch.from_numpy(batch["wave_len"]).to(dev),
+                torch.from_numpy(batch["text"]).to(dev, torch.int64),
+                torch.from_numpy(batch["text_len"]).to(dev, torch.int64))
+
+    def train_step(self, wave, wave_len, text, text_len) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a batch: front end, teacher-forced model,
+        joint loss, backward, update. Returns device scalars; ``grad_norm``
+        is the raw gradient's global norm, taken before the clip. Its parts
+        are profiler ranges: ``train.frontend``, the model's ``asr.*``,
+        ``train.loss``, ``train.backward``, ``train.optimizer``."""
+        tf_rate = self.tf_rate()
+        with record_function("train.frontend"):
+            feat, feat_len = self.frontend(wave, wave_len)
+        ctc_out, enc_len, att_out, _, _ = self.model(
+            feat, feat_len, text.shape[1], tf_rate, teacher=text, train=True,
+            generator=self.gen)
+        with record_function("train.loss"):
+            loss, metrics = asr_loss(ctc_out, enc_len, att_out, text, text_len,
+                                     self.ctc_weight, self.ctc_loss_fn)
+        for p in self.params.values():
+            p.grad = None
+        with record_function("train.backward"):
+            loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        with record_function("train.optimizer"):
+            metrics["grad_norm"] = self.optimizer.step(self.params)
+        metrics["tf_rate"] = torch.tensor(tf_rate)
+        return metrics
+
+    # ----------------------------------------------------------------- exec
+    def exec(self):
+        self.verbose(f"Training from step {self.step} to {self.max_step}")
+        epoch = 0
+        last_t, last_u, utts = time.time(), 0, 0
+        while self.step < self.max_step:
+            shuffle = epoch >= self.curriculum
+            for batch in self.tr_set.epoch_iter(shuffle=shuffle):
+                metrics = self.train_step(*self._to_device(batch))
+                utts += int(np.sum(batch["text_len"] > 0))
+                self.step += 1
+                if self.step % self.PROGRESS_STEP == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    now = time.time()
+                    rate = (utts - last_u) / max(now - last_t, 1e-9)
+                    last_t, last_u = now, utts
+                    self.progress(
+                        f"loss {m['loss']:.3f} | "
+                        f"ctc {m.get('ctc_loss', float('nan')):.3f} | "
+                        f"att {m.get('att_loss', float('nan')):.3f} | "
+                        f"grad {m['grad_norm']:.2f} | tf {m['tf_rate']:.2f} | "
+                        f"{rate:.1f} utt/s")
+                    self.write_log("loss", {"tr_" + k: v for k, v in m.items()
+                                            if "loss" in k})
+                    self.write_log("speed", {"utts_per_sec": rate})
+                    self.write_log("tf_rate", {"tf": m["tf_rate"]})
+                    self.write_log("grad_norm", {"grad_norm": m["grad_norm"]})
+                if self.step % self.valid_step == 0:
+                    self.validate()
+                    last_t, last_u = time.time(), utts
+                if self.step >= self.max_step:
+                    break
+            epoch += 1
+        self.validate()
+        self.close()
+        return self.best_wer
+
+    # ------------------------------------------------------------- validate
+    @torch.no_grad()
+    def valid_batch(self, wave, wave_len, text, text_len) -> Dict[str, torch.Tensor]:
+        model = self.model
+        feat, feat_len = self.frontend(wave, wave_len)
+        U = text.shape[1]
+        out = {}
+        enc, enc_len = model.encode(feat, feat_len)
+        if model.enable_ctc:
+            ctc_out = model.ctc_output(enc)
+            nll = self.ctc_loss_fn(ctc_out, enc_len, text, text_len)
+            out["ctc_pred"] = ctc_greedy(ctc_out)
+            valid = (text_len > 0) & (nll < 1e29)
+            per = nll / torch.clamp(text_len, min=1)
+            out["ctc_loss"] = (torch.sum(torch.where(valid, per, torch.zeros_like(per)))
+                               / torch.clamp((text_len > 0).sum(), min=1))
+        if model.enable_att:
+            out["att_pred"] = att_greedy(model, enc, enc_len,
+                                         int(math.ceil(U * DEV_STEP_RATIO)))
+            _, _, att_out, _, _ = model(feat, feat_len, U, 1.0, teacher=text)
+            out["att_loss"] = masked_ce(att_out, text)
+        return out
+
+    def validate(self):
+        ers = {"att": [], "ctc": []}
+        cers = {"att": [], "ctc": []}
+        losses = {"att": [], "ctc": []}
+        shown = 0
+        for batch in self.dv_set:
+            out = {k: v.cpu().numpy() for k, v in
+                   self.valid_batch(*self._to_device(batch)).items()}
+            n_real = int(np.sum(batch["text_len"] > 0))
+            truth = batch["text"][:n_real]
+            for head in ("att", "ctc"):
+                pred = out.get(f"{head}_pred")
+                if pred is None:
+                    continue
+                ers[head].append(cal_er(self.tokenizer, pred[:n_real], truth,
+                                        mode="wer", ctc=(head == "ctc")))
+                cers[head].append(cal_er(self.tokenizer, pred[:n_real], truth,
+                                         mode="cer", ctc=(head == "ctc")))
+                losses[head].append(float(out[f"{head}_loss"]))
+            pred = out.get("att_pred", out.get("ctc_pred"))
+            for i in range(min(n_real, self.DEV_N_EXAMPLE - shown)):
+                hyp = self.tokenizer.decode(pred[i].tolist(),
+                                            ignore_repeat=("att_pred" not in out))
+                self.write_log(f"hyp_{shown}", hyp or "<empty>")
+                self.write_log(f"ref_{shown}", batch["text_raw"][i])
+                shown += 1
+        msg = []
+        for head in ("att", "ctc"):
+            if not ers[head]:
+                continue
+            wer, cer = float(np.mean(ers[head])), float(np.mean(cers[head]))
+            self.write_log("wer", {f"dv_{head}": wer})
+            self.write_log("cer", {f"dv_{head}": cer})
+            self.write_log("loss", {f"dv_{head}": float(np.mean(losses[head]))})
+            msg.append(f"{head} WER {wer:.3f} CER {cer:.3f}")
+            if wer < self.best_wer[head]:
+                self.best_wer[head] = wer
+                save_checkpoint(self.ckpdir / f"best_{head}.pth", self.model,
+                                self.optimizer, self.step,
+                                {"wer": wer, "cer": cer})
+        save_checkpoint(self.ckpdir / "latest.pth", self.model, self.optimizer,
+                        self.step,
+                        {f"wer_{h}": self.best_wer[h] for h in self.best_wer})
+        self.progress("DEV | " + " | ".join(msg))

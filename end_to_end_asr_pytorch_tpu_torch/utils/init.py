@@ -1,7 +1,9 @@
 """Parameter construction shared by the port's modules.
 
-Inference-only parameters (``requires_grad=False``), initialised as the JAX
-package initialises them: Uniform(+-1/sqrt(fan_in)) weights, zero biases.
+Parameters start with ``requires_grad=False`` (serving); the trainer turns
+gradients on with ``model.requires_grad_(True)``. They are initialised as
+the JAX package initialises them: Uniform(+-1/sqrt(fan_in)) weights, zero
+biases.
 The numbers differ from the JAX package's for the same seed (a
 ``torch.Generator`` is not a ``jax.random`` key); parity tests load shared
 weights instead (``utils/weights.py``).

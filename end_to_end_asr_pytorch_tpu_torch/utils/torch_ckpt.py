@@ -1,5 +1,5 @@
-"""Load a reference-layout ASR ``state_dict`` (``torch.save``) into the
-port's modules.
+"""Reference-layout ASR checkpoints (``torch.save``): load one into the
+port's modules, and save the port's training state as one.
 
 Same key rules as the JAX package's ``translate_asr_state_dict``: keys are
 resolved by suffix with alias lists per slot, recurrent modules are found by
@@ -9,11 +9,19 @@ candidate keys listed. Layouts: nn.Linear (out, in) -> (in, out); LSTM
 gates stay (i, f, g, o) with ``b = bias_ih + bias_hh``; GRU biases stay
 separate; convolution weights are already in PyTorch's layout, which the
 port keeps. The RNN-LM loader is not ported yet.
+
+The save side writes the reference layout ``{"model": state_dict,
+"optimizer": ..., "global_step": int, "<metric>": float}`` with torch
+``nn.Module`` key names (``asr_state_dict``), which both this loader and the
+JAX package's ``utils/checkpoint.load_checkpoint`` read. The optimizer entry
+is the port's own ``Optimizer.state_dict()``.
 """
 from __future__ import annotations
 
+import os
 import re
 from collections import OrderedDict
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -215,10 +223,100 @@ def load_asr_state_dict(sd: Dict[str, Any], model: ASR) -> ASR:
 
 def load_torch_checkpoint(path: str, model: ASR) -> Dict[str, Any]:
     """torch.load a reference checkpoint ({'model': state_dict, ...} or a
-    bare state_dict) into ``model``. Returns {'model', 'global_step'}."""
+    bare state_dict) into ``model``. Returns {'model', 'optimizer' (the
+    saved optimizer state, or None), 'global_step'}."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ck, dict) and "model" in ck:
         sd, step = ck["model"], int(ck.get("global_step", 0))
+        opt = ck.get("optimizer")
     else:
-        sd, step = ck, 0
-    return {"model": load_asr_state_dict(sd, model), "global_step": step}
+        sd, step, opt = ck, 0, None
+    return {"model": load_asr_state_dict(sd, model),
+            "optimizer": opt if isinstance(opt, dict) else None,
+            "global_step": step}
+
+
+def asr_state_dict(model: ASR) -> "OrderedDict[str, torch.Tensor]":
+    """The port's ASR -> a reference-layout ``state_dict`` (nn.Linear
+    weights (out, in), LSTM ``weight_ih_l{n}[_reverse]`` with the bias in
+    ``bias_ih`` and a zero ``bias_hh``), on the CPU."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    t = lambda x: x.detach().cpu().clone()
+
+    def rnn(prefix, cell, suffix):
+        sd[f"{prefix}.weight_ih{suffix}"] = t(cell.w_ih.T)
+        sd[f"{prefix}.weight_hh{suffix}"] = t(cell.w_hh.T)
+        if hasattr(cell, "b"):
+            sd[f"{prefix}.bias_ih{suffix}"] = t(cell.b)
+            sd[f"{prefix}.bias_hh{suffix}"] = torch.zeros_like(t(cell.b))
+        else:
+            sd[f"{prefix}.bias_ih{suffix}"] = t(cell.b_ih)
+            sd[f"{prefix}.bias_hh{suffix}"] = t(cell.b_hh)
+
+    enc = model.encoder
+    pre = enc.prenet
+    if pre is not None:
+        li0 = 1
+        for i in range(1, 5 if hasattr(pre, "k4") else 3):
+            sd[f"encoder.layers.0.conv{i}.weight"] = t(getattr(pre, f"k{i}"))
+            sd[f"encoder.layers.0.conv{i}.bias"] = t(getattr(pre, f"b{i}"))
+    else:
+        li0 = 0
+    for li, layer in enumerate(enc.layers):
+        p = f"encoder.layers.{li + li0}"
+        rnn(f"{p}.layer", layer.fwd, "_l0")
+        if layer.bwd is not None:
+            rnn(f"{p}.layer", layer.bwd, "_l0_reverse")
+        if layer.ln_scale is not None:
+            sd[f"{p}.ln.weight"] = t(layer.ln_scale)
+            sd[f"{p}.ln.bias"] = t(layer.ln_bias)
+        if layer.w_proj is not None:
+            sd[f"{p}.pj.weight"] = t(layer.w_proj.T)
+            sd[f"{p}.pj.bias"] = t(layer.b_proj)
+    if model.ctc_w is not None:
+        sd["ctc_layer.weight"] = t(model.ctc_w.T)
+        sd["ctc_layer.bias"] = t(model.ctc_b)
+    if model.embed is not None:
+        sd["pre_embed.weight"] = t(model.embed)
+        a = model.attention
+        sd["attention.proj_q.weight"] = t(a.w_q.T)
+        sd["attention.proj_k.weight"] = t(a.w_k.T)
+        if a.w_v is not None:
+            sd["attention.proj_v.weight"] = t(a.w_v.T)
+        if a.w_merge is not None:
+            sd["attention.merge_head.weight"] = t(a.w_merge.T)
+        if a.loc_conv is not None:
+            sd["attention.loc_conv.weight"] = t(a.loc_conv)
+            sd["attention.loc_proj.weight"] = t(a.w_f.T)
+            sd["attention.bias"] = t(a.bias)
+            sd["attention.gen_energy.weight"] = t(a.v_energy)
+        for ci, cell in enumerate(model.decoder.cells):
+            rnn("decoder.layers", cell, f"_l{ci}")
+        sd["char_trans.weight"] = t(model.char_w.T)
+        sd["char_trans.bias"] = t(model.char_b)
+    return sd
+
+
+def save_checkpoint(path, model: ASR, optimizer=None, global_step: int = 0,
+                    metrics: Optional[Dict[str, float]] = None) -> None:
+    """Write ``path`` in the reference layout (see the module docstring),
+    through a temporary file renamed into place."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    ck: Dict[str, Any] = {"model": asr_state_dict(model),
+                          "global_step": int(global_step)}
+    if optimizer is not None:
+        ck["optimizer"] = _to_cpu(optimizer.state_dict())
+    for k, v in (metrics or {}).items():
+        ck[k] = float(v)
+    tmp = path.with_suffix(path.suffix + f".{os.getpid()}.tmp")
+    torch.save(ck, str(tmp))
+    os.replace(tmp, path)
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    return obj
