@@ -19,12 +19,23 @@ Phases, each printing one JSON line:
                 at B=128 and the slice's batch, T=176, U=96, V=31, ragged
                 lengths, repeated labels, one infeasible row (NLL rtol 1e-5,
                 gradient atol 1e-5)
+  k5          - the beam-step location-attention kernel against its plain
+                version at B=128 and the slice's batch, K=8, T=176, d=300,
+                F=10, ragged lengths (align atol 1e-5, ctx atol 1e-4)
+  k7          - the training attention step's forward and backward kernels
+                against their plain versions, and the backward also
+                against autograd through the plain forward, at B=128 and
+                the slice's batch, T=176, d=300 (ctx / align atol 1e-4;
+                dq / dtarg / dvals atol 1e-5; dv within 1e-4 of its max
+                magnitude)
   slice       - serving main path: bench.py's model at full width (VGG +
                 3x BiLSTM-512, loc attention 300 / kernel 100, LSTM-512
                 decoder and LM, beam 8, V=31, CTC 0.3 + LM 0.3) with random
                 weights from --seed: three timed decode batches with the
-                kernels (K1 and K2 must launch), one with the plain
-                versions; then a breakdown of one batch
+                kernels (K1 and K2 must launch, K5 must not), one with the
+                plain versions; then a breakdown of one batch
+  slice_att   - the same with attention.use_pallas: K5 must launch exactly
+                once per beam step of every batch
   entry       - python -m end_to_end_asr_pytorch_tpu_torch.transcribe on
                 two WAVs with a reference-layout checkpoint
   train       - training main path: the port's solver with bench.py's model
@@ -37,13 +48,17 @@ Phases, each printing one JSON line:
                 generator with the kernels and with the plain versions
                 (at tf 1.0 loss rel 1e-4 and every gradient within 1e-3 of
                 its max magnitude; at tf 0.9 reported)
+  train_att   - the same with attention.use_pallas_train: each step must
+                also launch the K7 forward and backward once per label
+                step (96 each)
   train_entry - python -m end_to_end_asr_pytorch_tpu_torch.train on a
                 generated synthetic corpus (32 train / 8 dev utterances,
                 bench.py's model, 4 steps, validation every 2), then
                 transcribe of two dev WAVs with its latest.pth
 Then a line with the per-kernel measurements ({"kernels": [...]}: K1 and K2
-launches counted on the slice's run, K2b and K3 on the train run), the
-nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed phase
+launches counted on the slice's run, K5 on slice_att's, K2b and K3 on the
+train run, K7 on train_att's), the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Any failed phase
 ends the run with a non-zero exit code. Needs CUDA: without it the script
 fails before printing a result.
 """
@@ -107,6 +122,25 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20):
+    """Device time per call of ``fn``: the profiler's kernel times over
+    ``iters`` calls. Where the host enqueues a call more slowly than the
+    card runs it, ``cuda_ms`` times the host instead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters / 1e3
 
 
 def bound(bytes_moved, flops):
@@ -385,15 +419,160 @@ def phase_k3(seed, slice_batch):
     return records[slice_batch]
 
 
-def phase_slice(frontend, batch, seed, device, n_batches=3):
+def att_case(B, seed, T=176):
+    """A generator for inputs at the scale of bench.py's model, and ragged
+    lengths (the first row full, the second of length 1)."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(T // 2, T + 1, size=B).astype(np.int32)
+    lens[0], lens[1] = T, 1
+    return rng, lens
+
+
+def att_frames(lens, T):
+    """Frames with a valid energy, and frames whose alignment can be
+    non-zero (every frame of a zero-length row), summed over the batch."""
+    n = np.clip(lens, 0, T)
+    return int(n.sum()), int(np.where(n > 0, n, T).sum())
+
+
+def phase_k5(seed, slice_batch, K=8, T=176, d=300, F=10, vdim=300, tau=0.5):
+    """K5 against its plain version at B=128 and the slice's batch."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_kernel as ak
+    records = {}
+    for B in (128, slice_batch):
+        rng, lens = att_case(B, seed + 7, T)
+        r = lambda *shape, s: torch.from_numpy(
+            (rng.randn(*shape) * s).astype(np.float32)).cuda()
+        args = (r(B, K, d, s=0.3), r(B, T, d, s=0.3), r(B, K, T, F, s=0.05),
+                r(F, d, s=0.3), r(d, s=0.06), r(B, T, vdim, s=0.3),
+                torch.from_numpy(lens).cuda())
+        ctx, align = ak.loc_attention_fused(*args, tau)
+        pctx, palign = ak.loc_attention_plain(*args, tau)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(ctx).all() and torch.isfinite(align).all()),
+              "K5 output not finite")
+        a_err = float((align - palign).abs().max())
+        c_err = float((ctx - pctx).abs().max())
+        check(a_err <= 1e-5, f"K5 align max abs err {a_err} at B={B}")
+        check(c_err <= 1e-4, f"K5 ctx max abs err {c_err} at B={B}")
+        valid, weighted = att_frames(lens, T)
+        nbytes = 4 * (B * K * d + valid * d + K * valid * F + F * d + d
+                      + weighted * vdim + B + B * K * vdim + B * K * T)
+        flops = K * (valid * d * (2 * F + 5) + weighted * 2 * vdim)
+        b_ms, b_by = bound(nbytes, flops)
+        records[B] = {
+            "name": "loc_attention_fused", "route": "cuda",
+            "source": "end_to_end_asr_pytorch_tpu_torch/csrc/loc_att.cu",
+            "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/att_kernel.py:57",
+            "max_abs_err": max(a_err, c_err),
+            "ms": cuda_ms(lambda: ak.loc_attention_fused(*args, tau), 20),
+            "plain_ms": cuda_ms(lambda: ak.loc_attention_plain(*args, tau), 20),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        emit({"phase": "k5", "B": B, "K": K, "T": T, "d": d, "F": F,
+              "vdim": vdim, "align_max_abs_err": a_err,
+              "ctx_max_abs_err": c_err,
+              "device_ms": device_ms(lambda: ak.loc_attention_fused(*args, tau)),
+              **records[B]})
+    return records[slice_batch]
+
+
+def phase_k7(seed, slice_batch, T=176, d=300, vdim=300, tau=0.5):
+    """The K7 forward and backward against their plain versions, and the
+    backward against autograd through the plain forward, at B=128 and the
+    slice's batch."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_train_kernel as tk
+    fwd, bwd = {}, {}
+    for B in (128, slice_batch):
+        rng, lens = att_case(B, seed + 8, T)
+        r = lambda *shape, s: torch.from_numpy(
+            (rng.randn(*shape) * s).astype(np.float32)).cuda()
+        ins = (r(B, d, s=0.3), r(B, T, d, s=0.3), r(B, T, d, s=0.1),
+               r(d, s=0.06), r(B, T, vdim, s=0.3))
+        el = torch.from_numpy(lens).cuda()
+        dctx, dalign = r(B, vdim, s=1.0), r(B, T, s=1.0)
+        ctx, align = tk.loc_att_fwd_fused(*ins, el, tau)
+        pctx, palign = tk.loc_att_fwd_plain(*ins, el, tau)
+        grads = tk.loc_att_bwd_fused(*ins, el, align, dctx, dalign, tau)
+        pgrads = tk.loc_att_bwd_plain(*ins, el, palign, dctx, dalign, tau)
+        xs = [t.clone().requires_grad_(True) for t in ins]
+        torch.autograd.backward(tk.loc_att_fwd_plain(*xs, el, tau),
+                                (dctx, dalign))
+        torch.cuda.synchronize()
+        dq_a, dk_a, df_a, dv_a, dvals_a = (x.grad for x in xs)
+        check(all(bool(torch.isfinite(t).all())
+                  for t in (ctx, align, *grads)), "K7 output not finite")
+        f_err = max(float((ctx - pctx).abs().max()),
+                    float((align - palign).abs().max()))
+        check(f_err <= 1e-4, f"K7 forward max abs err {f_err} at B={B}")
+        errs = {}
+        for tag, (dq, dtarg, dvals, dv) in (
+                ("plain", pgrads), ("autograd", (dq_a, dk_a, dvals_a, dv_a))):
+            e = max(float((a - b).abs().max()) for a, b in
+                    ((grads[0], dq), (grads[1], dtarg), (grads[2], dvals)))
+            e_dv = float((grads[3] - dv).abs().max() / dv.abs().max())
+            check(e <= 1e-5, f"K7 backward vs {tag}: dq/dtarg/dvals max abs "
+                  f"err {e} at B={B}")
+            check(e_dv <= 1e-4, f"K7 backward vs {tag}: dv err / max |dv| "
+                  f"{e_dv} at B={B}")
+            errs[tag] = (e, e_dv)
+        check(bool(torch.equal(df_a, dk_a)),
+              "autograd gives keys and f different gradients")
+        valid, weighted = att_frames(lens, T)
+        # forward: reads q, keys and f (valid frames), v, vals (weighted
+        # frames), lengths; writes ctx and align
+        fb_ms, fb_by = bound(
+            4 * (B * d + 2 * valid * d + d + weighted * vdim + B + B * vdim
+                 + B * T), valid * d * 5 + weighted * 2 * vdim)
+        # backward: reads the same, align, dctx and dalign; writes dq,
+        # dtarg and dvals (every frame) and dv
+        bb_ms, bb_by = bound(
+            4 * (B * d + 2 * weighted * d + d + weighted * vdim + B
+                 + 2 * B * T + B * vdim + B * d + B * T * d + B * T * vdim
+                 + d), weighted * (10 * d + 2 * vdim) + B * T * vdim)
+        common = {"route": "cuda", "library_ms": None,
+                  "source": "end_to_end_asr_pytorch_tpu_torch/csrc/loc_att_train.cu"}
+        fwd[B] = {"name": "loc_att_fwd_fused", **common,
+                  "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/att_train_kernel.py:161",
+                  "max_abs_err": f_err,
+                  "ms": cuda_ms(lambda: tk.loc_att_fwd_fused(*ins, el, tau), 20),
+                  "plain_ms": cuda_ms(lambda: tk.loc_att_fwd_plain(*ins, el, tau), 20),
+                  "bound_ms": fb_ms, "bound_by": fb_by}
+        bwd[B] = {"name": "loc_att_bwd_fused", **common,
+                  "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/att_train_kernel.py:215",
+                  "max_abs_err": errs["plain"][0],
+                  "ms": cuda_ms(lambda: tk.loc_att_bwd_fused(
+                      *ins, el, align, dctx, dalign, tau), 20),
+                  "plain_ms": cuda_ms(lambda: tk.loc_att_bwd_plain(
+                      *ins, el, align, dctx, dalign, tau), 20),
+                  "bound_ms": bb_ms, "bound_by": bb_by}
+        emit({"phase": "k7", "B": B, "T": T, "d": d, "vdim": vdim,
+              "fwd": fwd[B], "bwd": bwd[B],
+              "fwd_device_ms": device_ms(
+                  lambda: tk.loc_att_fwd_fused(*ins, el, tau)),
+              "bwd_device_ms": device_ms(lambda: tk.loc_att_bwd_fused(
+                  *ins, el, align, dctx, dalign, tau)),
+              "bwd_dv_err_over_max_vs_plain": errs["plain"][1],
+              "bwd_max_abs_err_vs_autograd": errs["autograd"][0],
+              "bwd_dv_err_over_max_vs_autograd": errs["autograd"][1]})
+    return fwd[slice_batch], bwd[slice_batch]
+
+
+def with_attention(**keys):
+    """bench.py's model configuration with extra attention keys."""
+    return {**MODEL_CFG, "attention": {**MODEL_CFG["attention"], **keys}}
+
+
+def phase_slice(frontend, batch, seed, device, name="slice",
+                model_cfg=MODEL_CFG, n_batches=3):
     import torch
     from end_to_end_asr_pytorch_tpu_torch.decode.beam import BeamDecoder
     from end_to_end_asr_pytorch_tpu_torch.models.asr import ASR
     from end_to_end_asr_pytorch_tpu_torch.models.lm import RNNLM
     from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
-    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import fbank_kernel, lstm_kernel
     g = torch.Generator().manual_seed(seed)
-    model = ASR(frontend.feat_dim, 3 + len(CHARS), MODEL_CFG, generator=g,
+    model = ASR(frontend.feat_dim, 3 + len(CHARS), model_cfg, generator=g,
                 device=device)
     lm = RNNLM(3 + len(CHARS), LM_CFG, generator=g, device=device)
     decoder = BeamDecoder(model, DECODE_CFG, lm=lm)
@@ -408,20 +587,27 @@ def phase_slice(frontend, batch, seed, device, n_batches=3):
 
     run()                                   # warm-up (cuDNN / cuBLAS plans)
     torch.cuda.synchronize()
-    fbank_kernel.fbank_fused.launches = 0
-    lstm_kernel.lstm_scan_fused.launches = 0
+    counters = launch_counters()
+    k5 = model.attention.use_pallas
+    batches = []
     t0 = time.perf_counter()
     with torch.no_grad():
         for _ in range(n_batches):
+            for fn in counters.values():
+                fn.launches = 0
             feat, feat_len = frontend(wave, wave_len)
             out_k = decoder.forward(feat, feat_len)
+            batches.append({k: fn.launches for k, fn in counters.items()})
+            batches[-1]["decode_steps"] = decoder.last_steps
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_batches
-    launches = {"fbank_fused": fbank_kernel.fbank_fused.launches,
-                "lstm_scan_fused": lstm_kernel.lstm_scan_fused.launches}
+    launches = {k: sum(b[k] for b in batches) for k in counters}
     steps = decoder.last_steps
     check(launches["fbank_fused"] > 0 and launches["lstm_scan_fused"] > 0,
           f"main path did not launch every kernel: {launches}")
+    check(all(b["loc_attention_fused"] == (b["decode_steps"] if k5 else 0)
+              for b in batches),
+          f"K5 must launch {'once per beam step' if k5 else 'never'}: {batches}")
     enc_k, _ = run()
     cuda_kernels.USE_KERNELS = False
     try:
@@ -443,17 +629,17 @@ def phase_slice(frontend, batch, seed, device, n_batches=3):
     # 1e-7 differences in the encoder can reorder near-tied beams: the best
     # normalized score is held to 1e-2, the encoder output to 1e-3
     check(score_err <= 1e-2, f"best score kernel vs plain max abs diff {score_err}")
-    emit({"phase": "slice", "batch": batch, "secs": SECS,
+    emit({"phase": name, "batch": batch, "secs": SECS,
           "enc_frames": int(enc_k.shape[1]), "decode_steps": steps,
           "enc_max_abs_diff": enc_err, "best_score_max_abs_diff": score_err,
           "top1_identical_share": sum(same) / batch,
           "batches": n_batches, "utts_per_s": batch / dt,
           "seconds_per_batch": dt, "launches": launches})
-    slice_breakdown(frontend, model, decoder, wave, wave_len)
+    slice_breakdown(frontend, model, decoder, wave, wave_len, name)
     return model, launches
 
 
-def slice_breakdown(frontend, model, decoder, wave, wave_len):
+def slice_breakdown(frontend, model, decoder, wave, wave_len, name):
     """Where one kernel-path decode batch spends its time: host-clock split
     into front end, encoder and beam loop, then one profiled decode for the
     device's busy share and its largest kernels."""
@@ -487,7 +673,7 @@ def slice_breakdown(frontend, model, decoder, wave, wave_len):
     for e in evts:
         top[e.key[:90]] = top.get(e.key[:90], 0.0) + dev(e) / 1e3
     top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:8])
-    emit({"phase": "slice_breakdown", "frontend_ms": front_ms,
+    emit({"phase": f"{name}_breakdown", "frontend_ms": front_ms,
           "encode_ms": enc_ms, "beam_loop_ms": fwd_ms - enc_ms,
           "decode_steps": decoder.last_steps,
           "beam_step_ms": (fwd_ms - enc_ms) / decoder.last_steps,
@@ -555,7 +741,7 @@ def train_batch(batch, seed, device, U=U_TRAIN, V=3 + len(CHARS)):
     return tuple(torch.from_numpy(a).to(device) for a in (w, wl, text, lab_len))
 
 
-def make_solver(device, seed, workdir):
+def make_solver(device, seed, workdir, model_cfg=MODEL_CFG):
     """The port's training solver with bench.py's model at full width
     (random weights from ``seed``), set up as ``train.py`` sets it up but
     without a corpus."""
@@ -563,7 +749,7 @@ def make_solver(device, seed, workdir):
     from end_to_end_asr_pytorch_tpu_torch.solvers.train_asr import Solver
     cfg = {"data": {"corpus": {"name": "none"}, "audio": AUDIO_CFG,
                     "text": {"mode": "character"}},
-           "model": MODEL_CFG, "hparas": dict(TRAIN_HPARAS)}
+           "model": model_cfg, "hparas": dict(TRAIN_HPARAS)}
     paras = SimpleNamespace(config="smoke_train.yaml", name=None, seed=seed,
                             logdir=str(workdir / "log"),
                             ckpdir=str(workdir / "ckpt"), load=None,
@@ -574,16 +760,21 @@ def make_solver(device, seed, workdir):
     return solver
 
 
-def _launch_counts():
+def launch_counters():
+    """Every kernel wrapper, by name; each counts its own launches."""
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import (
-        ctc_kernel, fbank_kernel, lstm_kernel)
+        att_kernel, att_train_kernel, ctc_kernel, fbank_kernel, lstm_kernel)
     return {"fbank_fused": fbank_kernel.fbank_fused,
             "lstm_scan_fused": lstm_kernel.lstm_scan_fused,
             "lstm_bwd_fused": lstm_kernel.lstm_bwd_fused,
-            "ctc_loss_fused": ctc_kernel.ctc_loss_fused}
+            "ctc_loss_fused": ctc_kernel.ctc_loss_fused,
+            "loc_attention_fused": att_kernel.loc_attention_fused,
+            "loc_att_fwd_fused": att_train_kernel.loc_att_fwd_fused,
+            "loc_att_bwd_fused": att_train_kernel.loc_att_bwd_fused}
 
 
-def phase_train(batch, seed, device, n_steps=5):
+def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
+                n_steps=5):
     """Training steps of bench.py's model at full width (the train main
     path): one warm-up step, ``n_steps`` timed steps with the kernels and
     their launch counts per step, one profiled step,
@@ -592,15 +783,19 @@ def phase_train(batch, seed, device, n_steps=5):
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-        solver = make_solver(device, seed, Path(d))
+        solver = make_solver(device, seed, Path(d), model_cfg)
     data = train_batch(batch, seed + 6, device)
-    enc = MODEL_CFG["encoder"]
+    enc = model_cfg["encoder"]
     n_scans = len(enc["dim"]) * (2 if enc["bidirection"] else 1)
+    k7 = data[2].shape[1] if solver.model.attention.use_pallas_train else 0
     per_step = {"fbank_fused": 1, "lstm_scan_fused": n_scans,
-                "lstm_bwd_fused": n_scans, "ctc_loss_fused": 1}
+                "lstm_bwd_fused": n_scans, "ctc_loss_fused": 1,
+                "loc_attention_fused": 0, "loc_att_fwd_fused": k7,
+                "loc_att_bwd_fused": k7}
     solver.train_step(*data)                       # warm-up
     torch.cuda.synchronize()
-    counters = _launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
     steps = []
@@ -618,12 +813,12 @@ def phase_train(batch, seed, device, n_steps=5):
     metrics = {k: float(v) for k, v in m.items()}
     check(all(math.isfinite(v) for v in metrics.values()),
           f"non-finite train metrics {metrics}")
-    emit({"phase": "train", "batch": batch, "secs": SECS, "labels": U_TRAIN,
+    emit({"phase": name, "batch": batch, "secs": SECS, "labels": U_TRAIN,
           "steps": n_steps, "ms_per_step": dt * 1e3, "utts_per_s": batch / dt,
           "launches_per_step": {k: n / n_steps for k, n in launches.items()},
           "metrics_last_step": metrics,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    train_breakdown(solver, data)
+    train_breakdown(solver, data, name)
     compare = {tf: train_compare(solver, data, tf, cuda_kernels)
                for tf in (1.0, TRAIN_HPARAS["tf_start"])}
     c = compare[1.0]
@@ -632,8 +827,9 @@ def phase_train(batch, seed, device, n_steps=5):
     check(c["worst_grad_err_over_max"] <= 1e-3,
           f"train gradient kernel vs plain {c['worst_grad']}: "
           f"{c['worst_grad_err_over_max']}")
-    emit({"phase": "train_compare", **{f"tf_{k}": v for k, v in compare.items()}})
-    return launches, n_steps
+    emit({"phase": f"{name}_compare",
+          **{f"tf_{k}": v for k, v in compare.items()}})
+    return launches
 
 
 TRAIN_RANGES = ("train.frontend", "asr.encode", "asr.ctc_head",
@@ -641,7 +837,7 @@ TRAIN_RANGES = ("train.frontend", "asr.encode", "asr.ctc_head",
                 "train.optimizer")
 
 
-def train_breakdown(solver, data):
+def train_breakdown(solver, data, name):
     """One profiled kernel-path step: the host-clock span of each profiler
     range of ``Solver.train_step`` / ``ASR.forward`` (the step enqueues
     work without synchronising, so a span is host time), the device busy /
@@ -676,7 +872,7 @@ def train_breakdown(solver, data):
     for e in evts:
         top[e.key[:90]] = top.get(e.key[:90], 0.0) + dev(e) / 1e3
     top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:10])
-    emit({"phase": "train_breakdown",
+    emit({"phase": f"{name}_breakdown",
           "host_ms": {k: host[k] for k in TRAIN_RANGES},
           "host_ranges_sum_ms": sum(host.values()),
           "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
@@ -798,7 +994,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--phases",
-                    default="k1,k2,k2b,k3,slice,entry,train,train_entry",
+                    default="k1,k2,k2b,k3,k5,k7,slice,slice_att,entry,"
+                            "train,train_att,train_entry",
                     help="comma list of phases after build (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -821,7 +1018,8 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    secs = build.build(["fbank", "lstm_scan", "ctc_loss"])
+    secs = build.build(["fbank", "lstm_scan", "ctc_loss", "loc_att",
+                        "loc_att_train"])
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in build.build_log.items()}
@@ -837,18 +1035,33 @@ def main():
         kernels["lstm_bwd_fused"] = phase_k2b(args.seed, args.batch)
     if "k3" in phases:
         kernels["ctc_loss_fused"] = phase_k3(args.seed, args.batch)
-    if "slice" in phases:
-        model, launches = phase_slice(frontend, args.batch, args.seed, device)
-        for name, n in launches.items():
-            if name in kernels:
-                kernels[name]["launches"] = n
-        if "entry" in phases:
-            phase_entry(model, args.seed)
-    if "train" in phases:
-        launches, _ = phase_train(args.batch, args.seed, device)
-        for name in ("lstm_bwd_fused", "ctc_loss_fused"):
+    if "k5" in phases:
+        kernels["loc_attention_fused"] = phase_k5(args.seed, args.batch)
+    if "k7" in phases:
+        (kernels["loc_att_fwd_fused"],
+         kernels["loc_att_bwd_fused"]) = phase_k7(args.seed, args.batch)
+
+    def record(launches, names):
+        for name in names:
             if name in kernels:
                 kernels[name]["launches"] = launches[name]
+
+    if "slice" in phases:
+        model, launches = phase_slice(frontend, args.batch, args.seed, device)
+        record(launches, ("fbank_fused", "lstm_scan_fused"))
+        if "entry" in phases:
+            phase_entry(model, args.seed)
+    if "slice_att" in phases:
+        _, launches = phase_slice(frontend, args.batch, args.seed, device,
+                                  "slice_att", with_attention(use_pallas=True))
+        record(launches, ("loc_attention_fused",))
+    if "train" in phases:
+        launches = phase_train(args.batch, args.seed, device)
+        record(launches, ("lstm_bwd_fused", "ctc_loss_fused"))
+    if "train_att" in phases:
+        launches = phase_train(args.batch, args.seed, device, "train_att",
+                               with_attention(use_pallas_train=True))
+        record(launches, ("loc_att_fwd_fused", "loc_att_bwd_fused"))
     if "train_entry" in phases:
         phase_train_entry(args.seed)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -7,8 +7,17 @@ the JAX package. Key/value projections are computed once per utterance
 (``precompute``); ``step_beam`` advances K hypotheses against the
 unexpanded (B, ...) cache and ``step`` one hypothesis (the differentiable
 step of the teacher-forced label scan and of greedy decoding).
-``use_pallas_train: true`` (the fused training step, kernel K7) is not
-ported yet and raises.
+
+Two config keys fuse the 'loc' energy chain (location features, query + key
+sum, tanh, energy, masked softmax, context) into one call, under the JAX
+package's own gates. ``use_pallas: true`` sends ``step_beam`` through K5
+(``ops/cuda/att_kernel.py``) when ``num_head == 1`` and ``v_proj``.
+``use_pallas_train: true`` sends ``step`` through ``LocAttTrain``
+(``ops/cuda/att_train_kernel.py``: K7 forward and hand-written backward)
+when also there is no ``w_merge``. The kernels run for CUDA tensors (unless
+``cuda.USE_KERNELS`` is off); CPU tensors take their plain versions through
+the same calls, and ``LocAttTrain`` keeps its hand-written backward there
+too. A config outside a gate runs the plain chain, as in the JAX package.
 
 The location features are a plain ``F.conv1d`` over the summed previous
 alignment. XLA's ``SAME`` padding for an even kernel is asymmetric (low
@@ -25,6 +34,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import cuda as cuda_kernels
+from ..ops.cuda.att_kernel import loc_attention_fused, loc_attention_plain
+from ..ops.cuda.att_train_kernel import LocAttTrain
 from ..utils.init import const, uniform
 
 
@@ -47,16 +59,14 @@ class Attention(nn.Module):
         self.mode = cfg.get("mode", "loc")
         if self.mode not in ("dot", "loc"):
             raise NotImplementedError(f"attention mode {self.mode!r}")
-        if cfg.get("use_pallas_train", False):
-            raise NotImplementedError(
-                "attention.use_pallas_train: the fused training attention "
-                "kernel (K7) is not ported yet")
         self.num_head = int(cfg.get("num_head", 1))
         self.dim = int(cfg.get("dim", 300))
         self.temperature = float(cfg.get("temperature", 0.5))
         self.v_proj = bool(cfg.get("v_proj", True))
         self.loc_kernel_size = int(cfg.get("loc_kernel_size", 100))
         self.loc_kernel_num = int(cfg.get("loc_kernel_num", 10))
+        self.use_pallas = bool(cfg.get("use_pallas", False))
+        self.use_pallas_train = bool(cfg.get("use_pallas_train", False))
         self.query_dim = query_dim
         self.key_dim = key_dim
         self.v_dim = self.dim if self.v_proj else key_dim
@@ -104,8 +114,22 @@ class Attention(nn.Module):
     def step(self, cache: AttCache, query: torch.Tensor,
              prev_align: torch.Tensor):
         """query (B, Dq), prev_align (B, H, T) ->
-        (context (B, context_dim), align (B, H, T)): ``step_beam`` with one
-        hypothesis, the same arithmetic as the JAX package's ``step``."""
+        (context (B, context_dim), align (B, H, T)): ``LocAttTrain`` under
+        ``use_pallas_train`` (the JAX package's gate), else ``step_beam``
+        with one hypothesis, the same arithmetic as the JAX package's
+        ``step``."""
+        if (self.mode == "loc" and self.use_pallas_train
+                and self.num_head == 1 and self.w_v is not None
+                and self.w_merge is None):
+            q = query @ self.w_q + self.bias
+            f = self.loc_features(prev_align.sum(dim=1)) @ self.w_f
+            enc_len = torch.clamp(cache.mask.sum(dim=1, dtype=torch.int32),
+                                  min=1)
+            use_kernel = query.is_cuda and cuda_kernels.USE_KERNELS
+            ctx, align = LocAttTrain.apply(
+                q, cache.keys[:, 0], f, self.v_energy[0], cache.values,
+                enc_len, self.temperature, use_kernel)
+            return ctx, align[:, None, :]
         ctx, align = self.step_beam(cache, query[:, None], prev_align[:, None])
         return ctx[:, 0], align[:, 0]
 
@@ -118,6 +142,16 @@ class Attention(nn.Module):
         q = (query @ self.w_q).reshape(B, K, H, d)
         if self.mode == "dot":
             energy = torch.einsum("bkhd,bhtd->bkht", q, cache.keys)
+        elif self.use_pallas and H == 1 and self.w_v is not None:
+            fsm = self.loc_features(prev_align.sum(dim=2).reshape(B * K, T))
+            use_kernel = query.is_cuda and cuda_kernels.USE_KERNELS
+            run = loc_attention_fused if use_kernel else loc_attention_plain
+            ctx, align = run(
+                q[:, :, 0] + self.bias, cache.keys[:, 0],
+                fsm.reshape(B, K, T, -1).contiguous(), self.w_f,
+                self.v_energy[0], cache.values,
+                cache.mask.sum(dim=1, dtype=torch.int32), self.temperature)
+            return ctx, align[:, :, None, :]
         else:
             a = prev_align.sum(dim=2).reshape(B * K, T)
             f = (self.loc_features(a) @ self.w_f).reshape(B, K, T, d)

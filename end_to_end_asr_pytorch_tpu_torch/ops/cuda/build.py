@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/<name>-<hash>.so``
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header rebuilds).
 Nothing is built or loaded at import time. No fast-math flags: the decode's
 CTC prefix scores rely on f32 subnormals and full-precision ``expf``/``logf``.
 """
@@ -36,6 +37,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
@@ -87,3 +89,14 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def check_inputs(what: str, ref, *tensors) -> None:
+    """Raise unless each ``(name, tensor, shape, dtype)`` is a contiguous
+    tensor of that shape and dtype on ``ref``'s device."""
+    for name, t, shape, dt in tensors:
+        if (t.device != ref.device or t.dtype != dt
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} "
+                             f"{tuple(shape)} tensor on {ref.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")

@@ -131,15 +131,11 @@ def ctc_loss_fused(emit: torch.Tensor, skip: torch.Tensor,
     another dtype or layout raise."""
     B, T, S = emit.shape
     lens = lengths.to(torch.int32).contiguous()
-    for name, t, shape, dt in (("emit", emit, (B, T, S), torch.float32),
-                               ("skip", skip, (B, S), torch.float32),
-                               ("lengths", lens, (B,), torch.int32),
-                               ("end_idx", end_idx, (B, 2), torch.int32)):
-        if (t.device != emit.device or t.dtype != dt
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"ctc_loss_fused: {name} must be a contiguous "
-                             f"{dt} {shape} tensor on {emit.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    build.check_inputs("ctc_loss_fused", emit,
+                       ("emit", emit, (B, T, S), torch.float32),
+                       ("skip", skip, (B, S), torch.float32),
+                       ("lengths", lens, (B,), torch.int32),
+                       ("end_idx", end_idx, (B, 2), torch.int32))
     if emit.device.type == "cpu":
         return ctc_loss_plain(emit, skip, lengths, end_idx)
     if emit.device.type != "cuda":

@@ -152,15 +152,6 @@ def _pick_units(H: int, B: int, lib, bwd: bool) -> int:
     raise ValueError(f"lstm scan kernel: no co-resident grid for H={H}, B={B}")
 
 
-def _check(what, ref, *tensors):
-    for name, t, shape, dt in tensors:
-        if (t.device != ref.device or t.dtype != dt
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"{what}: {name} must be a contiguous {dt} "
-                             f"{shape} tensor on {ref.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-
-
 def lstm_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
                     mask: torch.Tensor, reverse: bool = False,
                     residuals: bool = False):
@@ -170,10 +161,10 @@ def lstm_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
     another dtype or layout raise."""
     T, B, G = x_proj.shape
     H = G // 4
-    _check("lstm_scan_fused", x_proj,
-           ("x_proj", x_proj, (T, B, 4 * H), torch.float32),
-           ("w_hh", w_hh, (H, 4 * H), torch.float32),
-           ("mask", mask, (T, B), torch.bool))
+    build.check_inputs("lstm_scan_fused", x_proj,
+                       ("x_proj", x_proj, (T, B, 4 * H), torch.float32),
+                       ("w_hh", w_hh, (H, 4 * H), torch.float32),
+                       ("mask", mask, (T, B), torch.bool))
     if x_proj.device.type == "cpu":
         if residuals:
             return lstm_scan_fwd_plain(x_proj, w_hh, mask, reverse)
@@ -214,13 +205,13 @@ def lstm_bwd_fused(gates: torch.Tensor, cs: torch.Tensor, ys: torch.Tensor,
     raise."""
     T, B, G = gates.shape
     H = G // 4
-    _check("lstm_bwd_fused", gates,
-           ("gates", gates, (T, B, G), torch.float32),
-           ("cs", cs, (T, B, H), torch.float32),
-           ("ys", ys, (T, B, H), torch.float32),
-           ("dys", dys, (T, B, H), torch.float32),
-           ("mask", mask, (T, B), torch.bool),
-           ("w_hh", w_hh, (H, G), torch.float32))
+    build.check_inputs("lstm_bwd_fused", gates,
+                       ("gates", gates, (T, B, G), torch.float32),
+                       ("cs", cs, (T, B, H), torch.float32),
+                       ("ys", ys, (T, B, H), torch.float32),
+                       ("dys", dys, (T, B, H), torch.float32),
+                       ("mask", mask, (T, B), torch.bool),
+                       ("w_hh", w_hh, (H, G), torch.float32))
     if gates.device.type == "cpu":
         return lstm_scan_bwd_plain(gates, cs, ys, mask, w_hh, dys, reverse)
     if gates.device.type != "cuda":

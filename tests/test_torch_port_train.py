@@ -299,15 +299,14 @@ def test_train_entry_needs_cuda_without_cpu_flag(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("where,key,value", [
     ("hparas", "amp", True), ("audio", "augment", {"time_mask": 2}),
-    ("model", "plugin", {"enabled": True}), ("attention", "use_pallas_train", True),
-    ("root", "model_parallel", 2), ("root", "ckpt_format", "orbax"),
-    ("flag", "--amp", None), ("flag", "--lm", None)])
+    ("model", "plugin", {"enabled": True}), ("root", "model_parallel", 2),
+    ("root", "ckpt_format", "orbax"), ("flag", "--amp", None),
+    ("flag", "--lm", None)])
 def test_unported_training_options_raise(tmp_path, where, key, value):
     cfg_path = _train_config(tmp_path)
     cfg = yaml.safe_load(cfg_path.read_text())
     target = {"hparas": cfg["hparas"], "audio": cfg["data"]["audio"],
-              "model": cfg["model"], "attention": cfg["model"]["attention"],
-              "root": cfg}.get(where)
+              "model": cfg["model"], "root": cfg}.get(where)
     if target is not None:
         target[key] = value
     cfg_path.write_text(yaml.safe_dump(cfg))
