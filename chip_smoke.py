@@ -10,7 +10,10 @@ Phases, each printing one JSON line:
                 B utterances of 7 s with ragged lengths (log-mel atol 1e-3)
   k2          - the LSTM scan kernel against its plain version at H=512,
                 T=176, both directions, ragged masks (atol 1e-4), at B=128
-                and at the slice's batch
+                and at the slice's batch; and its bf16 variant (bf16 x_proj
+                and ys, f32 carries) at the same shapes (ys within 1 bf16
+                ulp of the plain version, plus 1e-5 for the f32 sums taken
+                in another order)
   k2b         - K2's residual outputs (cell states, gates) and the LSTM
                 backward kernel against their plain versions and against
                 autograd through the plain scan, same shapes (residuals and
@@ -28,16 +31,34 @@ Phases, each printing one JSON line:
                 the slice's batch, T=176, d=300 (ctx / align atol 1e-4;
                 dq / dtarg / dvals atol 1e-5; dv within 1e-4 of its max
                 magnitude)
+  k6          - the CTC prefix psi kernel against its plain version at
+                B=128 and the slice's batch, K=8, T=176, V=5120 with bf16
+                probs (ragged lengths, padded frames blank-only); at V=128
+                with the last token on blank and on every block edge and an
+                all-zero probs column (md - 87.4982, finite); and with f32
+                probs at the slice's batch, V=5120 (rtol / atol 2e-5 on
+                finite entries, blank and last-token columns bit-equal)
   slice       - serving main path: bench.py's model at full width (VGG +
                 3x BiLSTM-512, loc attention 300 / kernel 100, LSTM-512
-                decoder and LM, beam 8, V=31, CTC 0.3 + LM 0.3) with random
-                weights from --seed: three timed decode batches with the
-                kernels (K1 and K2 must launch, K5 must not), one with the
+                decoder and LM, beam 8, V=31, CTC 0.3 + LM 0.3, decode.amp
+                pinned off) with random weights from --seed: three timed
+                decode batches with the kernels (each batch must launch K1
+                once and K2 six times, and no other kernel), one with the
                 plain versions; then a breakdown of one batch
   slice_att   - the same with attention.use_pallas: K5 must launch exactly
                 once per beam step of every batch
+  slice_amp   - the slice with decode.amp left at auto, which must resolve
+                to bf16 on the card: K2's bf16 variant six times per batch,
+                K6 never (V=31 fails its gate); top-1 share and best-score
+                difference against the same batch with amp off
+  slice_sub5k - the same model and LM at V=5120 with amp and
+                decode.psi_kernel: K6 exactly once per beam step; the same
+                batch with psi_kernel off launches it never; breakdowns of
+                both
   entry       - python -m end_to_end_asr_pytorch_tpu_torch.transcribe on
-                two WAVs with a reference-layout checkpoint
+                two WAVs with a reference-layout checkpoint (amp off)
+  entry_sub5k - the same with a generated 5120-piece sentencepiece model,
+                a V=5120 checkpoint and decode.psi_kernel: true, amp auto
   train       - training main path: the port's solver with bench.py's model
                 at full width, Adadelta (lr 1, eps 1e-8, clip 5), joint
                 0.5 CTC + 0.5 CE, teacher forcing 0.9, B waves of 7 s with
@@ -56,8 +77,9 @@ Phases, each printing one JSON line:
                 bench.py's model, 4 steps, validation every 2), then
                 transcribe of two dev WAVs with its latest.pth
 Then a line with the per-kernel measurements ({"kernels": [...]}: K1 and K2
-launches counted on the slice's run, K5 on slice_att's, K2b and K3 on the
-train run, K7 on train_att's), the nvidia-smi line, and last
+launches counted on the slice's run, K5 on slice_att's, K2's bf16 variant
+on slice_amp's, K6 on slice_sub5k's, K2b and K3 on the train run, K7 on
+train_att's), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase
 ends the run with a non-zero exit code. Needs CUDA: without it the script
 fails before printing a result.
@@ -90,9 +112,12 @@ MODEL_CFG = {
 }
 LM_CFG = {"module": "LSTM", "dim": 512, "emb_dim": 512, "layer": 1}
 AUDIO_CFG = {"feat_type": "fbank", "feat_dim": 40, "cmvn": True}
+# the f32 slices pin amp off ("auto" is bf16 on the card)
 DECODE_CFG = {"beam_size": 8, "min_len_ratio": 0.05, "max_len_ratio": 0.6,
-              "ctc_weight": 0.3, "lm_weight": 0.3}
+              "ctc_weight": 0.3, "lm_weight": 0.3, "amp": False}
 CHARS = list("abcdefghijklmnopqrstuvwxyz'") + ["<space>"]   # V = 3 + 28 = 31
+V_CHAR = 3 + len(CHARS)
+V_SUB = 5120          # bench_vocab.py's subword workload
 SECS = 7.0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s (no tensor cores)
@@ -206,9 +231,9 @@ def phase_k1(frontend, batch, seed):
 
 
 def phase_k2(seed, slice_batch, T=176, H=512):
-    """K2 against its plain version, both directions, ragged masks, at B=128
-    and at the slice's batch (the shape the main path gives it; that record
-    is the kernel's line)."""
+    """K2 and its bf16 variant against their plain versions, both
+    directions, ragged masks, at B=128 and at the slice's batch (the shape
+    the main path gives them; those records are the kernels' lines)."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
     rng = np.random.RandomState(seed + 1)
@@ -223,7 +248,7 @@ def phase_k2(seed, slice_batch, T=176, H=512):
         cudnn.weight_hh_l0.copy_(w_hh.T)
         cudnn.bias_ih_l0.zero_()
         cudnn.bias_hh_l0.zero_()
-    records = {}
+    records, bf16_records = {}, {}
     for B in (128, slice_batch):
         xp = torch.from_numpy(rng.randn(T, B, 4 * H).astype(np.float32)).cuda()
         lens = rng.randint(T // 2, T + 1, size=B)
@@ -258,7 +283,49 @@ def phase_k2(seed, slice_batch, T=176, H=512):
             "library_ms": cuda_ms(library, 10)}
         emit({"phase": "k2", "T": T, "B": B, "H": H,
               "cudnn_full_length_max_abs_err": lib_err, **records[B]})
-    return records[slice_batch]
+        # the bf16 variant (decode amp): bf16 x_proj and ys, f32 carries
+        xb = xp.to(torch.bfloat16)
+        err = ulps = differ = 0.0
+        for reverse in (False, True):
+            got = lk.lstm_scan_bf16(xb, w_hh, mask, reverse)
+            ref = lk.lstm_scan_plain(xb, w_hh, mask, reverse)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()),
+                  "K2 bf16 output not bf16 and finite")
+            d = (got.float() - ref.float()).abs()
+            err = max(err, float(d.max()))
+            # 8 significant bits: 2^-7 of the larger magnitude is >= 1 ulp;
+            # near 0 the f32 values before rounding differ by the f32
+            # kernel's own summation-order difference (~1e-6), so 1e-5
+            # absolute is added to the ulp
+            one_ulp = torch.maximum(got.float().abs(), ref.float().abs()) * 2.0 ** -7
+            ulps = max(ulps, float(((d - 1e-5).clamp_min(0.0)
+                                    / one_ulp.clamp_min(1e-30)).max()))
+            differ = max(differ, float((d > 0).float().mean()))
+        check(ulps <= 1.0, f"K2 bf16 ys beyond 1 bf16 ulp (+1e-5) of the "
+              f"plain version ({ulps} of the bound) at B={B}")
+        cudnn_bf16 = torch.nn.LSTM(4 * H, H).cuda().to(torch.bfloat16)
+        cudnn_bf16.load_state_dict(cudnn.state_dict())
+        nbytes = 2 * T * B * 4 * H + 4 * H * 4 * H + 4 * T * B + 2 * T * B * H
+        b_ms, b_by = bound(nbytes, flops)
+
+        def library_bf16():
+            with torch.no_grad():
+                return cudnn_bf16(xb)[0]
+
+        bf16_records[B] = {
+            "name": "lstm_scan_bf16", "route": "cuda",
+            "source": "end_to_end_asr_pytorch_tpu_torch/csrc/lstm_scan.cu",
+            "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py:92",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: lk.lstm_scan_bf16(xb, w_hh, mask, True), 10),
+            "plain_ms": cuda_ms(lambda: lk.lstm_scan_plain(xb, w_hh, mask, True), 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(library_bf16, 10)}
+        emit({"phase": "k2_bf16", "T": T, "B": B, "H": H,
+              "max_err_over_bf16_ulp_bound": ulps,
+              "share_of_ys_differing": differ, **bf16_records[B]})
+    return records[slice_batch], bf16_records[slice_batch]
 
 
 def phase_k2b(seed, slice_batch, T=176, H=512):
@@ -559,36 +626,161 @@ def phase_k7(seed, slice_batch, T=176, d=300, vdim=300, tau=0.5):
     return fwd[slice_batch], bwd[slice_batch]
 
 
+def psi_case(B, K, T, V, seed, dtype):
+    """K6 inputs at the beam's scale: probs softmax rows with ragged lengths
+    (padded frames blank-only) in ``dtype``, step weights wd in (0, 1] with
+    each row's maximum 1, row shifts, psi_same and the last tokens (on blank
+    and on both sides of every 128 and 256 column edge, the rest random)."""
+    import torch
+    rng = np.random.RandomState(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn((B, T, V), generator=g, device="cuda") * 3.0
+    probs = torch.softmax(logits, dim=-1)
+    lens = torch.from_numpy(rng.randint(T // 2, T + 1, size=B)).cuda()
+    pad = torch.arange(T, device="cuda")[None, :] >= lens[:, None]
+    probs[pad] = 0.0
+    probs[..., 0][pad] = 1.0
+    wd = np.exp(-rng.uniform(0.0, 30.0, (B, K, T))).astype(np.float32)
+    wd[:, :, 0] = 1.0
+    md = rng.uniform(-150.0, 0.0, (B, K)).astype(np.float32)
+    ps = rng.uniform(-150.0, 0.0, (B, K)).astype(np.float32)
+    edges = [0] + [e + d for e in range(128, V, 128) for d in (-1, 0)]
+    last = rng.randint(1, V, size=(B, K)).astype(np.int32)
+    flat = last.reshape(-1)
+    flat[:min(len(edges), flat.size)] = edges[:flat.size]
+    t = lambda a: torch.from_numpy(a).cuda()
+    return (t(wd), probs.to(dtype).contiguous(), t(md), t(ps),
+            t(last.reshape(B, K)))
+
+
+def psi_errors(got, ref, last, blank=0):
+    """Largest rtol/atol-2e-5 excess on finite entries; whether the blank
+    and last-token columns are bit-equal."""
+    import torch
+    fin = ref > -1e29
+    excess = float(((got - ref).abs() - 2e-5 * ref.abs())[fin].max())
+    cols = last.long()[..., None]
+    exact = (bool((got[..., blank] == ref[..., blank]).all())
+             and bool(torch.equal(torch.gather(got, 2, cols),
+                                  torch.gather(ref, 2, cols))))
+    return float((got - ref)[fin].abs().max()), excess, exact
+
+
+def phase_k6(seed, slice_batch, K=8, T=176, V=V_SUB):
+    """K6 against its plain version: bf16 probs at B=128 and the slice's
+    batch, the V=128 edge case, and f32 probs at the slice's batch (the
+    non-amp psi_kernel route). ``torch.bmm`` of the bf16-rounded weights and
+    the probs (the product K6 fuses) is the library yardstick, alone and
+    with the epilogue."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import psi_kernel as pk
+    records = {}
+    cases = [("bf16", 128, V), ("bf16", slice_batch, V),
+             ("edge", slice_batch, 128), ("f32", slice_batch, V)]
+    for tag, B, Vc in cases:
+        dtype = torch.float32 if tag == "f32" else torch.bfloat16
+        args = list(psi_case(B, K, T, Vc, seed + 9 + B + Vc, dtype))
+        if tag == "edge":
+            args[1][:, :, 77] = 0.0                    # an all-zero column
+            # blank, the zero column, the kernel's 4-column thread edge, the
+            # TPU kernel's 128-column block edge
+            args[4][0] = torch.tensor([0, 77, 3, 4, 127, 126, 1, 64],
+                                      dtype=torch.int32)
+        got = pk.psi_fused(*args)
+        ref = pk.psi_plain(*args)
+        torch.cuda.synchronize()
+        err, excess, exact = psi_errors(got, ref, args[4])
+        check(excess <= 2e-5, f"K6 {tag} B={B} V={Vc}: beyond rtol/atol "
+              f"2e-5 by {excess}")
+        check(exact, f"K6 {tag} B={B} V={Vc}: blank / last-token columns "
+              "not bit-equal to the plain version")
+        res = {"phase": "k6", "case": tag, "B": B, "K": K, "T": T, "V": Vc,
+               "probs": str(dtype).split(".")[-1], "max_abs_err": err}
+        if tag == "edge":
+            zero = got[:, :, 77][args[4] != 77]
+            want = args[2][args[4] != 77] - 87.4982
+            zerr = float((zero - want).abs().max())
+            check(bool(torch.isfinite(zero).all()) and zerr <= 1e-3,
+                  f"K6 all-zero column: {zerr} from md - 87.4982")
+            emit({**res, "zero_column_max_abs_err_vs_md_minus_87_4982": zerr})
+            continue
+        wd, probs = args[0], args[1]
+        wd_r = wd.to(dtype)
+        try:
+            torch.bmm(wd_r, probs, out_dtype=torch.float32)
+            lib = lambda: torch.bmm(wd_r, probs, out_dtype=torch.float32)
+            lib_call = "torch.bmm(out_dtype=float32)"
+        except (TypeError, RuntimeError):
+            lib = lambda: torch.bmm(wd_r, probs)
+            lib_call = f"torch.bmm ({dtype} out)"
+        col = torch.arange(Vc, device="cuda")
+        md, ps, last = args[2], args[3], args[4]
+
+        def lib_epilogue():
+            acc = lib().float()
+            psi = md[..., None] + torch.log(acc + 1e-38)
+            psi = torch.where(col == last[..., None], ps[..., None], psi)
+            return torch.where(col == 0, -1e30, psi)
+
+        nbytes = (probs.element_size() * B * T * Vc + 4 * B * K * T
+                  + 12 * B * K + 4 * B * K * Vc)
+        b_ms, b_by = bound(nbytes, 2 * B * K * T * Vc + B * K * Vc)
+        rec = {"name": "psi_fused", "route": "cuda",
+               "source": "end_to_end_asr_pytorch_tpu_torch/csrc/psi.cu",
+               "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/psi_kernel.py:75",
+               "max_abs_err": err,
+               "ms": cuda_ms(lambda: pk.psi_fused(*args), 20),
+               "plain_ms": cuda_ms(lambda: pk.psi_plain(*args), 20),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_ms(lib, 20)}
+        emit({**res, **rec, "library_call": lib_call,
+              "library_with_epilogue_ms": cuda_ms(lib_epilogue, 20),
+              "device_ms": device_ms(lambda: pk.psi_fused(*args)),
+              "gb_per_s": nbytes / rec["ms"] / 1e6})
+        if tag == "bf16":
+            records[B] = rec
+    return records[slice_batch]
+
+
 def with_attention(**keys):
     """bench.py's model configuration with extra attention keys."""
     return {**MODEL_CFG, "attention": {**MODEL_CFG["attention"], **keys}}
 
 
+# the launches each decode batch must make: kernel -> count, "steps" for
+# once per beam step; kernels left out must not launch
+SLICE_EXPECT = {"fbank_fused": 1, "lstm_scan_fused": 6}
+
+
 def phase_slice(frontend, batch, seed, device, name="slice",
-                model_cfg=MODEL_CFG, n_batches=3):
+                model_cfg=MODEL_CFG, decode_cfg=DECODE_CFG, vocab=V_CHAR,
+                expect=SLICE_EXPECT, n_batches=3):
+    """Decode batches of bench.py's model (random weights from ``seed``):
+    ``n_batches`` timed ones whose launches must be ``expect``'s, one with
+    the plain versions (compared), then a breakdown of one batch. Returns
+    what a comparison with another decode config needs."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.decode.beam import BeamDecoder
     from end_to_end_asr_pytorch_tpu_torch.models.asr import ASR
     from end_to_end_asr_pytorch_tpu_torch.models.lm import RNNLM
     from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
     g = torch.Generator().manual_seed(seed)
-    model = ASR(frontend.feat_dim, 3 + len(CHARS), model_cfg, generator=g,
+    model = ASR(frontend.feat_dim, vocab, model_cfg, generator=g,
                 device=device)
-    lm = RNNLM(3 + len(CHARS), LM_CFG, generator=g, device=device)
-    decoder = BeamDecoder(model, DECODE_CFG, lm=lm)
+    lm = RNNLM(vocab, LM_CFG, generator=g, device=device)
+    decoder = BeamDecoder(model, decode_cfg, lm=lm)
     w, wl = make_waves(batch, seed + 2)
     wave, wave_len = torch.from_numpy(w).to(device), torch.from_numpy(wl).to(device)
 
     def run():
         with torch.no_grad():
             feat, feat_len = frontend(wave, wave_len)
-            enc, _ = model.encode(feat, feat_len)
-            return enc, decoder.forward(feat, feat_len)
+            out = decoder.forward(feat, feat_len)
+            return decoder.last_enc, out    # the encoder output decoded from
 
     run()                                   # warm-up (cuDNN / cuBLAS plans)
     torch.cuda.synchronize()
     counters = launch_counters()
-    k5 = model.attention.use_pallas
     batches = []
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -603,11 +795,11 @@ def phase_slice(frontend, batch, seed, device, name="slice",
     dt = (time.perf_counter() - t0) / n_batches
     launches = {k: sum(b[k] for b in batches) for k in counters}
     steps = decoder.last_steps
-    check(launches["fbank_fused"] > 0 and launches["lstm_scan_fused"] > 0,
-          f"main path did not launch every kernel: {launches}")
-    check(all(b["loc_attention_fused"] == (b["decode_steps"] if k5 else 0)
-              for b in batches),
-          f"K5 must launch {'once per beam step' if k5 else 'never'}: {batches}")
+    for b in batches:
+        want = {k: (b["decode_steps"] if expect.get(k) == "steps"
+                    else expect.get(k, 0)) for k in counters}
+        check({k: b[k] for k in counters} == want,
+              f"{name}: every batch must launch {want}, got {batches}")
     enc_k, _ = run()
     cuda_kernels.USE_KERNELS = False
     try:
@@ -615,36 +807,91 @@ def phase_slice(frontend, batch, seed, device, name="slice",
     finally:
         cuda_kernels.USE_KERNELS = True
     torch.cuda.synchronize()
-    K = DECODE_CFG["beam_size"]
+    K = decode_cfg["beam_size"]
     check(tuple(out_k.scores.shape) == (batch, K), "scores shape")
     check(bool(torch.isfinite(out_k.scores[:, 0]).all())
           and bool((out_k.scores[:, 0] > -1e29).all()), "top-1 scores")
-    enc_err = float((enc_k - enc_p).abs().max())
-    score_err = float((out_k.scores[:, 0] - out_p.scores[:, 0]).abs().max())
-    same = [bool(out_k.lengths[b, 0] == out_p.lengths[b, 0]) and torch.equal(
-        out_k.tokens[b, 0, :out_k.lengths[b, 0]],
-        out_p.tokens[b, 0, :out_p.lengths[b, 0]]) for b in range(batch)]
-    check(enc_err <= 1e-3, f"encoder kernel vs plain max abs diff {enc_err}")
+    enc_err = float((enc_k.float() - enc_p.float()).abs().max())
+    score_err, same = compare_top1(out_k, out_p)
+    # bf16 encoder outputs (|h| < 1) may differ by an ulp, at most 2^-8,
+    # in each of the three layers
+    enc_tol = 3 * 2.0 ** -8 if decoder.last_amp else 1e-3
+    check(enc_err <= enc_tol,
+          f"encoder kernel vs plain max abs diff {enc_err} > {enc_tol}")
     # random weights leave many hypotheses within ~1e-4 of each other, so
-    # 1e-7 differences in the encoder can reorder near-tied beams: the best
-    # normalized score is held to 1e-2, the encoder output to 1e-3
+    # tiny differences in the encoder can reorder near-tied beams: the best
+    # normalized score is held to 1e-2
     check(score_err <= 1e-2, f"best score kernel vs plain max abs diff {score_err}")
-    emit({"phase": name, "batch": batch, "secs": SECS,
-          "enc_frames": int(enc_k.shape[1]), "decode_steps": steps,
-          "enc_max_abs_diff": enc_err, "best_score_max_abs_diff": score_err,
-          "top1_identical_share": sum(same) / batch,
+    emit({"phase": name, "batch": batch, "secs": SECS, "vocab": vocab,
+          "amp": decoder.last_amp, "enc_frames": int(enc_k.shape[1]),
+          "decode_steps": steps, "enc_max_abs_diff": enc_err,
+          "best_score_max_abs_diff": score_err, "top1_identical_share": same,
           "batches": n_batches, "utts_per_s": batch / dt,
           "seconds_per_batch": dt, "launches": launches})
     slice_breakdown(frontend, model, decoder, wave, wave_len, name)
-    return model, launches
+    return {"model": model, "lm": lm, "wave": wave, "wave_len": wave_len,
+            "out": out_k, "launches": launches, "amp": decoder.last_amp}
+
+
+def compare_top1(a, b):
+    """Largest best-score difference of two beam outputs, and the share of
+    rows whose top-1 tokens are identical."""
+    import torch
+    B = a.scores.shape[0]
+    diff = float((a.scores[:, 0] - b.scores[:, 0]).abs().max())
+    same = [bool(a.lengths[i, 0] == b.lengths[i, 0]) and torch.equal(
+        a.tokens[i, 0, :a.lengths[i, 0]], b.tokens[i, 0, :b.lengths[i, 0]])
+        for i in range(B)]
+    return diff, sum(same) / B
+
+
+def phase_slice_other(frontend, sl, decode_cfg, name, expect,
+                      breakdown=False):
+    """The slice's batch and weights through another decode config: its
+    launches (which must be ``expect``'s), the best-score difference and
+    top-1 share against the slice's output, and optionally a breakdown."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.decode.beam import BeamDecoder
+    decoder = BeamDecoder(sl["model"], decode_cfg, lm=sl["lm"])
+    counters = launch_counters()
+    with torch.no_grad():
+        decoder.forward(*frontend(sl["wave"], sl["wave_len"]))     # warm-up
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decoder.forward(*frontend(sl["wave"], sl["wave_len"]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    want = {k: (decoder.last_steps if expect.get(k) == "steps"
+                else expect.get(k, 0)) for k in counters}
+    check(got == want, f"{name}: the batch must launch {want}, got {got}")
+    diff, same = compare_top1(sl["out"], out)
+    emit({"phase": name, "amp": decoder.last_amp,
+          "decode_steps": decoder.last_steps, "seconds_per_batch": dt,
+          "best_score_max_abs_diff_vs_slice": diff,
+          "top1_identical_share_vs_slice": same, "launches": got})
+    if breakdown:
+        slice_breakdown(frontend, sl["model"], decoder, sl["wave"],
+                        sl["wave_len"], name)
 
 
 def slice_breakdown(frontend, model, decoder, wave, wave_len, name):
     """Where one kernel-path decode batch spends its time: host-clock split
-    into front end, encoder and beam loop, then one profiled decode for the
-    device's busy share and its largest kernels."""
+    into front end, encoder (under amp with the weights rounded to bf16)
+    and beam loop, then one profiled decode for the device's busy share and
+    its largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from end_to_end_asr_pytorch_tpu_torch.ops.amp import bf16_rounded_copy
+    amp = decoder.last_amp
+
+    def encode(feat, feat_len):
+        if not amp:
+            return model.encode(feat, feat_len)
+        return bf16_rounded_copy(model).encode(feat.to(torch.bfloat16),
+                                               feat_len)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -655,7 +902,7 @@ def slice_breakdown(frontend, model, decoder, wave, wave_len, name):
 
     with torch.no_grad():
         (feat, feat_len), front_ms = timed(lambda: frontend(wave, wave_len))
-        _, enc_ms = timed(lambda: model.encode(feat, feat_len))
+        _, enc_ms = timed(lambda: encode(feat, feat_len))
         _, fwd_ms = timed(lambda: decoder.forward(feat, feat_len))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -677,26 +924,56 @@ def slice_breakdown(frontend, model, decoder, wave, wave_len, name):
           "encode_ms": enc_ms, "beam_loop_ms": fwd_ms - enc_ms,
           "decode_steps": decoder.last_steps,
           "beam_step_ms": (fwd_ms - enc_ms) / decoder.last_steps,
+          "device_ms_per_step": busy_ms / decoder.last_steps,
           "profiled_decode_ms": prof_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / prof_ms,
           "device_kernel_launches": sum(e.count for e in evts),
           "top_device_ms": top})
 
 
-def phase_entry(model, seed):
+def sentencepiece_pieces(n):
+    """(piece, score, type) of an n-piece unigram model: <pad>, </s>, <unk>,
+    then word-initial and inner pieces of one to three letters."""
+    from itertools import product
+    from end_to_end_asr_pytorch_tpu_torch.utils import sentencepiece_model as spm
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    out = [("<pad>", 0.0, spm.TYPE_CONTROL), ("</s>", 0.0, spm.TYPE_CONTROL),
+           ("<unk>", 0.0, spm.TYPE_UNKNOWN), ("\u2581", -3.0, spm.TYPE_NORMAL)]
+    for k in (1, 2, 3):
+        for head in ("\u2581", ""):
+            for p in product(letters, repeat=k):
+                if len(out) == n:
+                    return out
+                out.append((head + "".join(p), -2.0 * k, spm.TYPE_NORMAL))
+    return out
+
+
+def phase_entry(model, seed, name="entry", decode_cfg=None, vocab=V_CHAR):
+    """python -m end_to_end_asr_pytorch_tpu_torch.transcribe on two WAVs
+    with ``model`` saved as a reference-layout checkpoint: a character
+    vocabulary for V=31, else a generated sentencepiece model of ``vocab``
+    pieces (the port's own serializer)."""
     import torch
     import yaml
     from end_to_end_asr_pytorch_tpu_torch.data.audio_io import write_wav
+    from end_to_end_asr_pytorch_tpu_torch.utils.sentencepiece_model import (
+        serialize_model_proto)
     from end_to_end_asr_pytorch_tpu_torch.utils.torch_ckpt import asr_state_dict
+    if decode_cfg is None:
+        decode_cfg = {k: v for k, v in DECODE_CFG.items() if k != "lm_weight"}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         d = Path(d)
-        (d / "vocab.txt").write_text("\n".join(CHARS) + "\n")
+        if vocab == V_CHAR:
+            (d / "vocab.txt").write_text("\n".join(CHARS) + "\n")
+            text = {"mode": "character", "vocab_file": str(d / "vocab.txt")}
+        else:
+            pieces = sentencepiece_pieces(vocab)
+            check(len(pieces) == vocab, f"{len(pieces)} pieces, not {vocab}")
+            (d / "sp.model").write_bytes(serialize_model_proto(pieces))
+            text = {"mode": "subword", "vocab_file": str(d / "sp.model")}
         cfg = {"data": {"corpus": {"name": "smoke"}, "audio": AUDIO_CFG,
-                        "text": {"mode": "character",
-                                 "vocab_file": str(d / "vocab.txt")}},
-               "model": MODEL_CFG, "hparas": {},
-               "decode": {k: v for k, v in DECODE_CFG.items()
-                          if k != "lm_weight"}}
+                        "text": text},
+               "model": MODEL_CFG, "hparas": {}, "decode": decode_cfg}
         (d / "cfg.yaml").write_text(yaml.safe_dump(cfg))
         torch.save({"model": asr_state_dict(model), "global_step": 0},
                    str(d / "asr.pth"))
@@ -719,7 +996,9 @@ def phase_entry(model, seed):
         rows = (d / "out.tsv").read_text().strip().split("\n")
         check(len(rows) == 2 and all("\t" in r for r in rows),
               f"transcribe TSV rows: {rows!r}")
-        emit({"phase": "entry", "rows": len(rows), "seconds": dt,
+        emit({"phase": name, "rows": len(rows), "seconds": dt,
+              "decode": decode_cfg, "text_mode": text["mode"],
+              "first_row_chars": len(rows[0]),
               "stderr_tail": proc.stderr.strip().splitlines()[-1:]})
 
 
@@ -763,9 +1042,12 @@ def make_solver(device, seed, workdir, model_cfg=MODEL_CFG):
 def launch_counters():
     """Every kernel wrapper, by name; each counts its own launches."""
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import (
-        att_kernel, att_train_kernel, ctc_kernel, fbank_kernel, lstm_kernel)
+        att_kernel, att_train_kernel, ctc_kernel, fbank_kernel, lstm_kernel,
+        psi_kernel)
     return {"fbank_fused": fbank_kernel.fbank_fused,
             "lstm_scan_fused": lstm_kernel.lstm_scan_fused,
+            "lstm_scan_bf16": lstm_kernel.lstm_scan_bf16,
+            "psi_fused": psi_kernel.psi_fused,
             "lstm_bwd_fused": lstm_kernel.lstm_bwd_fused,
             "ctc_loss_fused": ctc_kernel.ctc_loss_fused,
             "loc_attention_fused": att_kernel.loc_attention_fused,
@@ -789,6 +1071,7 @@ def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
     n_scans = len(enc["dim"]) * (2 if enc["bidirection"] else 1)
     k7 = data[2].shape[1] if solver.model.attention.use_pallas_train else 0
     per_step = {"fbank_fused": 1, "lstm_scan_fused": n_scans,
+                "lstm_scan_bf16": 0, "psi_fused": 0,
                 "lstm_bwd_fused": n_scans, "ctc_loss_fused": 1,
                 "loc_attention_fused": 0, "loc_att_fwd_fused": k7,
                 "loc_att_bwd_fused": k7}
@@ -994,7 +1277,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--phases",
-                    default="k1,k2,k2b,k3,k5,k7,slice,slice_att,entry,"
+                    default="k1,k2,k2b,k3,k5,k6,k7,slice,slice_att,entry,"
+                            "slice_amp,slice_sub5k,entry_sub5k,"
                             "train,train_att,train_entry",
                     help="comma list of phases after build (default: all)")
     args = ap.parse_args()
@@ -1019,7 +1303,7 @@ def main():
           "cuda": torch.version.cuda})
 
     secs = build.build(["fbank", "lstm_scan", "ctc_loss", "loc_att",
-                        "loc_att_train"])
+                        "loc_att_train", "psi"])
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in build.build_log.items()}
@@ -1030,13 +1314,16 @@ def main():
     if "k1" in phases:
         kernels["fbank_fused"] = phase_k1(frontend, args.batch, args.seed)
     if "k2" in phases:
-        kernels["lstm_scan_fused"] = phase_k2(args.seed, args.batch)
+        (kernels["lstm_scan_fused"],
+         kernels["lstm_scan_bf16"]) = phase_k2(args.seed, args.batch)
     if "k2b" in phases:
         kernels["lstm_bwd_fused"] = phase_k2b(args.seed, args.batch)
     if "k3" in phases:
         kernels["ctc_loss_fused"] = phase_k3(args.seed, args.batch)
     if "k5" in phases:
         kernels["loc_attention_fused"] = phase_k5(args.seed, args.batch)
+    if "k6" in phases:
+        kernels["psi_fused"] = phase_k6(args.seed, args.batch)
     if "k7" in phases:
         (kernels["loc_att_fwd_fused"],
          kernels["loc_att_bwd_fused"]) = phase_k7(args.seed, args.batch)
@@ -1047,14 +1334,38 @@ def main():
                 kernels[name]["launches"] = launches[name]
 
     if "slice" in phases:
-        model, launches = phase_slice(frontend, args.batch, args.seed, device)
-        record(launches, ("fbank_fused", "lstm_scan_fused"))
+        sl = phase_slice(frontend, args.batch, args.seed, device)
+        record(sl["launches"], ("fbank_fused", "lstm_scan_fused"))
         if "entry" in phases:
-            phase_entry(model, args.seed)
+            phase_entry(sl["model"], args.seed)
     if "slice_att" in phases:
-        _, launches = phase_slice(frontend, args.batch, args.seed, device,
-                                  "slice_att", with_attention(use_pallas=True))
-        record(launches, ("loc_attention_fused",))
+        sl = phase_slice(frontend, args.batch, args.seed, device, "slice_att",
+                         with_attention(use_pallas=True),
+                         expect={**SLICE_EXPECT, "loc_attention_fused": "steps"})
+        record(sl["launches"], ("loc_attention_fused",))
+    amp_expect = {"fbank_fused": 1, "lstm_scan_bf16": 6}
+    auto_cfg = {k: v for k, v in DECODE_CFG.items() if k != "amp"}
+    if "slice_amp" in phases:
+        sl = phase_slice(frontend, args.batch, args.seed, device, "slice_amp",
+                         decode_cfg=auto_cfg, expect=amp_expect)
+        check(sl["amp"] is True, "decode.amp: auto did not resolve to bf16 "
+              "on the card")
+        record(sl["launches"], ("lstm_scan_bf16",))
+        phase_slice_other(frontend, sl, DECODE_CFG, "slice_amp_vs_f32",
+                          SLICE_EXPECT)
+    if "slice_sub5k" in phases or "entry_sub5k" in phases:
+        sub_cfg = {**DECODE_CFG, "amp": True, "psi_kernel": True}
+        sl = phase_slice(frontend, args.batch, args.seed, device,
+                         "slice_sub5k", decode_cfg=sub_cfg, vocab=V_SUB,
+                         expect={**amp_expect, "psi_fused": "steps"})
+        record(sl["launches"], ("psi_fused",))
+        phase_slice_other(frontend, sl, {**sub_cfg, "psi_kernel": False},
+                          "slice_sub5k_no_psi_kernel", amp_expect,
+                          breakdown=True)
+        if "entry_sub5k" in phases:
+            phase_entry(sl["model"], args.seed, "entry_sub5k",
+                        {k: v for k, v in sub_cfg.items()
+                         if k not in ("lm_weight", "amp")}, V_SUB)
     if "train" in phases:
         launches = phase_train(args.batch, args.seed, device)
         record(launches, ("lstm_bwd_fused", "ctc_loss_fused"))

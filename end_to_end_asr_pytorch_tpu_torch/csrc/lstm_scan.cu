@@ -1,5 +1,5 @@
-// Masked LSTM time scan for Hopper, full f32: forward (K2, with optional
-// training residuals) and backward (K2b).
+// Masked LSTM time scan for Hopper: forward (K2, with optional training
+// residuals) and backward (K2b), f32 throughout, and K2's bf16 variant.
 //
 // Forward: replaces end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py:
 // _run_fwd (reached through lstm_scan_fused). x_proj (T, B, 4H) = x @ W_ih + b
@@ -12,6 +12,12 @@
 // kernel also writes the residuals the backward needs, as _fwd_kernel does:
 // the carried cell state (T, B, H) and the post-activation gates (T, B, 4H);
 // when they are null (serving) it writes neither.
+//
+// bf16 variant (decode amp; the TPU kernel's outputs take x_proj.dtype): the
+// same kernel instantiated with TX = bf16 for x_proj and ys only. Each
+// x_proj element is widened to f32 as it is read, W_hh, the carries and the
+// gate math stay f32, and ys is rounded to bf16 (round to nearest even) as it
+// is written. It keeps no residuals.
 //
 // Backward: replaces lstm_kernel.py:_bwd_kernel / _run_bwd. It walks time
 // opposite to the forward and emits dxp (T, B, 4H), the gradient of x_proj;
@@ -42,6 +48,7 @@
 // with the occupancy API and cudaLaunchCooperativeKernel refuses a grid that
 // is not.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -53,12 +60,26 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename TX> __device__ __forceinline__ TX from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 // U hidden units per block (power of two, 1..128): RB = 2 * NT / U rows of
-// the batch per pass (2 per thread), KC = HS / RB rows of h per chunk.
-template <int U>
+// the batch per pass (2 per thread), KC = HS / RB rows of h per chunk. TX is
+// the element type of x_proj and ys (float, or bf16 without residuals).
+template <int U, typename TX>
 __global__ void __launch_bounds__(NT) lstm_fwd_kernel(
-    const float* __restrict__ xp, const float* __restrict__ whh,
-    const float* __restrict__ mask, float* __restrict__ ys, float* hbuf,
+    const TX* __restrict__ xp, const float* __restrict__ whh,
+    const float* __restrict__ mask, TX* __restrict__ ys, float* hbuf,
     float* __restrict__ cs_out, float* __restrict__ gates_out,
     int T, int B, int H, int reverse) {
   constexpr int RP = NT / U;
@@ -94,11 +115,11 @@ __global__ void __launch_bounds__(NT) lstm_fwd_kernel(
       for (int j = 0; j < 2; ++j) {
         const int row = r0 + 2 * rp + j;
         const bool ok = row < B;
-        const float* x = xp + ((size_t)t * B + (ok ? row : 0)) * G + unit;
-        a[j][0] = ok ? x[0] : 0.f;
-        a[j][1] = ok ? x[H] : 0.f;
-        a[j][2] = ok ? x[2 * H] : 0.f;
-        a[j][3] = ok ? x[3 * H] : 0.f;
+        const TX* x = xp + ((size_t)t * B + (ok ? row : 0)) * G + unit;
+        a[j][0] = ok ? to_f32(x[0]) : 0.f;
+        a[j][1] = ok ? to_f32(x[H]) : 0.f;
+        a[j][2] = ok ? to_f32(x[2 * H]) : 0.f;
+        a[j][3] = ok ? to_f32(x[3 * H]) : 0.f;
         m[j] = ok ? mask[(size_t)t * B + row] : 0.f;
       }
       for (int k0 = 0; k0 < H; k0 += KC) {
@@ -137,7 +158,7 @@ __global__ void __launch_bounds__(NT) lstm_fwd_kernel(
         const size_t o = (size_t)t * B + row;
         c_s[row * U + u] = c_keep;
         hnext[(size_t)unit * B + row] = m[j] * h_new + (1.f - m[j]) * h_old;
-        ys[o * H + unit] = m[j] * h_new;
+        ys[o * H + unit] = from_f32<TX>(m[j] * h_new);
         if (keep) {
           cs_out[o * H + unit] = c_keep;
           float* gr = gates_out + o * G + unit;
@@ -263,45 +284,52 @@ __global__ void __launch_bounds__(NT) lstm_bwd_kernel(
   }
 }
 
-typedef void (*lstm_fwd_fn)(const float*, const float*, const float*, float*,
-                            float*, float*, float*, int, int, int, int);
-typedef void (*lstm_bwd_fn)(const float*, const float*, const float*,
-                            const float*, const float*, float*, float4*, int,
-                            int, int, int);
+// The instantiation for U hidden units per block (nullptr for another U).
+#define LSTM_CASES(...)                                  \
+  case 1: return (void*)__VA_ARGS__(1);                  \
+  case 2: return (void*)__VA_ARGS__(2);                  \
+  case 4: return (void*)__VA_ARGS__(4);                  \
+  case 8: return (void*)__VA_ARGS__(8);                  \
+  case 16: return (void*)__VA_ARGS__(16);                \
+  case 32: return (void*)__VA_ARGS__(32);                \
+  case 64: return (void*)__VA_ARGS__(64);                \
+  case 128: return (void*)__VA_ARGS__(128);              \
+  default: return nullptr;
+#define FWD_KERNEL(u) lstm_fwd_kernel<u, TX>
+#define BWD_KERNEL(u) lstm_bwd_kernel<u>
 
-#define LSTM_KERNEL_FOR(KERNEL, FN_T)                 \
-  static FN_T KERNEL##_for(int U) {                   \
-    switch (U) {                                      \
-      case 1: return KERNEL<1>;                       \
-      case 2: return KERNEL<2>;                       \
-      case 4: return KERNEL<4>;                       \
-      case 8: return KERNEL<8>;                       \
-      case 16: return KERNEL<16>;                     \
-      case 32: return KERNEL<32>;                     \
-      case 64: return KERNEL<64>;                     \
-      case 128: return KERNEL<128>;                   \
-      default: return nullptr;                        \
-    }                                                 \
-  }
-LSTM_KERNEL_FOR(lstm_fwd_kernel, lstm_fwd_fn)
-LSTM_KERNEL_FOR(lstm_bwd_kernel, lstm_bwd_fn)
+template <typename TX>
+static void* fwd_for(int U) {
+  switch (U) { LSTM_CASES(FWD_KERNEL) }
+}
+
+static void* bwd_for(int U) {
+  switch (U) { LSTM_CASES(BWD_KERNEL) }
+}
+
+// Kernel kinds: the f32 forward, the backward, the bf16 forward.
+enum { KIND_FWD = 0, KIND_BWD = 1, KIND_FWD_BF16 = 2 };
 
 // Dynamic shared memory of one block: the W_hh slice (float4 per unit and
 // k), the 64 KB chunk, and the carries (one B x U array forward, two back).
-extern "C" size_t lstm_smem_bytes(int B, int H, int U, int bwd) {
+extern "C" size_t lstm_smem_bytes(int B, int H, int U, int kind) {
   return (size_t)H * U * sizeof(float4) +
-         (size_t)(HS + (bwd ? 2 : 1) * B * U) * sizeof(float);
+         (size_t)(HS + (kind == KIND_BWD ? 2 : 1) * B * U) * sizeof(float);
 }
 
-static void* kernel_ptr(int U, int bwd) {
-  return bwd ? (void*)lstm_bwd_kernel_for(U) : (void*)lstm_fwd_kernel_for(U);
+static void* kernel_ptr(int U, int kind) {
+  switch (kind) {
+    case KIND_FWD: return fwd_for<float>(U);
+    case KIND_BWD: return bwd_for(U);
+    case KIND_FWD_BF16: return fwd_for<__nv_bfloat16>(U);
+    default: return nullptr;
+  }
 }
 
-// Blocks of the U-unit kernel (forward, or backward when bwd) that can be
-// resident at once on the whole card (0 when one block's shared memory does
-// not fit).
-extern "C" int lstm_max_coresident(int B, int H, int U, int bwd, int* out) {
-  void* fn = kernel_ptr(U, bwd);
+// Blocks of the U-unit kernel of that kind that can be resident at once on
+// the whole card (0 when one block's shared memory does not fit).
+extern "C" int lstm_max_coresident(int B, int H, int U, int kind, int* out) {
+  void* fn = kernel_ptr(U, kind);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -311,7 +339,7 @@ extern "C" int lstm_max_coresident(int B, int H, int U, int bwd, int* out) {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = lstm_smem_bytes(B, H, U, bwd);
+  const size_t smem = lstm_smem_bytes(B, H, U, kind);
   *out = 0;
   if (smem > (size_t)optin) return 0;
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -339,13 +367,30 @@ extern "C" int lstm_fwd_launch(const float* xp, const float* whh,
                                const float* mask, float* ys, float* hbuf,
                                float* cs_out, float* gates_out, int T, int B,
                                int H, int U, int reverse, void* stream) {
-  void* fn = kernel_ptr(U, 0);
+  void* fn = kernel_ptr(U, KIND_FWD);
   if (fn == nullptr || H % U != 0 || (cs_out == nullptr) != (gates_out == nullptr))
     return (int)cudaErrorInvalidValue;
   void* args[] = {(void*)&xp, (void*)&whh, (void*)&mask, (void*)&ys,
                   (void*)&hbuf, (void*)&cs_out, (void*)&gates_out, (void*)&T,
                   (void*)&B, (void*)&H, (void*)&reverse};
-  return launch(fn, U, H, lstm_smem_bytes(B, H, U, 0), args, stream);
+  return launch(fn, U, H, lstm_smem_bytes(B, H, U, KIND_FWD), args, stream);
+}
+
+// The bf16 variant: xp and ys are bf16 (T, B, 4H) / (T, B, H), no residuals.
+extern "C" int lstm_fwd_bf16_launch(const void* xp, const float* whh,
+                                    const float* mask, void* ys, float* hbuf,
+                                    int T, int B, int H, int U, int reverse,
+                                    void* stream) {
+  void* fn = kernel_ptr(U, KIND_FWD_BF16);
+  if (fn == nullptr || H % U != 0) return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* x = (const __nv_bfloat16*)xp;
+  __nv_bfloat16* y = (__nv_bfloat16*)ys;
+  float* none = nullptr;
+  void* args[] = {(void*)&x, (void*)&whh, (void*)&mask, (void*)&y,
+                  (void*)&hbuf, (void*)&none, (void*)&none, (void*)&T,
+                  (void*)&B, (void*)&H, (void*)&reverse};
+  return launch(fn, U, H, lstm_smem_bytes(B, H, U, KIND_FWD_BF16), args,
+                stream);
 }
 
 // dgbuf: 2 * H * B float4, zero-filled by the caller.
@@ -354,11 +399,11 @@ extern "C" int lstm_bwd_launch(const float* gates, const float* cs,
                                const float* whh, float* dxp, void* dgbuf,
                                int T, int B, int H, int U, int reverse,
                                void* stream) {
-  void* fn = kernel_ptr(U, 1);
+  void* fn = kernel_ptr(U, KIND_BWD);
   if (fn == nullptr || H % U != 0) return (int)cudaErrorInvalidValue;
   float4* dg = (float4*)dgbuf;
   void* args[] = {(void*)&gates, (void*)&cs, (void*)&dys, (void*)&mask,
                   (void*)&whh, (void*)&dxp, (void*)&dg, (void*)&T, (void*)&B,
                   (void*)&H, (void*)&reverse};
-  return launch(fn, U, H, lstm_smem_bytes(B, H, U, 1), args, stream);
+  return launch(fn, U, H, lstm_smem_bytes(B, H, U, KIND_BWD), args, stream);
 }

@@ -4,17 +4,34 @@ Combined score ``(1-ctc_w) * logP_att + ctc_w * CTCPrefixScore +
 lm_w * logP_lm``; ``min_len_ratio``/``max_len_ratio`` bounds from the
 encoded length; eos finalization with length-normalized ranking. The whole
 batch advances K hypotheses per step as (B, K, ...) tensors, decoder and LM
-states folded to (B*K, ...), attention against the unexpanded cache. This
-is the JAX package's exact (non-amp) path, step for step.
+states folded to (B*K, ...), attention against the unexpanded cache. Step
+for step the JAX package's beam, on both of its paths:
+
+  * exact (f32), the default on the CPU;
+  * decode amp (``amp``: ``auto`` = on when the encoder runs on CUDA, as the
+    JAX package turns it on off the CPU; ``True`` / ``False``): the model's
+    and the LM's floating parameters rounded to bf16 once for the call and
+    kept in f32, so no step widens a weight again (the caller's modules stay
+    as they are), bf16 features, bf16 attention keys and
+    values, the CTC prep normalised by one logsumexp and exponentiated in
+    bf16, bf16 first-layer lookup tables for the decoder and the LM, and
+    (``fold_logp``: ``auto`` = amp and V >= 1024, or forced) the
+    log-softmax normalisers folded into one per-hypothesis shift. Scores,
+    psi and the CTC state stay f32.
+
+``psi_kernel: true`` sends the full-vocab psi to K6 wherever the JAX
+package's gate (``pick_block``) takes its Pallas kernel: bf16 probs under
+amp, f32 probs without. ``auto`` and ``false`` leave it off. The JAX
+package's amp beam reorders states with one-hot products, which are exact
+reorders; here they are gathers, with the same values.
 
 Ties: ``lax.top_k`` prefers the lowest index among equal values, and the
 finished set's NEG_INF placeholders are mass ties. ``torch.topk`` promises
 no tie order, so every top-K here is a stable descending sort.
 
-Not ported yet (a non-default value raises NotImplementedError): ``amp``
-(``auto`` resolves to off), ``psi_kernel``, ``psi_quant``, ``ctc_window``,
-``approx_topk``, ``ctc_candidates > 0``, ``fold_logp: true`` and the
-embedding-fusion ``plugin``.
+Not ported yet (a non-default value raises NotImplementedError):
+``psi_quant``, ``ctc_window``, ``approx_topk``, ``ctc_candidates > 0`` and
+the embedding-fusion ``plugin``.
 """
 from __future__ import annotations
 
@@ -27,20 +44,45 @@ import torch.nn.functional as F
 from ..models.asr import ASR
 from ..models.lm import RNNLM
 from ..ops import ctc_prefix
+from ..ops.amp import bf16_rounded_copy
+from ..ops.cuda.psi_kernel import pick_block
 from ..utils.text import EOS_IDX, PAD_IDX
 
 NEG_INF = -1e30
 
-# config key -> values that select the path ported here
+# config key -> values that select a path ported here
 _PORTED = {
-    "amp": ("auto", False, None),
-    "psi_kernel": (False, "auto", None),
+    "amp": ("auto", True, False, None),
+    "psi_kernel": (True, False, "auto", None),
     "psi_quant": (False, None),
     "ctc_window": (0, None),
     "approx_topk": (False, None),
     "ctc_candidates": (0, None),
-    "fold_logp": ("auto", False, None),
+    "fold_logp": ("auto", True, False, None),
 }
+
+
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last axis, kept, written as the JAX package's
+    (max shift, a non-finite max taken as 0)."""
+    m = torch.amax(x, dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return torch.log(torch.sum(torch.exp(x - m), dim=-1, keepdim=True)) + m
+
+
+def ctc_prep(model: ASR, enc: torch.Tensor, enc_len: torch.Tensor,
+             amp: bool):
+    """The beam's loop-invariant CTC inputs: padded log-probs (B, T, V) f32
+    and their exp, the psi products' operand. Under amp the logits are
+    normalised by one logsumexp and exponentiated in bf16 (the probs only
+    feed f32-accumulating products); else the exact f32 path."""
+    if amp:
+        logits = model.ctc_logits(enc)                          # f32
+        ctc_lp = ctc_prefix.pad_ctc_log_probs(logits - _logsumexp(logits),
+                                              enc_len)
+        return ctc_lp, torch.exp(ctc_lp.to(torch.bfloat16))
+    ctc_lp = ctc_prefix.pad_ctc_log_probs(model.ctc_output(enc), enc_len)
+    return ctc_lp, torch.exp(ctc_lp)
 
 
 class BeamOutput(NamedTuple):
@@ -105,19 +147,35 @@ class BeamDecoder:
         es = decode_cfg.get("early_stop", "auto")
         self.early_stop = True if es == "auto" else bool(es)
         self.early_stop_slack = float(decode_cfg.get("early_stop_slack", 0.05))
+        amp = decode_cfg.get("amp", "auto")
+        self.amp = "auto" if amp in ("auto", None) else bool(amp)
+        self.psi_kernel = decode_cfg.get("psi_kernel", False) is True
+        fl = decode_cfg.get("fold_logp", "auto")
+        self.fold_logp = "auto" if fl in ("auto", None) else bool(fl)
         self.last_steps = None  # steps the last forward ran (early exit)
+        self.last_amp = None    # whether the last forward ran under amp
+        self.last_enc = None    # the encoder output it decoded from
 
     @torch.no_grad()
     def forward(self, feat: torch.Tensor, feat_len: torch.Tensor) -> BeamOutput:
-        model, K = self.model, self.beam
+        K = self.beam
+        amp = feat.is_cuda if self.amp == "auto" else self.amp
+        self.last_amp = amp
+        model, lm = self.model, self.lm
+        if amp:
+            model = bf16_rounded_copy(model)
+            lm = bf16_rounded_copy(lm) if lm is not None else None
+            if feat.dtype == torch.float32:
+                feat = feat.to(torch.bfloat16)
         V = model.vocab_size
         enc, enc_len = model.encode(feat, feat_len)
+        self.last_enc = enc
         B, T, _ = enc.shape
         dev = enc.device
         L = max(1, int(math.ceil(self.max_len_ratio * T)))
 
-        cache = model.attention.precompute(enc, enc_len)
-        dec_state = model.decoder.init_state(B * K, dev)
+        cache = model.attention.precompute(enc, enc_len, amp=amp)
+        dec_state = model.decoder.init_state(B * K, dev, enc.dtype)
         align0 = model.attention.init_align(cache)
         align = align0[:, None].expand((B, K) + align0.shape[1:])
 
@@ -130,16 +188,25 @@ class BeamDecoder:
                               .to(torch.int32), min=1)
 
         if self.use_ctc:
-            ctc_lp = ctc_prefix.pad_ctc_log_probs(model.ctc_output(enc), enc_len)
-            ctc_probs = torch.exp(ctc_lp)
+            ctc_lp, ctc_probs = ctc_prep(model, enc, enc_len, amp)
             r_state, psi_prev = ctc_prefix.init_state(ctc_lp, K)
             blank_lp = torch.clamp(ctc_lp[:, :, 0], min=ctc_prefix.CLIP)
+            # the JAX package's gate, decided before any launch
+            psi_kernel = self.psi_kernel and pick_block(
+                V, T, ctc_probs.element_size()) is not None
         else:
             ctc_lp = ctc_probs = r_state = blank_lp = None
+            psi_kernel = False
             psi_prev = torch.zeros((B, K), device=dev)
 
-        use_lm = self.lm is not None
-        lm_state = self.lm.init_state(B * K, dev) if use_lm else None
+        use_lm = lm is not None
+        lm_state = lm.init_state(B * K, dev, enc.dtype) if use_lm else None
+        # first-layer lookup tables (amp only, so the exact path keeps the
+        # JAX package's exact op sequence)
+        tables = model.precompute_decode_tables(amp=True) if amp else None
+        lm_embp = lm.emb_proj_table(amp=True) if (use_lm and amp) else None
+        fold_lse = amp and (V >= 1024 if self.fold_logp == "auto"
+                            else self.fold_logp)
 
         carry = {
             "last": torch.full((B, K), EOS_IDX, dtype=torch.int64, device=dev),
@@ -164,11 +231,24 @@ class BeamDecoder:
         def step(carry, t: int):
             last_flat = carry["last"].reshape(B * K)
             logits, new_dec, new_align, _ = model.decode_step_beam(
-                cache, carry["dec_state"], carry["align"], last_flat, K)
-            logp_att = F.log_softmax(logits, -1).reshape(B, K, V)
+                cache, carry["dec_state"], carry["align"], last_flat, K,
+                tables=tables)
+            # fold_lse: the logits stay unnormalised and each normaliser
+            # becomes one per-hypothesis shift of the scores
+            shift = None
+            if fold_lse:
+                logp_att = logits.reshape(B, K, V)
+                shift = aw * _logsumexp(logp_att)[..., 0]
+            else:
+                logp_att = F.log_softmax(logits, -1).reshape(B, K, V)
             if use_lm:
-                lm_logits, new_lm = self.lm.step(carry["lm_state"], last_flat)
-                logp_lm = F.log_softmax(lm_logits.reshape(B, K, V), -1)
+                lm_logits, new_lm = lm.step(carry["lm_state"], last_flat,
+                                            emb_proj=lm_embp)
+                logp_lm = lm_logits.reshape(B, K, V)
+                if fold_lse:
+                    shift = shift + lw * _logsumexp(logp_lm)[..., 0]
+                else:
+                    logp_lm = F.log_softmax(logp_lm, -1)
             else:
                 new_lm = None
                 logp_lm = torch.zeros((B, K, V), device=dev)
@@ -179,6 +259,8 @@ class BeamDecoder:
                        else torch.zeros((B, K), device=dev))
             tot_eos = (base + aw * logp_att[:, :, EOS_IDX] + cw * ctc_eos
                        + lw * logp_lm[:, :, EOS_IDX])
+            if shift is not None:
+                tot_eos = tot_eos - shift
             eos_ok = carry["valid"] & ((t + 1 >= min_len[:, None])
                                        | (t + 1 >= max_len[:, None]))
             # mask after normalizing: NEG_INF/(t+1) would outrank the
@@ -193,12 +275,14 @@ class BeamDecoder:
 
             # continuation scores
             step_score = aw * logp_att + lw * logp_lm
+            if shift is not None:
+                step_score = step_score - shift[..., None]
             masked = torch.where(cont_keep[None, None, :], step_score, neg_inf)
             if self.use_ctc:
                 psi, _ = ctc_prefix.score_candidates(
                     ctc_lp, carry["r"], carry["last"],
                     torch.full((B, K), t, device=dev), with_state=False,
-                    probs=ctc_probs)
+                    probs=ctc_probs, psi_kernel=psi_kernel)
                 tot = base[:, :, None] + masked + cw * psi
             else:
                 psi = None

@@ -2,7 +2,9 @@
 ``ctc_weight > 0`` enables the CTC head, ``< 1`` the attention decoder, as in
 the JAX package. ``forward`` is the teacher-forced training pass: a Python
 loop over label steps (the JAX package's ``lax.scan``; its remat and unroll
-are XLA devices that change no number and are not carried over)."""
+are XLA devices that change no number and are not carried over). Under
+decode amp (bf16 activations, weights rounded to bf16) every product
+accumulates in f32, so the CTC and decoder logits are f32."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -12,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from ..ops.amp import dot_f32, round_bf16
 from ..utils.init import const, uniform
 from .attention import Attention, AttCache
 from .decoder import Decoder, DecoderState
@@ -60,25 +63,28 @@ class ASR(nn.Module):
         return self.encoder(feat, feat_len, train=train, generator=generator)
 
     def ctc_logits(self, enc: torch.Tensor) -> torch.Tensor:
-        return enc @ self.ctc_w + self.ctc_b
+        """Raw CTC head logits, f32."""
+        return dot_f32(enc, self.ctc_w) + self.ctc_b
 
     def ctc_output(self, enc: torch.Tensor) -> torch.Tensor:
         return F.log_softmax(self.ctc_logits(enc), dim=-1)
 
-    def precompute_decode_tables(self):
+    def precompute_decode_tables(self, amp: bool = False):
         """The decoder's first-layer input is [emb(prev_token) ; context];
         the embedding half of its projection has only V distinct rows, so
-        ``embed @ W_ih[:E] + b`` is a (V, gates) table."""
+        ``embed @ W_ih[:E] + b`` is a (V, gates) f32 table (under ``amp``
+        rounded to bf16, the JAX package's bf16 table)."""
         c0 = self.decoder.cells[0]
         E = self.dec_dim
         b = c0.b if self.decoder.module == "lstm" else c0.b_ih
-        return {"emb_proj": self.embed @ c0.w_ih[:E] + b,
-                "w_ctx": c0.w_ih[E:]}
+        t = dot_f32(self.embed, c0.w_ih[:E]) + b
+        return {"emb_proj": round_bf16(t) if amp else t, "w_ctx": c0.w_ih[E:]}
 
     def init_decode(self, enc: torch.Tensor, enc_len: torch.Tensor):
         """-> (attention cache, zero decoder state, initial alignment)."""
         cache = self.attention.precompute(enc, enc_len)
-        state = self.decoder.init_state(enc.shape[0], device=enc.device)
+        state = self.decoder.init_state(enc.shape[0], device=enc.device,
+                                        dtype=enc.dtype)
         return cache, state, self.attention.init_align(cache)
 
     def decode_step(self, cache: AttCache, state: DecoderState,
@@ -94,7 +100,8 @@ class ASR(nn.Module):
         if tables is not None:
             oh = F.one_hot(prev_token.long(), self.vocab_size).to(
                 tables["emb_proj"].dtype)
-            x0 = oh @ tables["emb_proj"] + context @ tables["w_ctx"]
+            x0 = (dot_f32(oh, tables["emb_proj"])
+                  + dot_f32(context, tables["w_ctx"]))
             dec_out, state = self.decoder.step(state, x0_proj=x0, train=train,
                                                generator=generator)
         else:
@@ -104,7 +111,7 @@ class ASR(nn.Module):
             dec_out, state = self.decoder.step(
                 state, torch.cat([emb, context], dim=-1), train=train,
                 generator=generator)
-        logits = dec_out @ self.char_w + self.char_b
+        logits = dot_f32(dec_out, self.char_w) + self.char_b
         return logits, state, align, context
 
     def forward(self, feat: torch.Tensor, feat_len: torch.Tensor,
@@ -172,7 +179,10 @@ class ASR(nn.Module):
                          prev_align: torch.Tensor, prev_token: torch.Tensor,
                          beam: int, tables=None):
         """state (L, B*K, H), prev_align (B, K, H, T), prev_token (B*K,) ->
-        (logits (B*K, V), state, align, context)."""
+        (logits (B*K, V) f32, state, align, context). ``tables`` (from
+        ``precompute_decode_tables``) replaces the embedding lookup and the
+        first layer's input product by a one-hot product with the table,
+        exact (one nonzero term per row)."""
         BK = prev_token.shape[0]
         B = BK // beam
         query = self.decoder.query(state).reshape(B, beam, -1)
@@ -180,11 +190,12 @@ class ASR(nn.Module):
         if tables is not None:
             oh = F.one_hot(prev_token, self.vocab_size).to(
                 tables["emb_proj"].dtype)
-            x0 = oh @ tables["emb_proj"] + context.reshape(BK, -1) @ tables["w_ctx"]
+            x0 = (dot_f32(oh, tables["emb_proj"])
+                  + dot_f32(context.reshape(BK, -1), tables["w_ctx"]))
             dec_out, state = self.decoder.step(state, x0_proj=x0)
         else:
             emb = self.embed[prev_token]
             dec_in = torch.cat([emb, context.reshape(BK, -1)], dim=-1)
             dec_out, state = self.decoder.step(state, dec_in)
-        logits = dec_out @ self.char_w + self.char_b
+        logits = dot_f32(dec_out, self.char_w) + self.char_b
         return logits, state, align, context

@@ -23,8 +23,16 @@ The location features are a plain ``F.conv1d`` over the summed previous
 alignment. XLA's ``SAME`` padding for an even kernel is asymmetric (low
 ``(ks-1)//2``, high ``ks//2``), so the alignment is padded explicitly; a
 symmetric ``padding=`` would drop a frame. The JAX package's lane padding
-of the head dim (``d_pad``) and Toeplitz band are TPU layout devices that
-change no number and are not carried over.
+of the head dim (``d_pad``, ``pad_lanes``) and Toeplitz band are TPU layout
+devices that change no number and are not carried over.
+
+Decode amp: ``precompute(..., amp=True)`` stores keys and values in bf16,
+and ``step_beam``'s plain chain then runs in the cache dtype (the
+(B, K, H, T, d) tanh argument is bf16) while the energies, the softmax and
+the context accumulate in f32. The location features stay f32 (the JAX
+package's f32 Toeplitz band of the bf16 kernel). K5 is f32 only: under
+``use_pallas`` the keys and values are widened to f32 for it, as the JAX
+package does.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import cuda as cuda_kernels
+from ..ops.amp import dot_f32
 from ..ops.cuda.att_kernel import loc_attention_fused, loc_attention_plain
 from ..ops.cuda.att_train_kernel import LocAttTrain
 from ..utils.init import const, uniform
@@ -87,12 +96,17 @@ class Attention(nn.Module):
             self.bias = const(H * d, 0.0, dev)
             self.v_energy = uniform((H, d), d, g, dev)
 
-    def precompute(self, enc: torch.Tensor, enc_len: torch.Tensor) -> AttCache:
-        """enc (B, T, Dk), enc_len (B,) -> cached projections."""
+    def precompute(self, enc: torch.Tensor, enc_len: torch.Tensor,
+                   amp: bool = False) -> AttCache:
+        """enc (B, T, Dk), enc_len (B,) -> cached projections (bf16 keys and
+        values under ``amp``)."""
         B, T, _ = enc.shape
-        keys = (enc @ self.w_k).reshape(B, T, self.num_head, self.dim)
+        keys = dot_f32(enc, self.w_k).reshape(B, T, self.num_head, self.dim)
         keys = keys.permute(0, 2, 1, 3)
-        vals = enc @ self.w_v if self.w_v is not None else enc
+        vals = dot_f32(enc, self.w_v) if self.w_v is not None else enc
+        if amp:
+            keys = keys.to(torch.bfloat16)
+            vals = vals.to(torch.bfloat16)
         mask = torch.arange(T, device=enc.device)[None, :] < enc_len[:, None]
         inv_len = 1.0 / torch.clamp(enc_len, min=1).to(torch.float32)
         return AttCache(keys, vals, mask, inv_len[:, None])
@@ -139,37 +153,43 @@ class Attention(nn.Module):
         (context (B, K, context_dim), align (B, K, H, T))."""
         B, H, T, d = cache.keys.shape
         K = query.shape[1]
-        q = (query @ self.w_q).reshape(B, K, H, d)
+        cd = cache.keys.dtype      # f32, or bf16 under decode amp
+        q = dot_f32(query, self.w_q).reshape(B, K, H, d)
         if self.mode == "dot":
-            energy = torch.einsum("bkhd,bhtd->bkht", q, cache.keys)
+            energy = torch.einsum("bkhd,bhtd->bkht", q.to(cd).float(),
+                                  cache.keys.float())
         elif self.use_pallas and H == 1 and self.w_v is not None:
             fsm = self.loc_features(prev_align.sum(dim=2).reshape(B * K, T))
             use_kernel = query.is_cuda and cuda_kernels.USE_KERNELS
             run = loc_attention_fused if use_kernel else loc_attention_plain
-            ctx, align = run(
-                q[:, :, 0] + self.bias, cache.keys[:, 0],
+            ctx, align = run(     # K5 is f32 only
+                q[:, :, 0] + self.bias, cache.keys[:, 0].float(),
                 fsm.reshape(B, K, T, -1).contiguous(), self.w_f,
-                self.v_energy[0], cache.values,
+                self.v_energy[0], cache.values.float(),
                 cache.mask.sum(dim=1, dtype=torch.int32), self.temperature)
             return ctx, align[:, :, None, :]
         else:
             a = prev_align.sum(dim=2).reshape(B * K, T)
-            f = (self.loc_features(a) @ self.w_f).reshape(B, K, T, d)
+            f = dot_f32(self.loc_features(a), self.w_f).reshape(B, K, T, d)
             qb = q + self.bias.reshape(H, d)[None, None]
-            tanh_arg = (qb[:, :, :, None, :] + cache.keys[:, None]
-                        + f[:, :, None, :, :])               # (B, K, H, T, d)
-            energy = torch.einsum("bkhtd,hd->bkht", torch.tanh(tanh_arg),
-                                  self.v_energy)
+            # the (B, K, H, T, d) chain runs in the cache dtype; the energy
+            # reduction accumulates in f32 (JAX: preferred_element_type=f32)
+            tanh_arg = (qb.to(cd)[:, :, :, None, :] + cache.keys[:, None]
+                        + f.to(cd)[:, :, None, :, :])        # (B, K, H, T, d)
+            energy = torch.einsum("bkhtd,hd->bkht",
+                                  torch.tanh(tanh_arg).float(), self.v_energy)
         energy = energy / self.temperature
         energy = torch.where(cache.mask[:, None, None, :], energy,
                              torch.full((), -1e30, device=energy.device))
         align = torch.softmax(energy, dim=-1)                 # (B, K, H, T)
+        # the context: align rounded to the cache dtype, summed in f32
+        a_cd = align.to(cd).float()
         if self.w_v is not None:
             vals = cache.values.reshape(B, T, H, self.v_dim)
-            ctx = torch.einsum("bkht,bthv->bkhv", align, vals)
+            ctx = torch.einsum("bkht,bthv->bkhv", a_cd, vals.float())
         else:
-            ctx = torch.einsum("bkht,btv->bkhv", align, cache.values)
+            ctx = torch.einsum("bkht,btv->bkhv", a_cd, cache.values.float())
         ctx = ctx.reshape(B, K, H * self.v_dim)
         if self.w_merge is not None:
-            ctx = ctx @ self.w_merge
+            ctx = dot_f32(ctx, self.w_merge)
         return ctx, align

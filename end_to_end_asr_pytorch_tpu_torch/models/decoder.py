@@ -1,6 +1,8 @@
 """Speller / decoder: stacked LSTM or GRU cells advanced one label step at a
 time over an explicit ``DecoderState``. ``dropout`` applies between layers
-in training steps only, its masks drawn from the caller's generator."""
+in training steps only, its masks drawn from the caller's generator. Under
+decode amp the state is bf16 and each cell accumulates in f32
+(``ops/rnn.py``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -9,6 +11,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import rnn as rnn_ops
+from ..ops.amp import dot_f32
 from .encoder import dropout
 
 
@@ -33,8 +36,10 @@ class Decoder(nn.Module):
             d = self.dim
         self.cells = nn.ModuleList(cells)
 
-    def init_state(self, batch: int, device=None) -> DecoderState:
-        h = torch.zeros((self.layers, batch, self.dim), device=device)
+    def init_state(self, batch: int, device=None,
+                   dtype=torch.float32) -> DecoderState:
+        h = torch.zeros((self.layers, batch, self.dim), dtype=dtype,
+                        device=device)
         return DecoderState(h, h if self.module == "lstm" else None)
 
     def query(self, state: DecoderState) -> torch.Tensor:
@@ -54,9 +59,9 @@ class Decoder(nn.Module):
             if i == 0 and x0_proj is not None:
                 x_proj = x0_proj
             elif self.module == "lstm":
-                x_proj = inp @ w.w_ih + w.b
+                x_proj = dot_f32(inp, w.w_ih) + w.b
             else:
-                x_proj = inp @ w.w_ih + w.b_ih
+                x_proj = dot_f32(inp, w.w_ih) + w.b_ih
             if self.module == "lstm":
                 h_new, c_new = rnn_ops.lstm_cell(w, state.h[i], state.c[i], x_proj)
                 cs.append(c_new)

@@ -13,6 +13,11 @@ JAX package's ``reduce_window``), and the output is flattened
 channel-major.
 The feat_dim split: divisible by 13 => feat_dim/13 channels of 13 bins,
 else divisible by 40 => feat_dim/40 channels of 40 bins.
+
+The forward runs in the dtype of its input: under decode amp (bf16
+features, the weights rounded to bf16) the convolutions, pooling, layer norm
+and the LSTM outputs are bf16, and the projection accumulates in f32, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import rnn as rnn_ops
+from ..ops.amp import dot_f32
 from ..utils.init import const, uniform
 
 
@@ -55,6 +61,11 @@ def same_pad(length: int, kernel: int, stride: int):
     return total // 2, total - total // 2
 
 
+def _conv2d(h: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """3x3 'SAME' conv in h's dtype."""
+    return F.conv2d(h, k.to(h.dtype), b.to(h.dtype), padding=1)
+
+
 class VGGExtractor(nn.Module):
     """2 blocks of (conv3x3, conv3x3, maxpool2x2): time/4, freq/4. Conv
     weights are stored OIHW (H = time, W = frequency)."""
@@ -78,11 +89,11 @@ class VGGExtractor(nn.Module):
     def forward(self, x: torch.Tensor, x_len: torch.Tensor):
         B, T, _ = x.shape
         h = x.reshape(B, T, self.in_ch, self.freq).permute(0, 2, 1, 3)
-        h = F.relu(F.conv2d(h, self.k1, self.b1, padding=1))
-        h = F.relu(F.conv2d(h, self.k2, self.b2, padding=1))
+        h = F.relu(_conv2d(h, self.k1, self.b1))
+        h = F.relu(_conv2d(h, self.k2, self.b2))
         h = F.max_pool2d(h, 2)
-        h = F.relu(F.conv2d(h, self.k3, self.b3, padding=1))
-        h = F.relu(F.conv2d(h, self.k4, self.b4, padding=1))
+        h = F.relu(_conv2d(h, self.k3, self.b3))
+        h = F.relu(_conv2d(h, self.k4, self.b4))
         h = F.max_pool2d(h, 2)                       # (B, C, T4, F4)
         B, C, T4, F4 = h.shape
         out = h.permute(0, 2, 1, 3).reshape(B, T4, C * F4)
@@ -107,7 +118,8 @@ class CNNExtractor(nn.Module):
     def forward(self, x: torch.Tensor, x_len: torch.Tensor):
         h = x.transpose(1, 2)                         # (B, D, T)
         for k, b in ((self.k1, self.b1), (self.k2, self.b2)):
-            h = F.conv1d(F.pad(h, same_pad(h.shape[-1], 4, 2)), k, b, stride=2)
+            h = F.conv1d(F.pad(h, same_pad(h.shape[-1], 4, 2)), k.to(h.dtype),
+                         b.to(h.dtype), stride=2)
             h = F.relu(h)
         return h.transpose(1, 2), x_len // 4
 
@@ -156,11 +168,12 @@ class RNNLayer(nn.Module):
         if self.ln_scale is not None:
             mu = h.mean(-1, keepdim=True)
             var = h.var(-1, unbiased=False, keepdim=True)
-            h = (h - mu) * torch.rsqrt(var + 1e-5) * self.ln_scale + self.ln_bias
+            h = ((h - mu) * torch.rsqrt(var + 1e-5) * self.ln_scale.to(h.dtype)
+                 + self.ln_bias.to(h.dtype))
         if train and self.dropout > 0:
             h = dropout(h, self.dropout, generator)
         if self.w_proj is not None:
-            h = torch.tanh(h @ self.w_proj + self.b_proj)
+            h = torch.tanh(dot_f32(h, self.w_proj) + self.b_proj)
         if self.sample_rate > 1:
             r = self.sample_rate
             Bc, Tc, Dc = h.shape

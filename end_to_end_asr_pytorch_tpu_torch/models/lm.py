@@ -1,7 +1,9 @@
 """RNN language model for shallow-fusion decoding (incremental step only).
 
 Embedding (with optional ``emb_tying``: the output layer is ``embed.T``),
-n-layer LSTM/GRU, linear to vocab, as in the JAX package.
+n-layer LSTM/GRU, linear to vocab, as in the JAX package. Under decode amp
+the state is bf16, the weights and the first-layer table are rounded to
+bf16, and every product accumulates in f32: the logits are f32.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import rnn as rnn_ops
+from ..ops.amp import dot_f32, round_bf16
 from ..utils.init import const, uniform
 
 
@@ -45,20 +48,23 @@ class RNNLM(nn.Module):
                               device))
         self.out_b = const(vocab_size, 0.0, device)
 
-    def init_state(self, batch: int, device=None) -> LMState:
-        h = torch.zeros((self.n_layers, batch, self.dim), device=device)
+    def init_state(self, batch: int, device=None,
+                   dtype=torch.float32) -> LMState:
+        h = torch.zeros((self.n_layers, batch, self.dim), dtype=dtype,
+                        device=device)
         return LMState(h, h if self.module == "lstm" else None)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         w = self.embed.T if self.out_w is None else self.out_w
-        return h @ w + self.out_b
+        return dot_f32(h, w) + self.out_b
 
-    def emb_proj_table(self) -> torch.Tensor:
-        """(V, gates) first-layer input projection of every token's
-        embedding, bias folded in."""
+    def emb_proj_table(self, amp: bool = False) -> torch.Tensor:
+        """(V, gates) f32 first-layer input projection of every token's
+        embedding, bias folded in (under ``amp`` rounded to bf16)."""
         w = self.cells[0]
         b = w.b if self.module == "lstm" else w.b_ih
-        return self.embed @ w.w_ih + b
+        t = dot_f32(self.embed, w.w_ih) + b
+        return round_bf16(t) if amp else t
 
     def step(self, state: LMState, token: torch.Tensor,
              emb_proj: Optional[torch.Tensor] = None
@@ -69,10 +75,10 @@ class RNNLM(nn.Module):
         for i, w in enumerate(self.cells):
             if i == 0 and emb_proj is not None:
                 oh = F.one_hot(token, emb_proj.shape[0]).to(emb_proj.dtype)
-                x_proj = oh @ emb_proj
+                x_proj = dot_f32(oh, emb_proj)
             else:
                 b = w.b if self.module == "lstm" else w.b_ih
-                x_proj = inp @ w.w_ih + b
+                x_proj = dot_f32(inp, w.w_ih) + b
             if self.module == "lstm":
                 h_new, c_new = rnn_ops.lstm_cell(w, state.h[i], state.c[i], x_proj)
                 cs.append(c_new)

@@ -14,12 +14,22 @@ The 1e-38 floor is a subnormal in f32: nothing on this path may flush
 denormals to zero, or ``log`` returns -inf where the reference gives
 md - 87.5. The doubling passes are kept as the JAX package writes them so
 the CPU scores follow the same operations.
+
+Under decode amp ``probs`` is bf16 (the psi-only path's only bf16 operand):
+the step weights ``ws`` / ``wd`` are rounded to bf16 and the products are
+summed in f32, as the JAX package's ``preferred_element_type=float32``
+einsums do; psi stays f32. ``psi_kernel`` sends the full-vocab psi and its
+epilogues to K6 (``ops/cuda/psi_kernel.py``) with the probs in their own
+dtype, bf16 under amp and f32 without.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from . import cuda as cuda_kernels
+from .cuda.psi_kernel import psi_fused, psi_plain
 
 NEG_INF = -1e30
 CLIP = -1e5  # 'effectively impossible' floor that keeps cumsums finite
@@ -86,24 +96,24 @@ def score_candidates(ctc_lp: torch.Tensor, r_prev: torch.Tensor,
                      blank: int = 0, cand_ids: Optional[torch.Tensor] = None,
                      with_state: bool = True,
                      probs: Optional[torch.Tensor] = None,
-                     blank_lp: Optional[torch.Tensor] = None
+                     blank_lp: Optional[torch.Tensor] = None,
+                     psi_kernel: bool = False
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Score extensions of every hypothesis.
 
     ctc_lp (B, T, V) padded log-probs; r_prev (B, K, T, 2); last_tok (B, K);
     prefix_len (B, K) tokens emitted so far. Two forms are ported:
       * ``with_state=False, cand_ids=None``: psi for the full vocab
-        (``probs`` = exp(ctc_lp) may be passed precomputed);
+        (``probs`` = exp(ctc_lp) may be passed precomputed, bf16 under amp;
+        ``psi_kernel`` takes K6 for it and its epilogues);
       * ``with_state=True`` with ``cand_ids`` (B, K, C): psi and the new
         state of those C extensions.
     Returns (psi (B, K, C), r_new (B, K, C, T, 2) or None).
     """
     B, K, T, _ = r_prev.shape
-    V = ctc_lp.shape[-1]
     r_nb_prev = r_prev[..., 0]
     r_b_prev = r_prev[..., 1]
     empty = (prefix_len == 0)[..., None]                   # (B, K, 1)
-    dev = r_prev.device
 
     if not with_state:
         if cand_ids is not None:
@@ -116,18 +126,18 @@ def score_candidates(ctc_lp: torch.Tensor, r_prev: torch.Tensor,
         if probs is None:
             probs = torch.exp(ctc_lp)
         md = torch.clamp(torch.amax(phi_diff, -1, keepdim=True), min=NEG_INF / 2)
-        wd = torch.exp(phi_diff - md)                       # (B, K, T)
+        wd = torch.exp(phi_diff - md)                       # (B, K, T) f32
         ms = torch.clamp(torch.amax(phi_same, -1, keepdim=True), min=NEG_INF / 2)
-        ws = torch.exp(phi_same - ms)
+        ws = torch.exp(phi_same - ms).to(probs.dtype)
         p_last = torch.gather(probs, 2, last_tok[:, None, :].expand(B, T, K))
+        # bf16 products summed in f32 (JAX: preferred_element_type=f32)
         psi_same = ms[..., 0] + torch.log(
-            torch.einsum("bkt,btk->bk", ws, p_last) + 1e-38)
-        psi_diff = md + torch.log(torch.bmm(wd, probs) + 1e-38)   # (B, K, V)
-        vocab_ids = torch.arange(V, device=dev)
-        psi_full = torch.where(vocab_ids == last_tok[..., None],
-                               psi_same[..., None], psi_diff)
-        psi_full[:, :, blank] = NEG_INF
-        return psi_full, None
+            torch.einsum("bkt,btk->bk", ws.float(), p_last.float()) + 1e-38)
+        use_kernel = (psi_kernel and probs.is_cuda
+                      and cuda_kernels.USE_KERNELS)
+        run = psi_fused if use_kernel else psi_plain
+        return run(wd, probs, md[..., 0], psi_same,
+                   last_tok.to(torch.int32), blank), None
 
     if cand_ids is None:
         raise NotImplementedError(

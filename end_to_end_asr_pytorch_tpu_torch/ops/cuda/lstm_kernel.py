@@ -16,8 +16,13 @@ TPU pipeline devices and are not carried over; the port walks time by index
 in both directions and makes no flipped copies.
 
 Numerics: the TPU kernels pin Precision.DEFAULT (bf16 multiplies on a TPU,
-f32 in CPU interpret mode). These kernels are f32 throughout and are held to
-the f32 plain versions.
+f32 in CPU interpret mode). These kernels compute in f32 throughout and are
+held to the f32 plain versions. The forward also takes bf16 x_proj (decode
+amp, the TPU kernel's x_proj.dtype outputs): ``lstm_scan_bf16`` reads bf16
+x_proj, keeps W_hh, the carries and the gate math in f32 and writes ys
+rounded to bf16; its plain version is ``lstm_scan_plain`` on bf16 x_proj.
+The JAX package's own CPU scan rounds the carries to bf16 each step, which
+the TPU kernel does not: the port follows the kernel.
 """
 from __future__ import annotations
 
@@ -34,18 +39,21 @@ _SIGNATURES = {
     "lstm_max_coresident": (_I, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
     "lstm_fwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _P]),
+    "lstm_fwd_bf16_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _P]),
     "lstm_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _P]),
 }
 
 
 def _scan(x_proj, w_hh, mask, reverse, h, c, residuals):
+    """The recurrence in the carries' dtype; ys in x_proj's."""
     T = x_proj.shape[0]
     H = w_hh.shape[0]
     ys, cs, gs = [None] * T, [None] * T, [None] * T
-    zero = torch.zeros((), dtype=x_proj.dtype, device=x_proj.device)
+    zero = torch.zeros((), dtype=h.dtype, device=x_proj.device)
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        i, f, g, o = (x_proj[t] + h @ w_hh).split(H, dim=-1)
+        i, f, g, o = (x_proj[t].to(h.dtype) + h @ w_hh).split(H, dim=-1)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
         c_new = f * c + i * g
         h_new = o * torch.tanh(c_new)
@@ -58,7 +66,7 @@ def _scan(x_proj, w_hh, mask, reverse, h, c, residuals):
             gs[t] = torch.cat([i, f, g, o], dim=-1)
     if residuals:
         return torch.stack(ys), torch.stack(cs), torch.stack(gs)
-    return torch.stack(ys)
+    return torch.stack(ys).to(x_proj.dtype)
 
 
 def lstm_scan_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -66,11 +74,13 @@ def lstm_scan_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
                     h0: Optional[torch.Tensor] = None,
                     c0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain scan: x_proj (T, B, 4H), w_hh (H, 4H), mask (T, B) bool ->
-    ys (T, B, H). Padded steps emit zeros and hold the carry. Autograd runs
-    through its loop (the decoder-style path with an initial state)."""
+    ys (T, B, H) in x_proj's dtype. Padded steps emit zeros and hold the
+    carry. Without an initial state the carries are f32 and bf16 x_proj is
+    widened each step (K2's bf16 contract). Autograd runs through its loop
+    (the decoder-style path with an initial state)."""
     B = x_proj.shape[1]
     H = w_hh.shape[0]
-    z = torch.zeros((B, H), dtype=x_proj.dtype, device=x_proj.device)
+    z = torch.zeros((B, H), dtype=torch.float32, device=x_proj.device)
     return _scan(x_proj, w_hh, mask, reverse, z if h0 is None else h0,
                  z if c0 is None else c0, False)
 
@@ -134,7 +144,11 @@ def dw_hh(ys: torch.Tensor, dxp: torch.Tensor, reverse: bool) -> torch.Tensor:
     return hs_prev.reshape(-1, H).t() @ dxp.reshape(-1, G)
 
 
-def _pick_units(H: int, B: int, lib, bwd: bool) -> int:
+# kernel kinds of lstm_max_coresident
+_FWD, _BWD, _FWD_BF16 = 0, 1, 2
+
+
+def _pick_units(H: int, B: int, lib, kind: int) -> int:
     """Hidden units per block: the smallest power of two that divides H and
     leaves a grid that is co-resident on the card."""
     dev = torch.cuda.current_device()
@@ -143,7 +157,7 @@ def _pick_units(H: int, B: int, lib, bwd: bool) -> int:
     while U <= _NT // 2:
         if H % U == 0 and H // U <= sms:
             out = ctypes.c_int(0)
-            build.check(lib.lstm_max_coresident(B, H, U, int(bwd),
+            build.check(lib.lstm_max_coresident(B, H, U, kind,
                                                 ctypes.byref(out)),
                         "lstm occupancy query")
             if H // U <= out.value:
@@ -156,11 +170,14 @@ def lstm_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
                     mask: torch.Tensor, reverse: bool = False,
                     residuals: bool = False):
     """K2. x_proj (T, B, 4H) f32, w_hh (H, 4H) f32, mask (T, B) bool ->
-    ys (T, B, H), or (ys, cs, gates) with ``residuals``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel. Either way, inputs of
-    another dtype or layout raise."""
+    ys (T, B, H), or (ys, cs, gates) with ``residuals``. bf16 x_proj goes to
+    ``lstm_scan_bf16`` (no residuals). CPU tensors take the plain version;
+    CUDA tensors launch the kernel. Either way, inputs of another dtype or
+    layout raise."""
     T, B, G = x_proj.shape
     H = G // 4
+    if x_proj.dtype == torch.bfloat16 and not residuals:
+        return lstm_scan_bf16(x_proj, w_hh, mask, reverse)
     build.check_inputs("lstm_scan_fused", x_proj,
                        ("x_proj", x_proj, (T, B, 4 * H), torch.float32),
                        ("w_hh", w_hh, (H, 4 * H), torch.float32),
@@ -172,7 +189,7 @@ def lstm_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_scan_fused: unsupported device {x_proj.device}")
     lib = build.load("lstm_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib, bwd=False)
+    U = _pick_units(H, B, lib, _FWD)
     dev = x_proj.device
     ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     cs = gates = None
@@ -193,6 +210,40 @@ def lstm_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
 
 
 lstm_scan_fused.launches = 0
+
+
+def lstm_scan_bf16(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                   mask: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """K2's bf16 variant (decode amp). x_proj (T, B, 4H) bf16, w_hh (H, 4H)
+    f32, mask (T, B) bool -> ys (T, B, H) bf16; carries and gate math f32.
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Either way, inputs of another dtype or layout raise."""
+    T, B, G = x_proj.shape
+    H = G // 4
+    build.check_inputs("lstm_scan_bf16", x_proj,
+                       ("x_proj", x_proj, (T, B, 4 * H), torch.bfloat16),
+                       ("w_hh", w_hh, (H, 4 * H), torch.float32),
+                       ("mask", mask, (T, B), torch.bool))
+    if x_proj.device.type == "cpu":
+        return lstm_scan_plain(x_proj, w_hh, mask, reverse)
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"lstm_scan_bf16: unsupported device {x_proj.device}")
+    lib = build.load("lstm_scan", _SIGNATURES)
+    U = _pick_units(H, B, lib, _FWD_BF16)
+    dev = x_proj.device
+    ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+    hbuf = torch.zeros((2, H, B), dtype=torch.float32, device=dev)
+    m = mask.to(torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.lstm_fwd_bf16_launch(x_proj.data_ptr(), w_hh.data_ptr(),
+                                  m.data_ptr(), ys.data_ptr(), hbuf.data_ptr(),
+                                  T, B, H, U, int(reverse), stream)
+    build.check(rc, "lstm_scan_bf16 launch")
+    lstm_scan_bf16.launches += 1
+    return ys
+
+
+lstm_scan_bf16.launches = 0
 
 
 def lstm_bwd_fused(gates: torch.Tensor, cs: torch.Tensor, ys: torch.Tensor,
@@ -217,7 +268,7 @@ def lstm_bwd_fused(gates: torch.Tensor, cs: torch.Tensor, ys: torch.Tensor,
     if gates.device.type != "cuda":
         raise ValueError(f"lstm_bwd_fused: unsupported device {gates.device}")
     lib = build.load("lstm_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib, bwd=True)
+    U = _pick_units(H, B, lib, _BWD)
     dev = gates.device
     dxp = torch.empty((T, B, G), dtype=torch.float32, device=dev)
     dgbuf = torch.zeros((2, H, B, 4), dtype=torch.float32, device=dev)
@@ -236,11 +287,10 @@ lstm_bwd_fused.launches = 0
 
 class LSTMScan(torch.autograd.Function):
     """ys = scan(x_proj, w_hh, mask) with the hand-written backward.
-    ``use_kernel`` picks K2 / K2b (CUDA tensors; they raise unless f32) or
-    the plain versions (CPU tensors, or the card with the kernels switched
-    off). The forward
-    keeps residuals only when a gradient is needed, so serving pays
-    nothing extra."""
+    ``use_kernel`` picks K2 / K2b (CUDA tensors; bf16 x_proj takes K2's
+    bf16 variant and has no backward) or the plain versions (CPU tensors,
+    or the card with the kernels switched off). The forward keeps residuals
+    only when a gradient is needed, so serving pays nothing extra."""
 
     @staticmethod
     def forward(ctx, x_proj, w_hh, mask, reverse: bool, use_kernel: bool):

@@ -7,9 +7,15 @@ stored as the JAX package stores them: ``w_ih`` (D, G), ``w_hh`` (H, G).
 
 ``lstm_scan`` with zero initial state goes through ``LSTMScan``
 (``ops/cuda/lstm_kernel.py``), whose backward is the hand-written
-reverse-time recurrence: K2 / K2b for a CUDA input (which raise unless it
-is f32), their plain versions for CPU tensors. With an initial state it runs the plain scan under autograd, as
+reverse-time recurrence: K2 / K2b for a CUDA input, their plain versions for
+CPU tensors. With an initial state it runs the plain scan under autograd, as
 the JAX package does. The GRU scan stays plain.
+
+Under decode amp (bf16 inputs, weights rounded to bf16 and kept in f32)
+the rules are the JAX package's: every product accumulates in f32 (``ops/amp.dot_f32``), a cell
+casts its new state back to the carry's dtype, and the LSTM scan streams
+x_proj = (x @ w_ih + b) rounded to bf16 through K2's bf16 variant with
+w_hh in f32, f32 carries and bf16 outputs.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch.nn as nn
 
 from ..utils.init import const, uniform
 from . import cuda as cuda_kernels
+from .amp import dot_f32
 from .cuda.lstm_kernel import LSTMScan, lstm_scan_plain
 
 
@@ -55,44 +62,48 @@ def cell_weights(module: str, in_dim: int, hidden: int, generator=None,
 
 def lstm_cell(w: LSTMWeights, h: torch.Tensor, c: torch.Tensor,
               x_proj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One LSTM step given the precomputed input projection x@w_ih + b."""
+    """One LSTM step given the precomputed input projection x@w_ih + b. The
+    gates accumulate in f32; the new state takes the carry's dtype."""
     H = h.shape[-1]
-    gates = x_proj + h @ w.w_hh
+    gates = x_proj + dot_f32(h, w.w_hh)
     i, f, g, o = gates.split(H, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
-    return h_new, c_new
+    return h_new.to(h.dtype), c_new.to(c.dtype)
 
 
 def gru_cell(w: GRUWeights, h: torch.Tensor, x_proj: torch.Tensor
              ) -> torch.Tensor:
     """One GRU step given x_proj = x@w_ih + b_ih (torch gate order r, z, n)."""
     H = h.shape[-1]
-    h_proj = h @ w.w_hh + w.b_hh
+    h_proj = dot_f32(h, w.w_hh) + w.b_hh
     r = torch.sigmoid(x_proj[..., :H] + h_proj[..., :H])
     z = torch.sigmoid(x_proj[..., H:2 * H] + h_proj[..., H:2 * H])
     n = torch.tanh(x_proj[..., 2 * H:] + r * h_proj[..., 2 * H:])
-    return (1.0 - z) * n + z * h
+    return ((1.0 - z) * n + z * h).to(h.dtype)
 
 
 def lstm_scan(w: LSTMWeights, x: torch.Tensor, mask: torch.Tensor,
               reverse: bool = False, h0=None, c0=None) -> torch.Tensor:
     """x (T, B, D) time-major, mask (T, B) bool (a contiguous valid prefix
-    per sequence) -> (T, B, H). Padded steps emit zeros and hold the carry."""
-    x_proj = x @ w.w_ih + w.b
+    per sequence) -> (T, B, H) in x's dtype. Padded steps emit zeros and
+    hold the carry."""
+    x_proj = dot_f32(x, w.w_ih) + w.b
     if h0 is None and c0 is None:
         use_kernel = x.is_cuda and cuda_kernels.USE_KERNELS
-        return LSTMScan.apply(x_proj.contiguous(), w.w_hh.contiguous(),
+        return LSTMScan.apply(x_proj.to(x.dtype).contiguous(),
+                              w.w_hh.contiguous(),
                               mask.contiguous(), reverse, use_kernel)
     return lstm_scan_plain(x_proj, w.w_hh, mask, reverse, h0, c0)
 
 
 def gru_scan(w: GRUWeights, x: torch.Tensor, mask: torch.Tensor,
              reverse: bool = False, h0=None) -> torch.Tensor:
-    """GRU analogue of lstm_scan (plain PyTorch)."""
+    """GRU analogue of lstm_scan (plain PyTorch; under amp its carry is in
+    x's dtype, as the JAX package's plain scan keeps it)."""
     T, B, _ = x.shape
     H = w.w_hh.shape[0]
-    x_proj = x @ w.w_ih + w.b_ih
+    x_proj = dot_f32(x, w.w_ih) + w.b_ih
     h = torch.zeros((B, H), dtype=x.dtype, device=x.device) if h0 is None else h0
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     ys = [None] * T

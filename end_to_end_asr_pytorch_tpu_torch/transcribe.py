@@ -6,7 +6,11 @@
 
 Same flags and output as the JAX package's ``transcribe.py``. ``--load``
 takes a reference-layout torch ASR checkpoint. Runs on the card unless
-``--cpu`` is given; LM fusion is off here (``lm_weight`` forced to 0).
+``--cpu`` is given; LM fusion is off here (``lm_weight`` forced to 0). The
+config's ``data.text`` may be character, word or subword (a sentencepiece
+``.model`` or a JSON BPE), and its ``decode`` block reaches the beam as it
+is: ``amp: auto`` (the default) decodes in bf16 on the card and in f32 with
+``--cpu``, and ``psi_kernel: true`` takes K6 where its gate opens.
 """
 from __future__ import annotations
 

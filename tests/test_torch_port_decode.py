@@ -31,7 +31,9 @@ from end_to_end_asr_pytorch_tpu_torch.decode.beam import BeamDecoder
 from end_to_end_asr_pytorch_tpu_torch.models.attention import Attention
 from end_to_end_asr_pytorch_tpu_torch.ops import ctc_prefix
 from end_to_end_asr_pytorch_tpu_torch.ops.audio import AudioFrontend
-from end_to_end_asr_pytorch_tpu_torch.ops.cuda import fbank_kernel, lstm_kernel
+from end_to_end_asr_pytorch_tpu_torch.ops.cuda import (fbank_kernel,
+                                                        lstm_kernel,
+                                                        psi_kernel)
 from end_to_end_asr_pytorch_tpu_torch.utils import torch_ckpt
 from end_to_end_asr_pytorch_tpu_torch.utils.device import resolve_device
 from end_to_end_asr_pytorch_tpu_torch.utils.weights import (
@@ -313,8 +315,13 @@ def test_cpu_tensors_launch_no_kernel_and_entry_points_need_cuda(
     feat, flen = AudioFrontend(AUDIO_CFG, device="cpu")(torch.from_numpy(w),
                                                         torch.from_numpy(wl))
     pm.encode(feat, flen)
+    # an amp decode with psi_kernel on CPU tensors: plain versions only
+    BeamDecoder(pm, {**DECODE_CFG, "amp": True, "psi_kernel": True}
+                ).forward(feat, flen)
     assert fbank_kernel.fbank_fused.launches == f0 == 0
     assert lstm_kernel.lstm_scan_fused.launches == l0 == 0
+    assert lstm_kernel.lstm_scan_bf16.launches == 0
+    assert psi_kernel.psi_fused.launches == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device(None)
@@ -327,9 +334,8 @@ def test_cpu_tensors_launch_no_kernel_and_entry_points_need_cuda(
 
 
 @pytest.mark.parametrize("key,value", [
-    ("amp", True), ("psi_kernel", True), ("psi_quant", "int8"),
-    ("ctc_window", 8), ("approx_topk", 0.95), ("ctc_candidates", 4),
-    ("fold_logp", True)])
+    ("psi_quant", "int8"), ("ctc_window", 8), ("approx_topk", 0.95),
+    ("ctc_candidates", 4)])
 def test_unported_decode_options_raise(key, value):
     _, _, _, _, pm, _ = _models(0)
     with pytest.raises(NotImplementedError, match=key):
