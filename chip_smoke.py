@@ -22,6 +22,16 @@ Phases, each printing one JSON line:
                 at B=128 and the slice's batch, T=176, U=96, V=31, ragged
                 lengths, repeated labels, one infeasible row (NLL rtol 1e-5,
                 gradient atol 1e-5)
+  k4          - the GRU scan kernel against its plain version at H=512,
+                T=176, both directions, ragged masks, at B=128 and at the
+                slice's batch, without and with its residuals (ys, gates,
+                hp_n atol 1e-4); and its bf16 variant at the same shapes (ys
+                within 1 bf16 ulp + 1e-5, K2-bf16's bound); cuDNN nn.GRU in
+                f32 (TF32 off) and in bf16 as the library yardsticks
+  k4b         - K4's residuals and the GRU backward kernel against the plain
+                backward and against autograd through the plain scan, same
+                shapes (dxp atol 1e-4, dW_hh and db_hh within 1e-3 of their
+                max magnitude)
   k5          - the beam-step location-attention kernel against its plain
                 version at B=128 and the slice's batch, K=8, T=176, d=300,
                 F=10, ragged lengths (align atol 1e-5, ctx atol 1e-4)
@@ -55,8 +65,17 @@ Phases, each printing one JSON line:
                 decode.psi_kernel: K6 exactly once per beam step; the same
                 batch with psi_kernel off launches it never; breakdowns of
                 both
+  slice_gru   - the slice with the GRU family (bench.py's model and LM
+                with module GRU: 3x BiGRU-512 encoder, GRU-512 decoder and
+                LM), amp pinned off: each batch must launch K1 once and K4
+                six times, and no other kernel
+  slice_gru_amp - the same with decode.amp at auto (bf16 on the card): K4's
+                bf16 variant six times per batch; top-1 share and best-score
+                difference against the same batch with amp off
   entry       - python -m end_to_end_asr_pytorch_tpu_torch.transcribe on
                 two WAVs with a reference-layout checkpoint (amp off)
+  entry_gru   - the same with slice_gru's model (a reference-layout nn.GRU
+                checkpoint, bias_ih and bias_hh kept apart)
   entry_sub5k - the same with a generated 5120-piece sentencepiece model,
                 a V=5120 checkpoint and decode.psi_kernel: true, amp auto
   train       - training main path: the port's solver with bench.py's model
@@ -72,6 +91,9 @@ Phases, each printing one JSON line:
   train_att   - the same with attention.use_pallas_train: each step must
                 also launch the K7 forward and backward once per label
                 step (96 each)
+  train_gru   - the same with the GRU model: each step must launch K1 once,
+                K4 (with residuals) and K4b once per encoder scan, K3 once,
+                and no LSTM kernel
   train_entry - python -m end_to_end_asr_pytorch_tpu_torch.train on a
                 generated synthetic corpus (32 train / 8 dev utterances,
                 bench.py's model, 4 steps, validation every 2), then
@@ -79,7 +101,8 @@ Phases, each printing one JSON line:
 Then a line with the per-kernel measurements ({"kernels": [...]}: K1 and K2
 launches counted on the slice's run, K5 on slice_att's, K2's bf16 variant
 on slice_amp's, K6 on slice_sub5k's, K2b and K3 on the train run, K7 on
-train_att's), the nvidia-smi line, and last
+train_att's, K4 on slice_gru's, K4's bf16 variant on slice_gru_amp's, K4b
+on train_gru's), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase
 ends the run with a non-zero exit code. Needs CUDA: without it the script
 fails before printing a result.
@@ -111,6 +134,11 @@ MODEL_CFG = {
     "decoder": {"module": "LSTM", "dim": 512, "layer": 1, "dropout": 0.0},
 }
 LM_CFG = {"module": "LSTM", "dim": 512, "emb_dim": 512, "layer": 1}
+# the GRU family: the same model and LM with module GRU
+GRU_MODEL_CFG = {**MODEL_CFG,
+                 "encoder": {**MODEL_CFG["encoder"], "module": "GRU"},
+                 "decoder": {**MODEL_CFG["decoder"], "module": "GRU"}}
+GRU_LM_CFG = {**LM_CFG, "module": "GRU"}
 AUDIO_CFG = {"feat_type": "fbank", "feat_dim": 40, "cmvn": True}
 # the f32 slices pin amp off ("auto" is bf16 on the card)
 DECODE_CFG = {"beam_size": 8, "min_len_ratio": 0.05, "max_len_ratio": 0.6,
@@ -172,6 +200,20 @@ def bound(bytes_moved, flops):
     t_bytes = bytes_moved / HBM_BPS * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_diff(got, ref):
+    """Two bf16 tensors: the largest absolute difference, the largest
+    difference beyond 1e-5 in units of one bf16 ulp of the larger magnitude
+    (<= 1 passes), and the share of elements that differ. 8 significant
+    bits: 2^-7 of the larger magnitude is >= 1 ulp; near 0 the f32 values
+    before rounding differ by the f32 kernel's own summation-order
+    difference (~1e-6), so 1e-5 absolute is added to the ulp."""
+    import torch
+    d = (got.float() - ref.float()).abs()
+    one_ulp = torch.maximum(got.float().abs(), ref.float().abs()) * 2.0 ** -7
+    ulps = float(((d - 1e-5).clamp_min(0.0) / one_ulp.clamp_min(1e-30)).max())
+    return float(d.max()), ulps, float((d > 0).float().mean())
 
 
 def make_waves(n, seed, secs=SECS, sr=16000):
@@ -292,16 +334,8 @@ def phase_k2(seed, slice_batch, T=176, H=512):
             torch.cuda.synchronize()
             check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()),
                   "K2 bf16 output not bf16 and finite")
-            d = (got.float() - ref.float()).abs()
-            err = max(err, float(d.max()))
-            # 8 significant bits: 2^-7 of the larger magnitude is >= 1 ulp;
-            # near 0 the f32 values before rounding differ by the f32
-            # kernel's own summation-order difference (~1e-6), so 1e-5
-            # absolute is added to the ulp
-            one_ulp = torch.maximum(got.float().abs(), ref.float().abs()) * 2.0 ** -7
-            ulps = max(ulps, float(((d - 1e-5).clamp_min(0.0)
-                                    / one_ulp.clamp_min(1e-30)).max()))
-            differ = max(differ, float((d > 0).float().mean()))
+            e, u, dif = bf16_diff(got, ref)
+            err, ulps, differ = max(err, e), max(ulps, u), max(differ, dif)
         check(ulps <= 1.0, f"K2 bf16 ys beyond 1 bf16 ulp (+1e-5) of the "
               f"plain version ({ulps} of the bound) at B={B}")
         cudnn_bf16 = torch.nn.LSTM(4 * H, H).cuda().to(torch.bfloat16)
@@ -417,6 +451,214 @@ def phase_k2b(seed, slice_batch, T=176, H=512):
               "k2_residuals_library_ms": lib_fwd_ms,
               "k2_residuals_bound_ms": fb_ms, "k2_residuals_bound_by": fb_by,
               **records[B]})
+    return records[slice_batch]
+
+
+def cudnn_gru(w_hh, b_hh):
+    """cuDNN's nn.GRU computing K4's function: identity input weights and
+    no input bias make its gates x_proj + h W_hh + b_hh, with r under the
+    n third of the hidden product as in K4 (it also runs a (T*B, 3H) x
+    (3H, 3H) input product that the kernel does not)."""
+    import torch
+    H = w_hh.shape[0]
+    gru = torch.nn.GRU(3 * H, H).cuda()
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(torch.eye(3 * H, device="cuda"))
+        gru.weight_hh_l0.copy_(w_hh.T)
+        gru.bias_ih_l0.zero_()
+        gru.bias_hh_l0.copy_(b_hh)
+    gru.flatten_parameters()
+    return gru
+
+
+def gru_case(rng, B, T, H):
+    """x_proj (T, B, 3H), an upstream gradient (T, B, H) and a ragged mask
+    (the first row full)."""
+    import torch
+    xp = torch.from_numpy(rng.randn(T, B, 3 * H).astype(np.float32)).cuda()
+    dys = torch.from_numpy(rng.randn(T, B, H).astype(np.float32)).cuda()
+    lens = rng.randint(T // 2, T + 1, size=B)
+    lens[0] = T
+    mask = torch.from_numpy(np.arange(T)[:, None] < lens[None, :]).cuda()
+    return xp, dys, mask
+
+
+def gru_weights(rng, H):
+    import torch
+    s = 1.0 / math.sqrt(H)
+    t = lambda *shape: torch.from_numpy(
+        rng.uniform(-s, s, shape).astype(np.float32)).cuda()
+    return t(H, 3 * H), t(3 * H)
+
+
+def phase_k4(seed, slice_batch, T=176, H=512):
+    """K4 (with and without residuals) and its bf16 variant against their
+    plain versions, both directions, ragged masks, at B=128 and at the
+    slice's batch (those records are the kernels' lines); cuDNN nn.GRU in
+    f32 (TF32 off, as resolve_device sets it) and in bf16 as yardsticks."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
+    rng = np.random.RandomState(seed + 10)
+    w_hh, b_hh = gru_weights(rng, H)
+    cudnn = cudnn_gru(w_hh, b_hh)
+    cudnn_bf16 = cudnn_gru(w_hh, b_hh).to(torch.bfloat16)
+    cudnn_bf16.flatten_parameters()
+    records, bf16_records = {}, {}
+    for B in (128, slice_batch):
+        xp, _, mask = gru_case(rng, B, T, H)
+        err = res_err = 0.0
+        for reverse in (False, True):
+            got = gk.gru_scan_fused(xp, w_hh, b_hh, mask, reverse)
+            ref = gk.gru_scan_plain(xp, w_hh, b_hh, mask, reverse)
+            res = gk.gru_scan_fused(xp, w_hh, b_hh, mask, reverse,
+                                    residuals=True)
+            pres = gk.gru_scan_fwd_plain(xp, w_hh, b_hh, mask, reverse)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in (got, *res)),
+                  "K4 output not finite")
+            err = max(err, float((got - ref).abs().max()))
+            res_err = max(res_err, *(float((a - b).abs().max())
+                                     for a, b in zip(res, pres)))
+        check(err <= 1e-4, f"K4 max abs err {err} > 1e-4 at B={B}")
+        check(res_err <= 1e-4, f"K4 residuals max abs err {res_err} at B={B}")
+
+        def library():
+            with torch.no_grad():
+                return cudnn(xp)[0]
+
+        full = torch.ones_like(mask)
+        lib_err = float((library() - gk.gru_scan_fused(xp, w_hh, b_hh, full)
+                         ).abs().max())
+        flops = T * 2 * B * H * 3 * H
+        b_ms, b_by = bound(4 * (T * B * 3 * H + H * 3 * H + 3 * H + T * B
+                                + T * B * H), flops)
+        records[B] = {
+            "name": "gru_scan_fused", "route": "cuda",
+            "source": "end_to_end_asr_pytorch_tpu_torch/csrc/gru_scan.cu",
+            "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/gru_kernel.py:109",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: gk.gru_scan_fused(xp, w_hh, b_hh, mask,
+                                                    True), 10),
+            "plain_ms": cuda_ms(lambda: gk.gru_scan_plain(xp, w_hh, b_hh,
+                                                          mask, True), 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(library, 10)}
+        emit({"phase": "k4", "T": T, "B": B, "H": H,
+              "residual_max_abs_err": res_err,
+              "k4_residuals_ms": cuda_ms(lambda: gk.gru_scan_fused(
+                  xp, w_hh, b_hh, mask, True, residuals=True), 10),
+              "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+              "cudnn_full_length_max_abs_err": lib_err, **records[B]})
+        # the bf16 variant (decode amp): bf16 x_proj and ys, f32 carry
+        xb = xp.to(torch.bfloat16)
+        err = ulps = differ = 0.0
+        for reverse in (False, True):
+            got = gk.gru_scan_bf16(xb, w_hh, b_hh, mask, reverse)
+            ref = gk.gru_scan_plain(xb, w_hh, b_hh, mask, reverse)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()),
+                  "K4 bf16 output not bf16 and finite")
+            e, u, dif = bf16_diff(got, ref)
+            err, ulps, differ = max(err, e), max(ulps, u), max(differ, dif)
+        check(ulps <= 1.0, f"K4 bf16 ys beyond 1 bf16 ulp (+1e-5) of the "
+              f"plain version ({ulps} of the bound) at B={B}")
+        b_ms, b_by = bound(2 * T * B * 3 * H + 4 * (H * 3 * H + 3 * H + T * B)
+                           + 2 * T * B * H, flops)
+
+        def library_bf16():
+            with torch.no_grad():
+                return cudnn_bf16(xb)[0]
+
+        bf16_records[B] = {
+            "name": "gru_scan_bf16", "route": "cuda",
+            "source": "end_to_end_asr_pytorch_tpu_torch/csrc/gru_scan.cu",
+            "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/gru_kernel.py:109",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: gk.gru_scan_bf16(xb, w_hh, b_hh, mask,
+                                                   True), 10),
+            "plain_ms": cuda_ms(lambda: gk.gru_scan_plain(xb, w_hh, b_hh,
+                                                          mask, True), 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(library_bf16, 10)}
+        emit({"phase": "k4_bf16", "T": T, "B": B, "H": H,
+              "max_err_over_bf16_ulp_bound": ulps,
+              "share_of_ys_differing": differ, **bf16_records[B]})
+    return records[slice_batch], bf16_records[slice_batch]
+
+
+def phase_k4b(seed, slice_batch, T=176, H=512):
+    """K4's residuals and K4b against the plain backward and against
+    autograd through the plain scan, both directions, ragged masks, at
+    B=128 and at the slice's batch; cuDNN nn.GRU fwd+bwd - fwd as the
+    yardstick."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
+    rng = np.random.RandomState(seed + 11)
+    w_hh, b_hh = gru_weights(rng, H)
+    cudnn = cudnn_gru(w_hh, b_hh)
+    records = {}
+    for B in (128, slice_batch):
+        xp, dys, mask = gru_case(rng, B, T, H)
+        errs = {"dxp": 0.0, "dw": 0.0, "db": 0.0, "ag_dxp": 0.0, "ag_dw": 0.0,
+                "ag_db": 0.0}
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+        for reverse in (False, True):
+            ys, gates, hp_n = gk.gru_scan_fused(xp, w_hh, b_hh, mask, reverse,
+                                                residuals=True)
+            dxp, dw, db = gk.gru_bwd_fused(gates, hp_n, ys, mask, w_hh, dys,
+                                           reverse)
+            pys, pg, ph = gk.gru_scan_fwd_plain(xp, w_hh, b_hh, mask, reverse)
+            pdxp, pdw, pdb = gk.gru_scan_bwd_plain(pg, ph, pys, mask, w_hh,
+                                                   dys, reverse)
+            x, w, b = (t.clone().requires_grad_(True) for t in (xp, w_hh, b_hh))
+            gk.gru_scan_plain(x, w, b, mask, reverse).backward(dys)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in (dxp, dw, db)),
+                  "K4b output not finite")
+            for tag, (rx, rw, rb) in (("", (pdxp, pdw, pdb)),
+                                      ("ag_", (x.grad, w.grad, b.grad))):
+                errs[tag + "dxp"] = max(errs[tag + "dxp"],
+                                        float((dxp - rx).abs().max()))
+                errs[tag + "dw"] = max(errs[tag + "dw"], rel(dw, rw))
+                errs[tag + "db"] = max(errs[tag + "db"], rel(db, rb))
+        check(errs["dxp"] <= 1e-4 and errs["ag_dxp"] <= 1e-4,
+              f"K4b dxp max abs err {errs} at B={B}")
+        check(max(errs["dw"], errs["db"], errs["ag_dw"], errs["ag_db"]) <= 1e-3,
+              f"K4b dW_hh / db_hh err over max magnitude {errs} at B={B}")
+        ys, gates, hp_n = gk.gru_scan_fused(xp, w_hh, b_hh, mask, True,
+                                            residuals=True)
+        xl = xp.clone().requires_grad_(True)
+
+        def lib_fwd():
+            return cudnn(xl)[0]
+
+        def lib_fwd_bwd():
+            cudnn(xl)[0].backward(dys)
+
+        lib_fwd_ms = cuda_ms(lib_fwd, 10)
+        lib_ms = cuda_ms(lib_fwd_bwd, 10) - lib_fwd_ms
+        # reads gates, hp_n, ys, dys, mask, W_hh; writes dxp, dW_hh, db_hh;
+        # the recurrent product and the dW_hh GEMM each 2*T*B*H*3H operations
+        nbytes = 4 * (T * B * (3 * H + 3 * H + 3 * H) + T * B + 2 * H * 3 * H
+                      + 3 * H)
+        flops = T * (4 * B * 3 * H * H + 20 * B * H)
+        b_ms, b_by = bound(nbytes, flops)
+        records[B] = {
+            "name": "gru_bwd_fused", "route": "cuda",
+            "source": "end_to_end_asr_pytorch_tpu_torch/csrc/gru_scan.cu",
+            "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/gru_kernel.py:149",
+            "max_abs_err": errs["dxp"],
+            "ms": cuda_ms(lambda: gk.gru_bwd_fused(gates, hp_n, ys, mask, w_hh,
+                                                   dys, True), 10),
+            "plain_ms": cuda_ms(lambda: gk.gru_scan_bwd_plain(
+                gates, hp_n, ys, mask, w_hh, dys, True), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        emit({"phase": "k4b", "T": T, "B": B, "H": H,
+              "dw_err_over_max": errs["dw"], "db_err_over_max": errs["db"],
+              "autograd_dxp_max_abs_err": errs["ag_dxp"],
+              "autograd_dw_err_over_max": errs["ag_dw"],
+              "autograd_db_err_over_max": errs["ag_db"],
+              "library_fwd_ms": lib_fwd_ms, **records[B]})
     return records[slice_batch]
 
 
@@ -754,7 +996,7 @@ SLICE_EXPECT = {"fbank_fused": 1, "lstm_scan_fused": 6}
 
 def phase_slice(frontend, batch, seed, device, name="slice",
                 model_cfg=MODEL_CFG, decode_cfg=DECODE_CFG, vocab=V_CHAR,
-                expect=SLICE_EXPECT, n_batches=3):
+                expect=SLICE_EXPECT, n_batches=3, lm_cfg=LM_CFG):
     """Decode batches of bench.py's model (random weights from ``seed``):
     ``n_batches`` timed ones whose launches must be ``expect``'s, one with
     the plain versions (compared), then a breakdown of one batch. Returns
@@ -767,7 +1009,7 @@ def phase_slice(frontend, batch, seed, device, name="slice",
     g = torch.Generator().manual_seed(seed)
     model = ASR(frontend.feat_dim, vocab, model_cfg, generator=g,
                 device=device)
-    lm = RNNLM(vocab, LM_CFG, generator=g, device=device)
+    lm = RNNLM(vocab, lm_cfg, generator=g, device=device)
     decoder = BeamDecoder(model, decode_cfg, lm=lm)
     w, wl = make_waves(batch, seed + 2)
     wave, wave_len = torch.from_numpy(w).to(device), torch.from_numpy(wl).to(device)
@@ -948,7 +1190,8 @@ def sentencepiece_pieces(n):
     return out
 
 
-def phase_entry(model, seed, name="entry", decode_cfg=None, vocab=V_CHAR):
+def phase_entry(model, seed, name="entry", decode_cfg=None, vocab=V_CHAR,
+                model_cfg=MODEL_CFG):
     """python -m end_to_end_asr_pytorch_tpu_torch.transcribe on two WAVs
     with ``model`` saved as a reference-layout checkpoint: a character
     vocabulary for V=31, else a generated sentencepiece model of ``vocab``
@@ -973,7 +1216,7 @@ def phase_entry(model, seed, name="entry", decode_cfg=None, vocab=V_CHAR):
             text = {"mode": "subword", "vocab_file": str(d / "sp.model")}
         cfg = {"data": {"corpus": {"name": "smoke"}, "audio": AUDIO_CFG,
                         "text": text},
-               "model": MODEL_CFG, "hparas": {}, "decode": decode_cfg}
+               "model": model_cfg, "hparas": {}, "decode": decode_cfg}
         (d / "cfg.yaml").write_text(yaml.safe_dump(cfg))
         torch.save({"model": asr_state_dict(model), "global_step": 0},
                    str(d / "asr.pth"))
@@ -1042,8 +1285,8 @@ def make_solver(device, seed, workdir, model_cfg=MODEL_CFG):
 def launch_counters():
     """Every kernel wrapper, by name; each counts its own launches."""
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import (
-        att_kernel, att_train_kernel, ctc_kernel, fbank_kernel, lstm_kernel,
-        psi_kernel)
+        att_kernel, att_train_kernel, ctc_kernel, fbank_kernel, gru_kernel,
+        lstm_kernel, psi_kernel)
     return {"fbank_fused": fbank_kernel.fbank_fused,
             "lstm_scan_fused": lstm_kernel.lstm_scan_fused,
             "lstm_scan_bf16": lstm_kernel.lstm_scan_bf16,
@@ -1052,7 +1295,10 @@ def launch_counters():
             "ctc_loss_fused": ctc_kernel.ctc_loss_fused,
             "loc_attention_fused": att_kernel.loc_attention_fused,
             "loc_att_fwd_fused": att_train_kernel.loc_att_fwd_fused,
-            "loc_att_bwd_fused": att_train_kernel.loc_att_bwd_fused}
+            "loc_att_bwd_fused": att_train_kernel.loc_att_bwd_fused,
+            "gru_scan_fused": gru_kernel.gru_scan_fused,
+            "gru_scan_bf16": gru_kernel.gru_scan_bf16,
+            "gru_bwd_fused": gru_kernel.gru_bwd_fused}
 
 
 def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
@@ -1070,11 +1316,11 @@ def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
     enc = model_cfg["encoder"]
     n_scans = len(enc["dim"]) * (2 if enc["bidirection"] else 1)
     k7 = data[2].shape[1] if solver.model.attention.use_pallas_train else 0
-    per_step = {"fbank_fused": 1, "lstm_scan_fused": n_scans,
-                "lstm_scan_bf16": 0, "psi_fused": 0,
-                "lstm_bwd_fused": n_scans, "ctc_loss_fused": 1,
-                "loc_attention_fused": 0, "loc_att_fwd_fused": k7,
-                "loc_att_bwd_fused": k7}
+    scan = enc["module"].lower()                   # lstm or gru
+    per_step = {k: 0 for k in launch_counters()}
+    per_step.update({"fbank_fused": 1, f"{scan}_scan_fused": n_scans,
+                     f"{scan}_bwd_fused": n_scans, "ctc_loss_fused": 1,
+                     "loc_att_fwd_fused": k7, "loc_att_bwd_fused": k7})
     solver.train_step(*data)                       # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1277,9 +1523,10 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--phases",
-                    default="k1,k2,k2b,k3,k5,k6,k7,slice,slice_att,entry,"
-                            "slice_amp,slice_sub5k,entry_sub5k,"
-                            "train,train_att,train_entry",
+                    default="k1,k2,k2b,k3,k4,k4b,k5,k6,k7,slice,slice_att,"
+                            "entry,slice_amp,slice_sub5k,entry_sub5k,"
+                            "slice_gru,entry_gru,slice_gru_amp,"
+                            "train,train_att,train_gru,train_entry",
                     help="comma list of phases after build (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1303,7 +1550,7 @@ def main():
           "cuda": torch.version.cuda})
 
     secs = build.build(["fbank", "lstm_scan", "ctc_loss", "loc_att",
-                        "loc_att_train", "psi"])
+                        "loc_att_train", "psi", "gru_scan"])
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in build.build_log.items()}
@@ -1320,6 +1567,11 @@ def main():
         kernels["lstm_bwd_fused"] = phase_k2b(args.seed, args.batch)
     if "k3" in phases:
         kernels["ctc_loss_fused"] = phase_k3(args.seed, args.batch)
+    if "k4" in phases:
+        (kernels["gru_scan_fused"],
+         kernels["gru_scan_bf16"]) = phase_k4(args.seed, args.batch)
+    if "k4b" in phases:
+        kernels["gru_bwd_fused"] = phase_k4b(args.seed, args.batch)
     if "k5" in phases:
         kernels["loc_attention_fused"] = phase_k5(args.seed, args.batch)
     if "k6" in phases:
@@ -1366,6 +1618,24 @@ def main():
             phase_entry(sl["model"], args.seed, "entry_sub5k",
                         {k: v for k, v in sub_cfg.items()
                          if k not in ("lm_weight", "amp")}, V_SUB)
+    gru_expect = {"fbank_fused": 1, "gru_scan_fused": 6}
+    gru = dict(model_cfg=GRU_MODEL_CFG, lm_cfg=GRU_LM_CFG)
+    if "slice_gru" in phases or "entry_gru" in phases:
+        sl = phase_slice(frontend, args.batch, args.seed, device, "slice_gru",
+                         expect=gru_expect, **gru)
+        record(sl["launches"], ("gru_scan_fused",))
+        if "entry_gru" in phases:
+            phase_entry(sl["model"], args.seed, "entry_gru",
+                        model_cfg=GRU_MODEL_CFG)
+    if "slice_gru_amp" in phases:
+        sl = phase_slice(frontend, args.batch, args.seed, device,
+                         "slice_gru_amp", decode_cfg=auto_cfg,
+                         expect={"fbank_fused": 1, "gru_scan_bf16": 6}, **gru)
+        check(sl["amp"] is True, "decode.amp: auto did not resolve to bf16 "
+              "on the card (GRU)")
+        record(sl["launches"], ("gru_scan_bf16",))
+        phase_slice_other(frontend, sl, DECODE_CFG, "slice_gru_amp_vs_f32",
+                          gru_expect)
     if "train" in phases:
         launches = phase_train(args.batch, args.seed, device)
         record(launches, ("lstm_bwd_fused", "ctc_loss_fused"))
@@ -1373,6 +1643,10 @@ def main():
         launches = phase_train(args.batch, args.seed, device, "train_att",
                                with_attention(use_pallas_train=True))
         record(launches, ("loc_att_fwd_fused", "loc_att_bwd_fused"))
+    if "train_gru" in phases:
+        launches = phase_train(args.batch, args.seed, device, "train_gru",
+                               GRU_MODEL_CFG)
+        record(launches, ("gru_bwd_fused",))
     if "train_entry" in phases:
         phase_train_entry(args.seed)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

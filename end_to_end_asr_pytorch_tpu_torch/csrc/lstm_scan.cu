@@ -47,31 +47,7 @@
 // indexing is shifts. The grid must be co-resident; the wrapper checks it
 // with the occupancy API and cudaLaunchCooperativeKernel refuses a grid that
 // is not.
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
-
-#define NT 256     // threads per block
-#define HS 16384   // floats of the shared-memory chunk (64 KB)
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename TX> __device__ __forceinline__ TX from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+#include "scan_common.cuh"
 
 // U hidden units per block (power of two, 1..128): RB = 2 * NT / U rows of
 // the batch per pass (2 per thread), KC = HS / RB rows of h per chunk. TX is
@@ -284,27 +260,16 @@ __global__ void __launch_bounds__(NT) lstm_bwd_kernel(
   }
 }
 
-// The instantiation for U hidden units per block (nullptr for another U).
-#define LSTM_CASES(...)                                  \
-  case 1: return (void*)__VA_ARGS__(1);                  \
-  case 2: return (void*)__VA_ARGS__(2);                  \
-  case 4: return (void*)__VA_ARGS__(4);                  \
-  case 8: return (void*)__VA_ARGS__(8);                  \
-  case 16: return (void*)__VA_ARGS__(16);                \
-  case 32: return (void*)__VA_ARGS__(32);                \
-  case 64: return (void*)__VA_ARGS__(64);                \
-  case 128: return (void*)__VA_ARGS__(128);              \
-  default: return nullptr;
 #define FWD_KERNEL(u) lstm_fwd_kernel<u, TX>
 #define BWD_KERNEL(u) lstm_bwd_kernel<u>
 
 template <typename TX>
 static void* fwd_for(int U) {
-  switch (U) { LSTM_CASES(FWD_KERNEL) }
+  switch (U) { SCAN_CASES(FWD_KERNEL) }
 }
 
 static void* bwd_for(int U) {
-  switch (U) { LSTM_CASES(BWD_KERNEL) }
+  switch (U) { SCAN_CASES(BWD_KERNEL) }
 }
 
 // Kernel kinds: the f32 forward, the backward, the bf16 forward.
@@ -329,37 +294,8 @@ static void* kernel_ptr(int U, int kind) {
 // Blocks of the U-unit kernel of that kind that can be resident at once on
 // the whole card (0 when one block's shared memory does not fit).
 extern "C" int lstm_max_coresident(int B, int H, int U, int kind, int* out) {
-  void* fn = kernel_ptr(U, kind);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, optin = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = lstm_smem_bytes(B, H, U, kind);
-  *out = 0;
-  if (smem > (size_t)optin) return 0;
-  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, NT, smem);
-  if (e != cudaSuccess) return (int)e;
-  *out = per_sm * sms;
-  return 0;
-}
-
-static int launch(void* fn, int U, int H, size_t smem, void** args,
-                  void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchCooperativeKernel(fn, dim3(H / U), dim3(NT), args, smem,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return scan_max_coresident(kernel_ptr(U, kind),
+                             lstm_smem_bytes(B, H, U, kind), out);
 }
 
 // cs_out / gates_out may both be null (no residuals).
@@ -373,7 +309,8 @@ extern "C" int lstm_fwd_launch(const float* xp, const float* whh,
   void* args[] = {(void*)&xp, (void*)&whh, (void*)&mask, (void*)&ys,
                   (void*)&hbuf, (void*)&cs_out, (void*)&gates_out, (void*)&T,
                   (void*)&B, (void*)&H, (void*)&reverse};
-  return launch(fn, U, H, lstm_smem_bytes(B, H, U, KIND_FWD), args, stream);
+  return scan_launch(fn, U, H, lstm_smem_bytes(B, H, U, KIND_FWD), args,
+                     stream);
 }
 
 // The bf16 variant: xp and ys are bf16 (T, B, 4H) / (T, B, H), no residuals.
@@ -389,8 +326,8 @@ extern "C" int lstm_fwd_bf16_launch(const void* xp, const float* whh,
   void* args[] = {(void*)&x, (void*)&whh, (void*)&mask, (void*)&y,
                   (void*)&hbuf, (void*)&none, (void*)&none, (void*)&T,
                   (void*)&B, (void*)&H, (void*)&reverse};
-  return launch(fn, U, H, lstm_smem_bytes(B, H, U, KIND_FWD_BF16), args,
-                stream);
+  return scan_launch(fn, U, H, lstm_smem_bytes(B, H, U, KIND_FWD_BF16), args,
+                     stream);
 }
 
 // dgbuf: 2 * H * B float4, zero-filled by the caller.
@@ -405,5 +342,6 @@ extern "C" int lstm_bwd_launch(const float* gates, const float* cs,
   void* args[] = {(void*)&gates, (void*)&cs, (void*)&dys, (void*)&mask,
                   (void*)&whh, (void*)&dxp, (void*)&dg, (void*)&T, (void*)&B,
                   (void*)&H, (void*)&reverse};
-  return launch(fn, U, H, lstm_smem_bytes(B, H, U, KIND_BWD), args, stream);
+  return scan_launch(fn, U, H, lstm_smem_bytes(B, H, U, KIND_BWD), args,
+                     stream);
 }

@@ -148,22 +148,22 @@ def dw_hh(ys: torch.Tensor, dxp: torch.Tensor, reverse: bool) -> torch.Tensor:
 _FWD, _BWD, _FWD_BF16 = 0, 1, 2
 
 
-def _pick_units(H: int, B: int, lib, kind: int) -> int:
+def _pick_units(H: int, B: int, max_coresident, kind: int) -> int:
     """Hidden units per block: the smallest power of two that divides H and
-    leaves a grid that is co-resident on the card."""
+    leaves a grid that is co-resident on the card. ``max_coresident`` is a
+    scan library's occupancy query (``lstm_`` or ``gru_max_coresident``)."""
     dev = torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     U = 1
     while U <= _NT // 2:
         if H % U == 0 and H // U <= sms:
             out = ctypes.c_int(0)
-            build.check(lib.lstm_max_coresident(B, H, U, kind,
-                                                ctypes.byref(out)),
-                        "lstm occupancy query")
+            build.check(max_coresident(B, H, U, kind, ctypes.byref(out)),
+                        "scan occupancy query")
             if H // U <= out.value:
                 return U
         U *= 2
-    raise ValueError(f"lstm scan kernel: no co-resident grid for H={H}, B={B}")
+    raise ValueError(f"scan kernel: no co-resident grid for H={H}, B={B}")
 
 
 def lstm_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -189,7 +189,7 @@ def lstm_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_scan_fused: unsupported device {x_proj.device}")
     lib = build.load("lstm_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib, _FWD)
+    U = _pick_units(H, B, lib.lstm_max_coresident, _FWD)
     dev = x_proj.device
     ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     cs = gates = None
@@ -229,7 +229,7 @@ def lstm_scan_bf16(x_proj: torch.Tensor, w_hh: torch.Tensor,
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_scan_bf16: unsupported device {x_proj.device}")
     lib = build.load("lstm_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib, _FWD_BF16)
+    U = _pick_units(H, B, lib.lstm_max_coresident, _FWD_BF16)
     dev = x_proj.device
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
     hbuf = torch.zeros((2, H, B), dtype=torch.float32, device=dev)
@@ -268,7 +268,7 @@ def lstm_bwd_fused(gates: torch.Tensor, cs: torch.Tensor, ys: torch.Tensor,
     if gates.device.type != "cuda":
         raise ValueError(f"lstm_bwd_fused: unsupported device {gates.device}")
     lib = build.load("lstm_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib, _BWD)
+    U = _pick_units(H, B, lib.lstm_max_coresident, _BWD)
     dev = gates.device
     dxp = torch.empty((T, B, G), dtype=torch.float32, device=dev)
     dgbuf = torch.zeros((2, H, B, 4), dtype=torch.float32, device=dev)

@@ -5,17 +5,18 @@ The LSTM keeps a single bias ``b = b_ih + b_hh``; the GRU keeps separate
 biases because its n-gate applies the reset gate between them. Weights are
 stored as the JAX package stores them: ``w_ih`` (D, G), ``w_hh`` (H, G).
 
-``lstm_scan`` with zero initial state goes through ``LSTMScan``
-(``ops/cuda/lstm_kernel.py``), whose backward is the hand-written
-reverse-time recurrence: K2 / K2b for a CUDA input, their plain versions for
-CPU tensors. With an initial state it runs the plain scan under autograd, as
-the JAX package does. The GRU scan stays plain.
+``lstm_scan`` and ``gru_scan`` with zero initial state go through
+``LSTMScan`` / ``GRUScan`` (``ops/cuda/{lstm,gru}_kernel.py``), whose
+backward is the hand-written reverse-time recurrence: K2 / K2b and K4 / K4b
+for a CUDA input, their plain versions for CPU tensors. With an initial
+state they run the plain scan under autograd, as the JAX package does.
 
 Under decode amp (bf16 inputs, weights rounded to bf16 and kept in f32)
-the rules are the JAX package's: every product accumulates in f32 (``ops/amp.dot_f32``), a cell
-casts its new state back to the carry's dtype, and the LSTM scan streams
-x_proj = (x @ w_ih + b) rounded to bf16 through K2's bf16 variant with
-w_hh in f32, f32 carries and bf16 outputs.
+the rules are the JAX package's: every product accumulates in f32
+(``ops/amp.dot_f32``), a cell casts its new state back to the carry's
+dtype, and both scans stream x_proj = (x @ w_ih + b) rounded to bf16
+through their kernel's bf16 variant with w_hh (and the GRU's b_hh) in f32,
+an f32 carry and bf16 outputs, as the JAX package's TPU kernels do.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch.nn as nn
 from ..utils.init import const, uniform
 from . import cuda as cuda_kernels
 from .amp import dot_f32
+from .cuda.gru_kernel import GRUScan, gru_scan_plain
 from .cuda.lstm_kernel import LSTMScan, lstm_scan_plain
 
 
@@ -99,20 +101,15 @@ def lstm_scan(w: LSTMWeights, x: torch.Tensor, mask: torch.Tensor,
 
 def gru_scan(w: GRUWeights, x: torch.Tensor, mask: torch.Tensor,
              reverse: bool = False, h0=None) -> torch.Tensor:
-    """GRU analogue of lstm_scan (plain PyTorch; under amp its carry is in
-    x's dtype, as the JAX package's plain scan keeps it)."""
-    T, B, _ = x.shape
-    H = w.w_hh.shape[0]
+    """GRU analogue of lstm_scan: x_proj = x @ w_ih + b_ih, b_hh applied
+    inside the recurrence (its n third under the reset gate)."""
     x_proj = dot_f32(x, w.w_ih) + w.b_ih
-    h = torch.zeros((B, H), dtype=x.dtype, device=x.device) if h0 is None else h0
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    ys = [None] * T
-    for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        h_new = gru_cell(w, h, x_proj[t])
-        m = mask[t][:, None]
-        h = torch.where(m, h_new, h)
-        ys[t] = torch.where(m, h_new, zero)
-    return torch.stack(ys)
+    if h0 is None:
+        use_kernel = x.is_cuda and cuda_kernels.USE_KERNELS
+        return GRUScan.apply(x_proj.to(x.dtype).contiguous(),
+                             w.w_hh.contiguous(), w.b_hh.contiguous(),
+                             mask.contiguous(), reverse, use_kernel)
+    return gru_scan_plain(x_proj, w.w_hh, w.b_hh, mask, reverse, h0)
 
 
 def bidirectional(scan_fn, w_fwd, w_bwd, x: torch.Tensor, mask: torch.Tensor,
