@@ -48,27 +48,46 @@ Phases, each printing one JSON line:
                 all-zero probs column (md - 87.4982, finite); and with f32
                 probs at the slice's batch, V=5120 (rtol / atol 2e-5 on
                 finite entries, blank and last-token columns bit-equal)
+  k8          - the fused beam-step tail kernel against its plain version
+                on real beam states: the slice's model, LM, batch and
+                config recorded at steps 0, 1, 40 and the last (B=32, K=8,
+                V=31, T=176; step 40 also without the LM), and the same
+                decode at V=5120 at step 1
+                (winners equal on every slot, dead ones included, unless
+                the plain scores are a near tie within 1e-5; scores and
+                psi rtol / atol 1e-5; r rtol / atol 1e-4; max_abs_err over
+                base, psi, finished scores and r); times at step 40, and
+                the device time of the kernel and of the plain tail per
+                step
   slice       - serving main path: bench.py's model at full width (VGG +
                 3x BiLSTM-512, loc attention 300 / kernel 100, LSTM-512
                 decoder and LM, beam 8, V=31, CTC 0.3 + LM 0.3, decode.amp
-                pinned off) with random weights from --seed: three timed
-                decode batches with the kernels (each batch must launch K1
-                once and K2 six times, and no other kernel), one with the
-                plain versions; then a breakdown of one batch
-  slice_att   - the same with attention.use_pallas: K5 must launch exactly
-                once per beam step of every batch
+                pinned off, decode.fused_step false: the step tail is K8's
+                eager plain version) with random weights from --seed: three
+                timed decode batches with the kernels (each batch must
+                launch K1 once and K2 six times, and no other kernel), one
+                with the plain versions; then a breakdown of one batch
+  slice_fused - the same with the default step tail, K8: it must launch
+                exactly once per beam step of every batch; then best-score
+                difference, top-1 share, launches, host split and device
+                busy side by side with slice
+  slice_att   - slice_fused with attention.use_pallas: K5 and K8 must each
+                launch exactly once per beam step of every batch
   slice_amp   - the slice with decode.amp left at auto, which must resolve
                 to bf16 on the card: K2's bf16 variant six times per batch,
-                K6 never (V=31 fails its gate); top-1 share and best-score
-                difference against the same batch with amp off
+                K6 and K8 never (V=31 fails K6's gate, K8 is f32); top-1
+                share and best-score difference against the same batch with
+                amp off (K8 once per step)
   slice_sub5k - the same model and LM at V=5120 with amp and
                 decode.psi_kernel: K6 exactly once per beam step; the same
-                batch with psi_kernel off launches it never; breakdowns of
-                both
+                batch with psi_kernel off launches it never; then the batch
+                in f32 with K8 (once per step) and with its plain version:
+                best-score difference, host split and device busy side by
+                side; breakdowns of all four
   slice_gru   - the slice with the GRU family (bench.py's model and LM
                 with module GRU: 3x BiGRU-512 encoder, GRU-512 decoder and
-                LM), amp pinned off: each batch must launch K1 once and K4
-                six times, and no other kernel
+                LM), amp pinned off: each batch must launch K1 once, K4
+                six times and K8 once per beam step, and no other kernel
   slice_gru_amp - the same with decode.amp at auto (bf16 on the card): K4's
                 bf16 variant six times per batch; top-1 share and best-score
                 difference against the same batch with amp off
@@ -78,6 +97,14 @@ Phases, each printing one JSON line:
                 checkpoint, bias_ih and bias_hh kept apart)
   entry_sub5k - the same with a generated 5120-piece sentencepiece model,
                 a V=5120 checkpoint and decode.psi_kernel: true, amp auto
+  test_entry  - python -m end_to_end_asr_pytorch_tpu_torch.main --test on a
+                generated synthetic corpus (32 dev and 32 test utterances),
+                the slice's model and LM as reference-layout checkpoints,
+                LM fusion 0.3, CTC 0.3, beam 8, batch 32, amp off, with
+                the default step tail (the summary lines must name the
+                fused route and count K8 launches) and with fused_step
+                false; one row per utterance in every CSV, hypotheses and
+                best scores compared
   train       - training main path: the port's solver with bench.py's model
                 at full width, Adadelta (lr 1, eps 1e-8, clip 5), joint
                 0.5 CTC + 0.5 CE, teacher forcing 0.9, B waves of 7 s with
@@ -99,7 +126,8 @@ Phases, each printing one JSON line:
                 bench.py's model, 4 steps, validation every 2), then
                 transcribe of two dev WAVs with its latest.pth
 Then a line with the per-kernel measurements ({"kernels": [...]}: K1 and K2
-launches counted on the slice's run, K5 on slice_att's, K2's bf16 variant
+launches counted on the slice's run, K8 on slice_fused's, K5 on
+slice_att's, K2's bf16 variant
 on slice_amp's, K6 on slice_sub5k's, K2b and K3 on the train run, K7 on
 train_att's, K4 on slice_gru's, K4's bf16 variant on slice_gru_amp's, K4b
 on train_gru's), the nvidia-smi line, and last
@@ -140,9 +168,11 @@ GRU_MODEL_CFG = {**MODEL_CFG,
                  "decoder": {**MODEL_CFG["decoder"], "module": "GRU"}}
 GRU_LM_CFG = {**LM_CFG, "module": "GRU"}
 AUDIO_CFG = {"feat_type": "fbank", "feat_dim": 40, "cmvn": True}
-# the f32 slices pin amp off ("auto" is bf16 on the card)
+# the f32 slices pin amp off ("auto" is bf16 on the card); their step tail
+# is K8 unless fused_step is false (the eager plain version, slice's)
 DECODE_CFG = {"beam_size": 8, "min_len_ratio": 0.05, "max_len_ratio": 0.6,
               "ctc_weight": 0.3, "lm_weight": 0.3, "amp": False}
+UNFUSED_CFG = {**DECODE_CFG, "fused_step": False}
 CHARS = list("abcdefghijklmnopqrstuvwxyz'") + ["<space>"]   # V = 3 + 28 = 31
 V_CHAR = 3 + len(CHARS)
 V_SUB = 5120          # bench_vocab.py's subword workload
@@ -984,6 +1014,149 @@ def phase_k6(seed, slice_batch, K=8, T=176, V=V_SUB):
     return records[slice_batch]
 
 
+class _Recorded(Exception):
+    """Ends a recording decode once every wanted step is captured."""
+
+
+def record_beam_steps(frontend, model, lm, decode_cfg, wave, wave_len, steps,
+                      stop_early=False):
+    """Run one fused-route decode whose tails go through the plain version,
+    and capture K8's inputs at the steps in ``steps`` ("last" for the final
+    call). Returns {step: (args, kwargs)}."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.decode import beam as beam_mod
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import beam_step_kernel as bsk
+    got = {}
+    want = {s for s in steps if s != "last"}
+
+    def recorder(*args, **kw):
+        keep = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        if args[0] in want:
+            got[args[0]] = (keep, kw)
+        if "last" in steps:
+            got["last"] = (keep, kw)
+        if stop_early and want <= set(got):
+            raise _Recorded
+        return bsk.beam_step_plain(*args, **kw)
+
+    decoder = beam_mod.BeamDecoder(model, decode_cfg, lm=lm)
+    beam_mod.beam_step_fused = recorder
+    try:
+        with torch.no_grad():
+            decoder.forward(*frontend(wave, wave_len))
+    except _Recorded:
+        pass
+    finally:
+        beam_mod.beam_step_fused = bsk.beam_step_fused
+    check(want <= set(got), f"recorded steps {sorted(got, key=str)}, "
+          f"wanted {steps}")
+    return got
+
+
+def k8_compare(args, kw):
+    """K8 against its plain version on one recorded step: winners equal on
+    every slot (a differing pair only where the plain scores are a near
+    tie, within 1e-5), scores within rtol / atol 1e-5, r within 1e-4."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import beam_step_kernel as bsk
+    got = bsk.beam_step_fused(*args, **kw)
+    ref = bsk.beam_step_plain(*args, **kw)
+    torch.cuda.synchronize()
+    cw = kw["cw"]
+    same = (got.k_idx == ref.k_idx) & (got.v_idx == ref.v_idx)
+    top_got = got.new_base + cw * got.psi_pick
+    top_ref = ref.new_base + cw * ref.psi_pick
+    tie_err = float((top_got - top_ref)[~same].abs().max()) if (~same).any() else 0.0
+    check(tie_err <= 1e-5, f"K8 picks differ beyond a near tie ({tie_err})")
+    check(torch.equal(got.new_valid, ref.new_valid), "K8 new_valid differs")
+    err = lambda a, b, m: float(((a - b).abs() - 1e-5 * b.abs())[m].max()) \
+        if m.any() else 0.0
+    base_err = err(got.new_base, ref.new_base, same)
+    psi_err = err(got.psi_pick, ref.psi_pick, same)
+    fin = ref.fin_norm > -5e29
+    fin_err = err(got.fin_norm, ref.fin_norm, fin)
+    check(max(base_err, psi_err, fin_err) <= 1e-5,
+          f"K8 scores beyond rtol / atol 1e-5: base {base_err}, psi "
+          f"{psi_err}, finished {fin_err}")
+    check(torch.equal(got.fin_meta[fin], ref.fin_meta[fin]),
+          "K8 finished-set metadata differs")
+    sane = same[..., None, None] & (ref.r > -5e29)
+    r_err = float(((got.r - ref.r).abs() - 1e-4 * ref.r.abs())[sane].max())
+    check(r_err <= 1e-4, f"K8 r beyond rtol / atol 1e-4 by {r_err}")
+    absd = lambda a, b, m: float((a - b)[m].abs().max()) if m.any() else 0.0
+    abs_errs = {"new_base": absd(got.new_base, ref.new_base, same),
+                "psi_pick": absd(got.psi_pick, ref.psi_pick, same),
+                "fin_norm": absd(got.fin_norm, ref.fin_norm, fin),
+                "r": absd(got.r, ref.r, sane)}
+    return {"picks_differing": int((~same).sum()), "near_tie_err": tie_err,
+            "score_excess": max(base_err, psi_err, fin_err),
+            "r_excess": r_err, "max_abs_err": max(abs_errs.values()),
+            "max_abs_err_by_output": abs_errs,
+            "dead_slots": int((~ref.new_valid).sum())}
+
+
+def k8_bound(B, K, T, V):
+    """K8's bytes (every input read once, every output written once) and
+    the psi products' operations."""
+    bk = B * K
+    nbytes = (4 * 2 * bk * V + 4 * B * T * V + 2 * 4 * bk * T * 2
+              + bk * (4 * 2 + 1 + 8 * 2) + 4 * 2 * B
+              + bk * (8 * 3 + 1 + 4 * 3))
+    return bound(nbytes, 2 * bk * T * V)
+
+
+def phase_k8(frontend, batch, seed):
+    """K8 against its plain version on real beam states: the slice's model,
+    LM, batch and config (amp off) recorded at steps 0, 1, 40 and the last,
+    and the same decode at V=5120 recorded at step 1. Times per launch at
+    step 40 (CUDA events over 20 calls), the plain tail's, and the device
+    time of both per step."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import beam_step_kernel as bsk
+    w, wl = make_waves(batch, seed + 2)          # the slice's batch
+    wave, wave_len = torch.from_numpy(w).cuda(), torch.from_numpy(wl).cuda()
+    res = {}
+    for vocab, steps in ((V_CHAR, (0, 1, 40, "last")), (V_SUB, (1,))):
+        model, lm = slice_models(frontend, seed, vocab)
+        rec = record_beam_steps(frontend, model, lm, DECODE_CFG, wave,
+                                wave_len, steps, stop_early=vocab == V_SUB)
+        cases = [(step, args, kw) for step, (args, kw) in rec.items()]
+        if vocab == V_CHAR:                  # the no-LM kernel path too
+            args, kw = rec[40]
+            cases.append(("40, no LM", (*args[:2], None, *args[3:]),
+                          {**kw, "lw": 0.0}))
+        for step, args, kw in cases:
+            c = k8_compare(args, kw)
+            B, K, V = args[1].shape
+            T = args[8].shape[2]
+            emit({"phase": "k8", "vocab": V, "step": args[0],
+                  "recorded_as": step, "B": B, "K": K, "T": T, **c})
+            res[(vocab, step)] = c
+        del model, lm
+        args, kw = rec[40 if vocab == V_CHAR else 1]
+        B, K, V = args[1].shape
+        T = args[8].shape[2]
+        b_ms, b_by = k8_bound(B, K, T, V)
+        rec_v = {"name": "beam_step_fused", "route": "cuda",
+                 "source": "end_to_end_asr_pytorch_tpu_torch/csrc/beam_step.cu",
+                 "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/"
+                             "beam_step_kernel.py:281",
+                 "max_abs_err": max(c["max_abs_err"] for (v, _), c in res.items()
+                                    if v == vocab),
+                 "ms": cuda_ms(lambda: bsk.beam_step_fused(*args, **kw), 20),
+                 "plain_ms": cuda_ms(lambda: bsk.beam_step_plain(*args, **kw), 20),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        emit({"phase": "k8_time", "vocab": V, "step": args[0], "B": B, "K": K,
+              "T": T, **rec_v,
+              "library": "none: no single PyTorch call computes a beam step",
+              "device_ms": device_ms(lambda: bsk.beam_step_fused(*args, **kw)),
+              "plain_device_ms": device_ms(
+                  lambda: bsk.beam_step_plain(*args, **kw))})
+        if vocab == V_CHAR:
+            record = rec_v
+    return record
+
+
 def with_attention(**keys):
     """bench.py's model configuration with extra attention keys."""
     return {**MODEL_CFG, "attention": {**MODEL_CFG["attention"], **keys}}
@@ -992,10 +1165,11 @@ def with_attention(**keys):
 # the launches each decode batch must make: kernel -> count, "steps" for
 # once per beam step; kernels left out must not launch
 SLICE_EXPECT = {"fbank_fused": 1, "lstm_scan_fused": 6}
+FUSED_EXPECT = {**SLICE_EXPECT, "beam_step_fused": "steps"}
 
 
 def phase_slice(frontend, batch, seed, device, name="slice",
-                model_cfg=MODEL_CFG, decode_cfg=DECODE_CFG, vocab=V_CHAR,
+                model_cfg=MODEL_CFG, decode_cfg=UNFUSED_CFG, vocab=V_CHAR,
                 expect=SLICE_EXPECT, n_batches=3, lm_cfg=LM_CFG):
     """Decode batches of bench.py's model (random weights from ``seed``):
     ``n_batches`` timed ones whose launches must be ``expect``'s, one with
@@ -1006,10 +1180,7 @@ def phase_slice(frontend, batch, seed, device, name="slice",
     from end_to_end_asr_pytorch_tpu_torch.models.asr import ASR
     from end_to_end_asr_pytorch_tpu_torch.models.lm import RNNLM
     from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
-    g = torch.Generator().manual_seed(seed)
-    model = ASR(frontend.feat_dim, vocab, model_cfg, generator=g,
-                device=device)
-    lm = RNNLM(vocab, lm_cfg, generator=g, device=device)
+    model, lm = slice_models(frontend, seed, vocab, device, model_cfg, lm_cfg)
     decoder = BeamDecoder(model, decode_cfg, lm=lm)
     w, wl = make_waves(batch, seed + 2)
     wave, wave_len = torch.from_numpy(w).to(device), torch.from_numpy(wl).to(device)
@@ -1070,9 +1241,11 @@ def phase_slice(frontend, batch, seed, device, name="slice",
           "best_score_max_abs_diff": score_err, "top1_identical_share": same,
           "batches": n_batches, "utts_per_s": batch / dt,
           "seconds_per_batch": dt, "launches": launches})
-    slice_breakdown(frontend, model, decoder, wave, wave_len, name)
+    bd = slice_breakdown(frontend, model, decoder, wave, wave_len, name)
     return {"model": model, "lm": lm, "wave": wave, "wave_len": wave_len,
-            "out": out_k, "launches": launches, "amp": decoder.last_amp}
+            "out": out_k, "launches": launches, "amp": decoder.last_amp,
+            "fused": decoder.last_fused, "breakdown": bd,
+            "seconds_per_batch": dt}
 
 
 def compare_top1(a, b):
@@ -1085,6 +1258,23 @@ def compare_top1(a, b):
         a.tokens[i, 0, :a.lengths[i, 0]], b.tokens[i, 0, :b.lengths[i, 0]])
         for i in range(B)]
     return diff, sum(same) / B
+
+
+def compare_slices(a, b, name, batch):
+    """Two phase_slice runs of the same batch and weights side by side:
+    best-score difference and top-1 share, time and launches per batch,
+    and their breakdowns."""
+    diff, same = compare_top1(a["out"], b["out"])
+    check(diff <= 1e-2, f"{name}: best score differs by {diff}")
+    keys = ("beam_step_ms", "encode_ms", "frontend_ms", "device_busy_ms",
+            "device_ms_per_step", "device_idle_share", "launches_per_step",
+            "device_kernel_launches")
+    emit({"phase": name, "best_score_max_abs_diff": diff,
+          "top1_identical_share": same,
+          "seconds_per_batch": [a["seconds_per_batch"], b["seconds_per_batch"]],
+          "utts_per_s": [batch / a["seconds_per_batch"],
+                         batch / b["seconds_per_batch"]],
+          **{k: [a["breakdown"][k], b["breakdown"][k]] for k in keys}})
 
 
 def phase_slice_other(frontend, sl, decode_cfg, name, expect,
@@ -1114,9 +1304,9 @@ def phase_slice_other(frontend, sl, decode_cfg, name, expect,
           "decode_steps": decoder.last_steps, "seconds_per_batch": dt,
           "best_score_max_abs_diff_vs_slice": diff,
           "top1_identical_share_vs_slice": same, "launches": got})
-    if breakdown:
-        slice_breakdown(frontend, sl["model"], decoder, sl["wave"],
-                        sl["wave_len"], name)
+    bd = (slice_breakdown(frontend, sl["model"], decoder, sl["wave"],
+                          sl["wave_len"], name) if breakdown else None)
+    return {"out": out, "seconds_per_batch": dt, "breakdown": bd}
 
 
 def slice_breakdown(frontend, model, decoder, wave, wave_len, name):
@@ -1162,15 +1352,16 @@ def slice_breakdown(frontend, model, decoder, wave, wave_len, name):
     for e in evts:
         top[e.key[:90]] = top.get(e.key[:90], 0.0) + dev(e) / 1e3
     top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:8])
-    emit({"phase": f"{name}_breakdown", "frontend_ms": front_ms,
-          "encode_ms": enc_ms, "beam_loop_ms": fwd_ms - enc_ms,
-          "decode_steps": decoder.last_steps,
-          "beam_step_ms": (fwd_ms - enc_ms) / decoder.last_steps,
-          "device_ms_per_step": busy_ms / decoder.last_steps,
-          "profiled_decode_ms": prof_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / prof_ms,
-          "device_kernel_launches": sum(e.count for e in evts),
-          "top_device_ms": top})
+    res = {"frontend_ms": front_ms, "encode_ms": enc_ms,
+           "beam_loop_ms": fwd_ms - enc_ms, "decode_steps": decoder.last_steps,
+           "beam_step_ms": (fwd_ms - enc_ms) / decoder.last_steps,
+           "device_ms_per_step": busy_ms / decoder.last_steps,
+           "profiled_decode_ms": prof_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / prof_ms,
+           "device_kernel_launches": sum(e.count for e in evts),
+           "launches_per_step": sum(e.count for e in evts) / decoder.last_steps}
+    emit({"phase": f"{name}_breakdown", **res, "top_device_ms": top})
+    return res
 
 
 def sentencepiece_pieces(n):
@@ -1285,8 +1476,8 @@ def make_solver(device, seed, workdir, model_cfg=MODEL_CFG):
 def launch_counters():
     """Every kernel wrapper, by name; each counts its own launches."""
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import (
-        att_kernel, att_train_kernel, ctc_kernel, fbank_kernel, gru_kernel,
-        lstm_kernel, psi_kernel)
+        att_kernel, att_train_kernel, beam_step_kernel, ctc_kernel,
+        fbank_kernel, gru_kernel, lstm_kernel, psi_kernel)
     return {"fbank_fused": fbank_kernel.fbank_fused,
             "lstm_scan_fused": lstm_kernel.lstm_scan_fused,
             "lstm_scan_bf16": lstm_kernel.lstm_scan_bf16,
@@ -1298,7 +1489,8 @@ def launch_counters():
             "loc_att_bwd_fused": att_train_kernel.loc_att_bwd_fused,
             "gru_scan_fused": gru_kernel.gru_scan_fused,
             "gru_scan_bf16": gru_kernel.gru_scan_bf16,
-            "gru_bwd_fused": gru_kernel.gru_bwd_fused}
+            "gru_bwd_fused": gru_kernel.gru_bwd_fused,
+            "beam_step_fused": beam_step_kernel.beam_step_fused}
 
 
 def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
@@ -1452,6 +1644,117 @@ def train_compare(solver, data, tf_rate, cuda_kernels):
             "n_params": len(gk)}
 
 
+def slice_models(frontend, seed, vocab=V_CHAR, device="cuda",
+                 model_cfg=MODEL_CFG, lm_cfg=LM_CFG):
+    """bench.py's model and LM with random weights from ``seed``, as
+    phase_slice makes them."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.models.asr import ASR
+    from end_to_end_asr_pytorch_tpu_torch.models.lm import RNNLM
+    g = torch.Generator().manual_seed(seed)
+    model = ASR(frontend.feat_dim, vocab, model_cfg, generator=g,
+                device=device)
+    return model, RNNLM(vocab, lm_cfg, generator=g, device=device)
+
+
+def read_test_csvs(out):
+    """(best hypotheses {idx: hyp}, best scores {idx: score}, rows) of one
+    split's CSVs."""
+    best = dict(ln.split("\t")[:2] for ln in
+                out["output"].strip().split("\n")[1:])
+    rows = [ln.split("\t") for ln in out["beam"].strip().split("\n")[1:]]
+    return best, {r[0]: float(r[2]) for r in rows if r[1] == "0"}, len(rows)
+
+
+def phase_test_entry(model, lm, seed, n_utts=32):
+    """python -m end_to_end_asr_pytorch_tpu_torch.main --test on a generated
+    synthetic corpus (n_utts dev and n_utts test utterances) with ``model``
+    as a reference-layout ASR checkpoint and ``lm`` as a reference-layout
+    LM checkpoint (LM fusion 0.3, CTC 0.3, beam 8, batch n_utts, amp off),
+    once as configured by default (K8) and once with decode.fused_step
+    false: the fused run must name
+    the fused route and count K8 launches; both write one row per
+    utterance; their hypotheses and best scores are compared."""
+    import re
+    import torch
+    import yaml
+    from end_to_end_asr_pytorch_tpu_torch.data.synthetic import generate_corpus
+    from end_to_end_asr_pytorch_tpu_torch.utils.torch_ckpt import (
+        asr_state_dict, lm_state_dict)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = Path(d)
+        corpus = generate_corpus(str(d / "synth"), n_train=0, n_dev=n_utts,
+                                 n_test=n_utts, seed=seed)
+        (d / "vocab.txt").write_text("\n".join(CHARS) + "\n")
+        data = {"corpus": {"name": "synthetic", "path": str(corpus),
+                           "dev_split": ["dev-clean"],
+                           "test_split": ["test-clean"], "batch_size": n_utts},
+                "audio": AUDIO_CFG,
+                "text": {"mode": "character", "vocab_file": str(d / "vocab.txt")}}
+        (d / "lm.yaml").write_text(yaml.safe_dump(
+            {"data": {k: data[k] for k in ("corpus", "text")}, "model": LM_CFG,
+             "hparas": {}}))
+        torch.save({"model": asr_state_dict(model), "global_step": 0},
+                   str(d / "asr.pth"))
+        torch.save({"model": lm_state_dict(lm)}, str(d / "lm.pth"))
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        runs = {}
+        for fused in (True, False):
+            name = "fused" if fused else "unfused"
+            decode = {**(DECODE_CFG if fused else UNFUSED_CFG),
+                      "lm_config": str(d / "lm.yaml"),
+                      "lm_path": str(d / "lm.pth")}
+            (d / f"{name}.yaml").write_text(yaml.safe_dump(
+                {"data": data, "model": MODEL_CFG, "hparas": {},
+                 "decode": decode}))
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "end_to_end_asr_pytorch_tpu_torch.main",
+                 "--config", str(d / f"{name}.yaml"), "--test", "--load",
+                 str(d / "asr.pth"), "--outdir", str(d / "out"), "--seed",
+                 str(seed)],
+                cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            check(proc.returncode == 0, f"main --test ({name}) exited "
+                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+            summary = [ln for ln in proc.stdout.splitlines()
+                       if re.match(r"\[INFO\] (dev|test): ", ln)]
+            check(len(summary) == 2, f"main --test ({name}) summary lines: "
+                  f"{proc.stdout[-2000:]}")
+            k8 = [int(m) for ln in summary
+                  for m in re.findall(r"K8 launches (\d+)", ln)]
+            route = "beam fused" if fused else "beam unfused"
+            check(all(f"| {route} " in ln for ln in summary) and len(k8) == 2
+                  and (all(n > 0 for n in k8) if fused else k8 == [0, 0]),
+                  f"main --test ({name}) route: {summary}")
+            out = d / "out" / f"{name}_sd{seed}"
+            splits = {}
+            for split in ("dev", "test"):
+                files = {kind: (out / f"{split}_{kind}.csv").read_text()
+                         for kind in ("output", "beam")}
+                best, scores, n_beam = read_test_csvs(files)
+                check(len(best) == n_utts and n_beam == 8 * n_utts,
+                      f"main --test ({name}) {split}: {len(best)} rows, "
+                      f"{n_beam} n-best rows")
+                splits[split] = (best, scores)
+            runs[name] = {"seconds": secs, "k8_launches": k8,
+                          "summary": summary, "splits": splits}
+        same = diff = 0.0
+        for split in ("dev", "test"):
+            (bf, sf), (bu, su) = (runs["fused"]["splits"][split],
+                                  runs["unfused"]["splits"][split])
+            same += sum(bf[k] == bu[k] for k in bf) / (2 * n_utts)
+            diff = max(diff, max(abs(sf[k] - su[k]) for k in sf))
+        check(diff <= 1e-2, f"test_entry: fused vs unfused best score {diff}")
+        emit({"phase": "test_entry", "utts_per_split": n_utts,
+              "seconds": {k: v["seconds"] for k, v in runs.items()},
+              "k8_launches": runs["fused"]["k8_launches"],
+              "hyp_identical_share_fused_vs_unfused": same,
+              "best_score_max_abs_diff_fused_vs_unfused": diff,
+              "summary_fused": runs["fused"]["summary"],
+              "summary_unfused": runs["unfused"]["summary"]})
+
+
 def phase_train_entry(seed):
     """python -m end_to_end_asr_pytorch_tpu_torch.train on a generated
     synthetic corpus with bench.py's model (4 steps, validation every 2),
@@ -1523,9 +1826,10 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--phases",
-                    default="k1,k2,k2b,k3,k4,k4b,k5,k6,k7,slice,slice_att,"
+                    default="k1,k2,k2b,k3,k4,k4b,k5,k6,k7,k8,slice,"
+                            "slice_fused,slice_att,"
                             "entry,slice_amp,slice_sub5k,entry_sub5k,"
-                            "slice_gru,entry_gru,slice_gru_amp,"
+                            "slice_gru,entry_gru,slice_gru_amp,test_entry,"
                             "train,train_att,train_gru,train_entry",
                     help="comma list of phases after build (default: all)")
     args = ap.parse_args()
@@ -1550,7 +1854,7 @@ def main():
           "cuda": torch.version.cuda})
 
     secs = build.build(["fbank", "lstm_scan", "ctc_loss", "loc_att",
-                        "loc_att_train", "psi", "gru_scan"])
+                        "loc_att_train", "psi", "gru_scan", "beam_step"])
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in build.build_log.items()}
@@ -1579,21 +1883,32 @@ def main():
     if "k7" in phases:
         (kernels["loc_att_fwd_fused"],
          kernels["loc_att_bwd_fused"]) = phase_k7(args.seed, args.batch)
+    if "k8" in phases:
+        kernels["beam_step_fused"] = phase_k8(frontend, args.batch, args.seed)
 
     def record(launches, names):
         for name in names:
             if name in kernels:
                 kernels[name]["launches"] = launches[name]
 
+    sl_f32 = None
     if "slice" in phases:
-        sl = phase_slice(frontend, args.batch, args.seed, device)
+        sl = sl_f32 = phase_slice(frontend, args.batch, args.seed, device)
         record(sl["launches"], ("fbank_fused", "lstm_scan_fused"))
         if "entry" in phases:
             phase_entry(sl["model"], args.seed)
+    if "slice_fused" in phases:
+        sl = phase_slice(frontend, args.batch, args.seed, device, "slice_fused",
+                         decode_cfg=DECODE_CFG, expect=FUSED_EXPECT)
+        check(sl["fused"] is True, "slice_fused did not take K8's route")
+        record(sl["launches"], ("beam_step_fused",))
+        if sl_f32 is not None:
+            compare_slices(sl_f32, sl, "slice_fused_vs_slice", args.batch)
     if "slice_att" in phases:
         sl = phase_slice(frontend, args.batch, args.seed, device, "slice_att",
                          with_attention(use_pallas=True),
-                         expect={**SLICE_EXPECT, "loc_attention_fused": "steps"})
+                         decode_cfg=DECODE_CFG,
+                         expect={**FUSED_EXPECT, "loc_attention_fused": "steps"})
         record(sl["launches"], ("loc_attention_fused",))
     amp_expect = {"fbank_fused": 1, "lstm_scan_bf16": 6}
     auto_cfg = {k: v for k, v in DECODE_CFG.items() if k != "amp"}
@@ -1604,7 +1919,7 @@ def main():
               "on the card")
         record(sl["launches"], ("lstm_scan_bf16",))
         phase_slice_other(frontend, sl, DECODE_CFG, "slice_amp_vs_f32",
-                          SLICE_EXPECT)
+                          FUSED_EXPECT)
     if "slice_sub5k" in phases or "entry_sub5k" in phases:
         sub_cfg = {**DECODE_CFG, "amp": True, "psi_kernel": True}
         sl = phase_slice(frontend, args.batch, args.seed, device,
@@ -1614,6 +1929,14 @@ def main():
         phase_slice_other(frontend, sl, {**sub_cfg, "psi_kernel": False},
                           "slice_sub5k_no_psi_kernel", amp_expect,
                           breakdown=True)
+        # f32 at V=5120: K8 (slower than the plain tail on the device)
+        # against its plain version, end to end
+        f32 = [phase_slice_other(frontend, sl, cfg, name, exp, breakdown=True)
+               for cfg, name, exp in (
+                   (DECODE_CFG, "slice_sub5k_f32", FUSED_EXPECT),
+                   (UNFUSED_CFG, "slice_sub5k_f32_unfused", SLICE_EXPECT))]
+        compare_slices(f32[0], f32[1], "slice_sub5k_f32_vs_unfused",
+                       args.batch)
         if "entry_sub5k" in phases:
             phase_entry(sl["model"], args.seed, "entry_sub5k",
                         {k: v for k, v in sub_cfg.items()
@@ -1622,7 +1945,9 @@ def main():
     gru = dict(model_cfg=GRU_MODEL_CFG, lm_cfg=GRU_LM_CFG)
     if "slice_gru" in phases or "entry_gru" in phases:
         sl = phase_slice(frontend, args.batch, args.seed, device, "slice_gru",
-                         expect=gru_expect, **gru)
+                         decode_cfg=DECODE_CFG,
+                         expect={**gru_expect, "beam_step_fused": "steps"},
+                         **gru)
         record(sl["launches"], ("gru_scan_fused",))
         if "entry_gru" in phases:
             phase_entry(sl["model"], args.seed, "entry_gru",
@@ -1635,7 +1960,11 @@ def main():
               "on the card (GRU)")
         record(sl["launches"], ("gru_scan_bf16",))
         phase_slice_other(frontend, sl, DECODE_CFG, "slice_gru_amp_vs_f32",
-                          gru_expect)
+                          {**gru_expect, "beam_step_fused": "steps"})
+    if "test_entry" in phases:
+        model, lm = ((sl_f32["model"], sl_f32["lm"]) if sl_f32 is not None
+                     else slice_models(frontend, args.seed))
+        phase_test_entry(model, lm, args.seed)
     if "train" in phases:
         launches = phase_train(args.batch, args.seed, device)
         record(launches, ("lstm_bwd_fused", "ctc_loss_fused"))

@@ -191,27 +191,37 @@ def _make_corpus(corpus_cfg: Dict[str, Any], splits, tokenizer) -> LibriDataset:
 
 def load_dataset(n_jobs: int, ascending: bool, corpus: Dict[str, Any],
                  audio: Dict[str, Any], text: Dict[str, Any],
-                 frame_quantum: int = 64):
-    """Training data: (tr_set, dv_set, feat_dim, vocab_size, tokenizer,
-    msg). ``ascending`` gives the train set curriculum order."""
+                 mode: str = "train", frame_quantum: int = 64):
+    """``mode="train"``: (tr_set, dv_set, feat_dim, vocab_size, tokenizer,
+    msg), ``ascending`` giving the train set curriculum order.
+    ``mode="test"``: the dev and test splits in that place, both unshuffled
+    (``corpus.test_split`` defaults to ``dev_split``)."""
     tokenizer = load_text_encoder(text["mode"], text["vocab_file"])
     _, feat_dim = create_transform(audio)
     bs = int(corpus.get("batch_size", 8))
     bucketing = bool(corpus.get("bucketing", True))
     cache_bytes = int(corpus.get("cache_bytes", DEFAULT_CACHE_BYTES))
-    tr_ds = _make_corpus(corpus, corpus["train_split"], tokenizer)
-    dv_ds = _make_corpus(corpus, corpus["dev_split"], tokenizer)
-    tr_set = AudioBatchLoader(tr_ds, bs, frame_quantum=frame_quantum,
-                              shuffle=not ascending, ascending=ascending,
-                              n_jobs=n_jobs, bucketing=bucketing,
-                              cache_bytes=cache_bytes)
+    if mode == "train":
+        tr_ds = _make_corpus(corpus, corpus["train_split"], tokenizer)
+        tr_set = AudioBatchLoader(tr_ds, bs, frame_quantum=frame_quantum,
+                                  shuffle=not ascending, ascending=ascending,
+                                  n_jobs=n_jobs, bucketing=bucketing,
+                                  cache_bytes=cache_bytes)
+        dv_ds = _make_corpus(corpus, corpus["dev_split"], tokenizer)
+    else:
+        tr_ds = _make_corpus(corpus, corpus["dev_split"], tokenizer)
+        tr_set = AudioBatchLoader(tr_ds, bs, frame_quantum=frame_quantum,
+                                  shuffle=False, cache_bytes=cache_bytes)
+        dv_ds = _make_corpus(corpus, corpus.get("test_split",
+                                                corpus["dev_split"]), tokenizer)
     dv_set = AudioBatchLoader(dv_ds, bs, frame_quantum=frame_quantum,
                               shuffle=False, cache_bytes=cache_bytes)
+    a_name, b_name = ("train", "dev") if mode == "train" else ("dev", "test")
     msg = [
         f"I/O spec  | audio feat = {audio.get('feat_type', 'fbank')} "
         f"(dim {feat_dim}) | tokenizer = {text['mode']} "
         f"(vocab {tokenizer.vocab_size})",
         f"Corpus    | {corpus.get('name')} at {corpus['path']} | "
-        f"train {len(tr_ds)} utts / dev {len(dv_ds)} utts | batch {bs}",
+        f"{a_name} {len(tr_ds)} utts / {b_name} {len(dv_ds)} utts | batch {bs}",
     ]
     return tr_set, dv_set, feat_dim, tokenizer.vocab_size, tokenizer, msg

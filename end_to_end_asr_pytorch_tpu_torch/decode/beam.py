@@ -19,9 +19,17 @@ for step the JAX package's beam, on both of its paths:
     log-softmax normalisers folded into one per-hypothesis shift. Scores,
     psi and the CTC state stay f32.
 
-``psi_kernel: true`` sends the full-vocab psi to K6 wherever the JAX
-package's gate (``pick_block``) takes its Pallas kernel: bf16 probs under
-amp, f32 probs without. ``auto`` and ``false`` leave it off. The JAX
+Each step calls the decoder, the LM and the attention, gathers their
+states by the winners' parent slots, and hands everything else (the
+log-softmax of both heads, the eos scores and the finished-set merge, psi,
+the joint top-K, the winners' CTC states) to one call of
+``ops/cuda/beam_step_kernel.py``: K8 (``beam_step_fused``) within its
+scope, CTC on over the full vocabulary and amp resolved off; its plain
+version ``beam_step_plain`` outside it (amp, no CTC) and with
+``fused_step: false`` (the port's own key; the JAX package's decoder
+ignores it). Only there does ``psi_kernel: true`` act: it sends the
+full-vocab psi to K6 wherever the JAX package's gate (``pick_block``) takes
+its Pallas kernel, bf16 probs under amp, f32 probs without. The JAX
 package's amp beam reorders states with one-hot products, which are exact
 reorders; here they are gathers, with the same values.
 
@@ -35,16 +43,20 @@ the embedding-fusion ``plugin``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..models.asr import ASR
 from ..models.lm import RNNLM
 from ..ops import ctc_prefix
+from ..ops import cuda as cuda_kernels
 from ..ops.amp import bf16_rounded_copy
+from ..ops.cuda import beam_step_kernel
+from ..ops.cuda.beam_step_kernel import (beam_step_fused, beam_step_plain,
+                                         gather_k as _gather_k, logsumexp)
 from ..ops.cuda.psi_kernel import pick_block
 from ..utils.text import EOS_IDX, PAD_IDX
 
@@ -59,15 +71,8 @@ _PORTED = {
     "approx_topk": (False, None),
     "ctc_candidates": (0, None),
     "fold_logp": ("auto", True, False, None),
+    "fused_step": (True, False, "auto", None),
 }
-
-
-def _logsumexp(x: torch.Tensor) -> torch.Tensor:
-    """logsumexp over the last axis, kept, written as the JAX package's
-    (max shift, a non-finite max taken as 0)."""
-    m = torch.amax(x, dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    return torch.log(torch.sum(torch.exp(x - m), dim=-1, keepdim=True)) + m
 
 
 def ctc_prep(model: ASR, enc: torch.Tensor, enc_len: torch.Tensor,
@@ -78,7 +83,7 @@ def ctc_prep(model: ASR, enc: torch.Tensor, enc_len: torch.Tensor,
     feed f32-accumulating products); else the exact f32 path."""
     if amp:
         logits = model.ctc_logits(enc)                          # f32
-        ctc_lp = ctc_prefix.pad_ctc_log_probs(logits - _logsumexp(logits),
+        ctc_lp = ctc_prefix.pad_ctc_log_probs(logits - logsumexp(logits),
                                               enc_len)
         return ctc_lp, torch.exp(ctc_lp.to(torch.bfloat16))
     ctc_lp = ctc_prefix.pad_ctc_log_probs(model.ctc_output(enc), enc_len)
@@ -89,20 +94,6 @@ class BeamOutput(NamedTuple):
     tokens: torch.Tensor   # (B, K, L) emitted tokens (no sos/eos), 0-padded
     lengths: torch.Tensor  # (B, K)
     scores: torch.Tensor   # (B, K) length-normalized, sorted desc
-
-
-def top_k(x: torch.Tensor, k: int):
-    """Top-k over the last axis with ``lax.top_k``'s tie order (lowest index
-    first among equal values)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-def _gather_k(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (B, K, ...) gathered along the beam axis by idx (B, K)."""
-    i = idx.reshape(idx.shape + (1,) * (x.ndim - 2)).expand(
-        idx.shape + x.shape[2:])
-    return torch.gather(x, 1, i)
 
 
 def _backtrace(vs: torch.Tensor, ks: torch.Tensor, fin_step: torch.Tensor,
@@ -150,10 +141,13 @@ class BeamDecoder:
         amp = decode_cfg.get("amp", "auto")
         self.amp = "auto" if amp in ("auto", None) else bool(amp)
         self.psi_kernel = decode_cfg.get("psi_kernel", False) is True
+        self.fused_step = decode_cfg.get("fused_step", "auto") is not False
         fl = decode_cfg.get("fold_logp", "auto")
         self.fold_logp = "auto" if fl in ("auto", None) else bool(fl)
         self.last_steps = None  # steps the last forward ran (early exit)
         self.last_amp = None    # whether the last forward ran under amp
+        self.last_fused = None  # whether its steps went through K8's route
+        self.last_k8_launches = None  # K8 launches it made (on the card)
         self.last_enc = None    # the encoder output it decoded from
 
     @torch.no_grad()
@@ -161,6 +155,14 @@ class BeamDecoder:
         K = self.beam
         amp = feat.is_cuda if self.amp == "auto" else self.amp
         self.last_amp = amp
+        # K8's scope (the TPU kernel's, less its layout rule), decided
+        # before any launch: CTC over the full vocabulary, f32 (no amp).
+        # At every V: at V=5120 K8 takes more device time than the eager
+        # tail, but the eager step is host-bound and K8's is not, so the
+        # decode is still faster through K8 (PERF.md)
+        fused = self.fused_step and self.use_ctc and not amp
+        self.last_fused = fused
+        k8_0 = beam_step_kernel.beam_step_fused.launches
         model, lm = self.model, self.lm
         if amp:
             model = bf16_rounded_copy(model)
@@ -190,6 +192,7 @@ class BeamDecoder:
         if self.use_ctc:
             ctc_lp, ctc_probs = ctc_prep(model, enc, enc_len, amp)
             r_state, psi_prev = ctc_prefix.init_state(ctc_lp, K)
+            r_state = r_state.contiguous()
             blank_lp = torch.clamp(ctc_lp[:, :, 0], min=ctc_prefix.CLIP)
             # the JAX package's gate, decided before any launch
             psi_kernel = self.psi_kernel and pick_block(
@@ -210,7 +213,8 @@ class BeamDecoder:
 
         carry = {
             "last": torch.full((B, K), EOS_IDX, dtype=torch.int64, device=dev),
-            "valid": (torch.arange(K, device=dev)[None] == 0).expand(B, K),
+            "valid": (torch.arange(K, device=dev)[None] == 0).expand(
+                B, K).contiguous(),
             "base": torch.zeros((B, K), device=dev),
             "psi": psi_prev,
             "r": r_state,
@@ -222,108 +226,47 @@ class BeamDecoder:
             "fin_norm": torch.full((B, K), NEG_INF, device=dev),
         }
         aw, cw, lw = 1.0 - self.ctc_weight, self.ctc_weight, self.lm_weight
-        vocab_ids = torch.arange(V, device=dev)
-        cont_keep = (vocab_ids != EOS_IDX) & (vocab_ids != PAD_IDX)
-        slot_ids = torch.arange(K, device=dev)[None]
+        if fused and cuda_kernels.USE_KERNELS:
+            run_tail = beam_step_fused
+        else:
+            run_tail = functools.partial(
+                beam_step_plain, probs=ctc_probs, blank_lp=blank_lp,
+                psi_kernel=psi_kernel, fold_lse=fold_lse)
         batch_base = torch.arange(B, device=dev)[:, None] * K
-        neg_inf = torch.full((), NEG_INF, device=dev)
+
+        def tail(carry, t: int, logits, last_flat):
+            """Everything the step does after the decoder: the LM step,
+            then the scores, the finished-set merge, the joint top-K and
+            the winners' CTC states in one K8 call (its plain version on
+            the other routes)."""
+            if use_lm:
+                lm_logits, new_lm = lm.step(carry["lm_state"], last_flat,
+                                            emb_proj=lm_embp)
+                lm_logits = lm_logits.reshape(B, K, V)
+            else:
+                lm_logits = new_lm = None
+            o = run_tail(t, logits.reshape(B, K, V), lm_logits, carry["base"],
+                         carry["valid"], carry["last"], carry["fin_norm"],
+                         carry["fin_meta"], carry["r"], ctc_lp, min_len,
+                         max_len, aw=aw, cw=cw, lw=lw, eos=EOS_IDX,
+                         pad=PAD_IDX)
+            return {"last": o.v_idx, "valid": o.new_valid, "base": o.new_base,
+                    "fin_meta": o.fin_meta, "fin_norm": o.fin_norm,
+                    "psi": o.psi_pick, "r": o.r}, new_lm, o.k_idx
 
         def step(carry, t: int):
             last_flat = carry["last"].reshape(B * K)
             logits, new_dec, new_align, _ = model.decode_step_beam(
                 cache, carry["dec_state"], carry["align"], last_flat, K,
                 tables=tables)
-            # fold_lse: the logits stay unnormalised and each normaliser
-            # becomes one per-hypothesis shift of the scores
-            shift = None
-            if fold_lse:
-                logp_att = logits.reshape(B, K, V)
-                shift = aw * _logsumexp(logp_att)[..., 0]
-            else:
-                logp_att = F.log_softmax(logits, -1).reshape(B, K, V)
-            if use_lm:
-                lm_logits, new_lm = lm.step(carry["lm_state"], last_flat,
-                                            emb_proj=lm_embp)
-                logp_lm = lm_logits.reshape(B, K, V)
-                if fold_lse:
-                    shift = shift + lw * _logsumexp(logp_lm)[..., 0]
-                else:
-                    logp_lm = F.log_softmax(logp_lm, -1)
-            else:
-                new_lm = None
-                logp_lm = torch.zeros((B, K, V), device=dev)
-            base = carry["base"]
-
-            # eos / finalization scores
-            ctc_eos = (ctc_prefix.final_score(carry["r"]) if self.use_ctc
-                       else torch.zeros((B, K), device=dev))
-            tot_eos = (base + aw * logp_att[:, :, EOS_IDX] + cw * ctc_eos
-                       + lw * logp_lm[:, :, EOS_IDX])
-            if shift is not None:
-                tot_eos = tot_eos - shift
-            eos_ok = carry["valid"] & ((t + 1 >= min_len[:, None])
-                                       | (t + 1 >= max_len[:, None]))
-            # mask after normalizing: NEG_INF/(t+1) would outrank the
-            # finished set's NEG_INF placeholders
-            norm_eos = torch.where(eos_ok, tot_eos / float(max(t + 1, 1)),
-                                   neg_inf)
-            all_norm = torch.cat([carry["fin_norm"], norm_eos], dim=1)
-            meta_new = ((t << 8) + slot_ids).expand(B, K)
-            all_meta = torch.cat([carry["fin_meta"], meta_new], dim=1)
-            fin_norm, fin_idx = top_k(all_norm, K)
-            fin_meta = torch.gather(all_meta, 1, fin_idx)
-
-            # continuation scores
-            step_score = aw * logp_att + lw * logp_lm
-            if shift is not None:
-                step_score = step_score - shift[..., None]
-            masked = torch.where(cont_keep[None, None, :], step_score, neg_inf)
-            if self.use_ctc:
-                psi, _ = ctc_prefix.score_candidates(
-                    ctc_lp, carry["r"], carry["last"],
-                    torch.full((B, K), t, device=dev), with_state=False,
-                    probs=ctc_probs, psi_kernel=psi_kernel)
-                tot = base[:, :, None] + masked + cw * psi
-            else:
-                psi = None
-                tot = base[:, :, None] + masked
-            alive = carry["valid"] & (t < max_len[:, None])
-            tot = torch.where(alive[..., None], tot, neg_inf)
-            top_tot, top_idx = top_k(tot.reshape(B, K * V), K)
-            new_valid = top_tot > NEG_INF / 2
-            k_idx = top_idx // V
-            v_idx = top_idx % V
-            if self.use_ctc:
-                psi_g = torch.gather(psi.reshape(B, K * V), 1, top_idx)
-                new_base = top_tot - cw * psi_g
-            else:
-                psi_g = carry["psi"]
-                new_base = top_tot
-
+            out, new_lm, k_idx = tail(carry, t, logits, last_flat)
             flat_sel = (batch_base + k_idx).reshape(B * K)
             sel = lambda s: type(s)(*(x[:, flat_sel] if x is not None else None
                                       for x in s))
-            out = {
-                "last": v_idx,
-                "valid": new_valid,
-                "base": new_base,
-                "dec_state": sel(new_dec),
-                "align": _gather_k(new_align, k_idx),
-                "lm_state": sel(new_lm) if use_lm else None,
-                "fin_meta": fin_meta,
-                "fin_norm": fin_norm,
-                "psi": psi_g,
-                "r": carry["r"],
-            }
-            if self.use_ctc:
-                # recompute the CTC state for the K winners only
-                _, r_g = ctc_prefix.score_candidates(
-                    ctc_lp, _gather_k(carry["r"], k_idx),
-                    _gather_k(carry["last"], k_idx),
-                    torch.full((B, K), t, device=dev),
-                    cand_ids=v_idx[..., None], blank_lp=blank_lp)
-                out["r"] = r_g[:, :, 0]
-            return out, (v_idx, k_idx)
+            out["dec_state"] = sel(new_dec)
+            out["align"] = _gather_k(new_align, k_idx)
+            out["lm_state"] = sel(new_lm) if use_lm else None
+            return out, (out["last"], k_idx)
 
         # L+1 steps: step t offers finalization to length-t hypotheses, then
         # expands to length t+1; the last step only finalizes
@@ -355,6 +298,7 @@ class BeamDecoder:
                     ks[t + j] = kk
                 t += UN
             self.last_steps = t
+        self.last_k8_launches = beam_step_kernel.beam_step_fused.launches - k8_0
         fin_step = carry["fin_meta"] >> 8
         fin_slot = carry["fin_meta"] & 0xFF
         tokens = _backtrace(vs, ks, fin_step, fin_slot, L)

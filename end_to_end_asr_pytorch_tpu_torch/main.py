@@ -1,0 +1,81 @@
+"""Entry point of the port, the JAX package's ``main.py``: the same flags and
+defaults, the same dispatch.
+
+  python -m end_to_end_asr_pytorch_tpu_torch.main --config config/libri/asr_example.yaml          # train ASR
+  python -m end_to_end_asr_pytorch_tpu_torch.main --config config/libri/asr_example.yaml --test \\
+      --load ckpt/asr_example_sd0/best_att.pth [--outdir result/]                  # decode dev / test
+
+Training writes ``<ckpdir>/<name>_sd<seed>/{latest,best_att,best_ctc}.pth``
+in the reference checkpoint layout and logs to
+``<logdir>/<name>_sd<seed>/log.jsonl``. ``--test`` decodes the dev and test
+splits with the ``decode:`` block (beam search with CTC prefix scoring and
+RNN-LM shallow fusion from ``decode.lm_config`` / ``decode.lm_path`` when
+``lm_weight > 0``; greedy CTC for a CTC-only model) and writes
+``<outdir>/<name>_sd<seed>/{dev,test}_{output,beam}.csv``. ``--load`` takes a
+reference-layout torch checkpoint or one the JAX package wrote (training
+resumes the latter's weights and step, not its optax state). Runs on the
+card unless ``--cpu`` is given (no card is an error). ``--cudnn-ctc`` and
+``--no-pin`` are accepted for compatibility and ignored; ``--amp`` (bf16
+training) and ``--lm`` (RNN-LM training) are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import random
+
+import numpy as np
+import torch
+
+from .config import load_config
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--config", required=True, help="experiment yaml")
+    ap.add_argument("--name", default=None, help="override experiment name")
+    ap.add_argument("--logdir", default="log/", help="log directory")
+    ap.add_argument("--ckpdir", default="ckpt/", help="checkpoint directory")
+    ap.add_argument("--outdir", default="result/", help="decode output dir")
+    ap.add_argument("--load", default=None, help="checkpoint to load/resume")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cudnn-ctc", action="store_true",
+                    help="(compatibility flag, ignored)")
+    ap.add_argument("--njobs", type=int, default=1,
+                    help="threads assembling batches")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--no-pin", action="store_true",
+                    help="(compatibility flag, ignored)")
+    ap.add_argument("--test", action="store_true", help="beam-decode mode")
+    ap.add_argument("--no-msg", action="store_true", help="quiet console")
+    ap.add_argument("--lm", action="store_true", help="(not ported yet)")
+    ap.add_argument("--amp", action="store_true", help="(not ported yet)")
+    return ap
+
+
+def main(argv=None):
+    paras = build_parser().parse_args(argv)
+    if paras.amp:
+        raise NotImplementedError("--amp (bf16 training) is not ported yet")
+    if paras.lm:
+        raise NotImplementedError("--lm (RNN-LM training) is not ported yet")
+    random.seed(paras.seed)
+    np.random.seed(paras.seed)
+    torch.manual_seed(paras.seed)
+    config = load_config(paras.config)
+    if paras.test:
+        from .solvers.test_asr import Solver
+    else:
+        from .solvers.train_asr import Solver
+    solver = Solver(config, paras)
+    if not paras.no_msg:
+        dev = solver.device
+        name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        print(f"[device] {dev} ({name})", flush=True)
+    solver.load_data()
+    solver.set_model()
+    return solver.exec()
+
+
+if __name__ == "__main__":
+    main()

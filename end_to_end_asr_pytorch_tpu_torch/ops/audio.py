@@ -4,9 +4,12 @@
 ``feat_type: fbank|mfcc|linear``, ``frame_length``/``frame_shift`` in ms,
 ``delta_order``/``delta_window_size`` and per-utterance ``cmvn``, pinned to
 torchaudio's MelSpectrogram conventions (periodic Hann window, center reflect
-padding, power 2, HTK mel scale, no filterbank norm). For ``fbank`` on a
-CUDA tensor the log-mel goes through the K1 kernel
-(``ops/cuda/fbank_kernel.py``); the other types stay plain PyTorch.
+padding, power 2, HTK mel scale, no filterbank norm). ``use_pallas``
+decides, as in the JAX package, whether an ``fbank`` log-mel goes through
+the K1 kernel (``ops/cuda/fbank_kernel.py``): ``auto`` (the default) where
+``n_fft`` and ``hop`` are multiples of 80 samples and the wave is on the
+card, ``true`` for every card wave, ``false`` never. Outside the gate, and
+for the other types, the plain PyTorch chain runs.
 """
 from __future__ import annotations
 
@@ -110,6 +113,13 @@ class AudioFrontend(nn.Module):
             raise NotImplementedError(self.feat_type)
         self.feat_dim = self.num_feat * (1 + self.delta_order)
         buf("dfilt", delta_filter(self.delta_window))
+        # the JAX package's gate; its "non-CPU backend" part is the wave's
+        # device, decided in forward before any launch
+        use_pallas = audio_cfg.get("use_pallas", "auto")
+        if use_pallas == "auto":
+            use_pallas = (self.feat_type == "fbank" and self.n_fft % 80 == 0
+                          and self.hop % 80 == 0)
+        self.use_kernel = bool(use_pallas) and self.feat_type == "fbank"
 
     def _power_spec(self, wav: torch.Tensor) -> torch.Tensor:
         return power_spectrum(wav, self.cosw, self.msinw, self.n_fft, self.hop)
@@ -149,8 +159,8 @@ class AudioFrontend(nn.Module):
             # reflect padding needs S > pad: zero-extend sub-window clips
             waveform = F.pad(waveform, (0, pad + 1 - waveform.shape[1]))
         if self.feat_type == "fbank":
-            fbank = (fbank_fused if cuda_kernels.USE_KERNELS
-                     or not waveform.is_cuda else fbank_plain)
+            fbank = (fbank_fused if self.use_kernel and waveform.is_cuda
+                     and cuda_kernels.USE_KERNELS else fbank_plain)
             feat = fbank(waveform.contiguous(), self.cosw, self.msinw,
                          self.mel_fb, n_fft=self.n_fft, hop=self.hop,
                          log_eps=LOG_EPS)

@@ -1,6 +1,7 @@
 """BaseSolver: the experiment lifecycle of the JAX package's
 ``solvers/base.py``: hparas merged over the framework defaults, experiment
-name ``<config stem or --name>_sd<seed>``, log and checkpoint directories,
+name ``<config stem or --name>_sd<seed>``, log and checkpoint directories
+(``mode="train"``) or the decode output directory (``mode="test"``),
 ``verbose`` / ``progress`` / ``write_log``.
 
 Logs go to ``<logdir>/<exp>/log.jsonl``, one JSON object per entry
@@ -18,7 +19,7 @@ from ..utils.device import resolve_device
 
 
 class BaseSolver:
-    def __init__(self, config: Dict[str, Any], paras):
+    def __init__(self, config: Dict[str, Any], paras, mode: str = "train"):
         self.config = config
         self.paras = paras
         for k, v in merge_hparas(config.get("hparas", {})).items():
@@ -27,8 +28,12 @@ class BaseSolver:
         self.exp_name = f"{name}_sd{paras.seed}"
         self.logdir = Path(paras.logdir) / self.exp_name
         self.ckpdir = Path(paras.ckpdir) / self.exp_name
-        self.ckpdir.mkdir(parents=True, exist_ok=True)
-        self.logdir.mkdir(parents=True, exist_ok=True)
+        if mode == "train":
+            self.ckpdir.mkdir(parents=True, exist_ok=True)
+            self.logdir.mkdir(parents=True, exist_ok=True)
+        else:
+            self.outdir = Path(paras.outdir) / self.exp_name
+            self.outdir.mkdir(parents=True, exist_ok=True)
         self.device = resolve_device("cpu" if getattr(paras, "cpu", False)
                                      else None)
         self.step = 0

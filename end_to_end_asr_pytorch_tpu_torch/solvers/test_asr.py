@@ -1,0 +1,162 @@
+"""Decode solver (``main --test``), the port of the JAX package's
+``solvers/test_asr.py`` on one device: the dev and test splits decoded in
+batches with the ``decode:`` block.
+
+The beam (``decode/beam.py``: joint CTC prefix / attention scores, shallow
+fusion of the RNN-LM from ``decode.lm_config`` / ``decode.lm_path`` when
+``lm_weight > 0``; each step's tail through K8 unless amp is on or
+``decode.fused_step`` is false) decodes models with an attention decoder;
+a CTC-only model decodes greedily. Rows stream to ``<outdir>/<name>_sd<seed>/{split}_output.csv``
+(``idx\\thyp\\ttruth``, the best hypothesis) and ``{split}_beam.csv``
+(``idx\\trank\\tscore\\thyp``, the n-best with 4-decimal scores) batch by
+batch, and one summary line per split gives WER / CER, throughput, the beam
+route and, on the card, K8's launches.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from .base import BaseSolver
+from ..config import load_config
+from ..data.dataset import load_dataset
+from ..decode.beam import BeamDecoder
+from ..decode.greedy import ctc_greedy
+from ..models.asr import ASR
+from ..models.lm import RNNLM
+from ..ops.audio import create_transform
+from ..utils.jax_ckpt import load_checkpoint
+from ..utils.metrics import edit_distance
+
+
+class Solver(BaseSolver):
+    def __init__(self, config, paras, mode="test"):
+        super().__init__(config, paras, mode)
+        self.decode_cfg = dict(config.get("decode", {}))
+        self.lm_weight = float(self.decode_cfg.get("lm_weight", 0.0))
+        plugin = config["model"].get("plugin")
+        if plugin and plugin.get("enabled", True):
+            raise NotImplementedError("model.plugin (embedding fusion) is not "
+                                      "ported yet")
+
+    def load_data(self):
+        (self.dv_set, self.tt_set, self.feat_dim, self.vocab_size,
+         self.tokenizer, msg) = load_dataset(self.paras.njobs, False,
+                                             mode="test", **self.config["data"])
+        self.verbose(msg)
+
+    def set_model(self):
+        dev = self.device
+        self.frontend, _ = create_transform(self.config["data"]["audio"],
+                                            device=dev)
+        init = torch.Generator().manual_seed(self.paras.seed)
+        self.model = ASR(self.feat_dim, self.vocab_size, self.config["model"],
+                         generator=init, device=dev)
+        if self.paras.load:
+            ck = load_checkpoint(self.paras.load, self.model)
+            self.verbose(f"Loaded ASR ckpt {self.paras.load} ({ck['format']}) "
+                         f"@ step {ck['global_step']}")
+        self.lm = None
+        if self.lm_weight > 0:
+            lm_cfg = load_config(self.decode_cfg["lm_config"])
+            self.lm = RNNLM(self.vocab_size, lm_cfg["model"], device=dev)
+            load_checkpoint(self.decode_cfg["lm_path"], self.lm)
+            self.verbose(f"Loaded LM ckpt for shallow fusion "
+                         f"(weight {self.lm_weight})")
+        self.decoder = (BeamDecoder(self.model, self.decode_cfg, self.lm)
+                        if self.model.enable_att else None)
+
+    @torch.no_grad()
+    def exec(self):
+        for name, dataset in (("dev", self.dv_set), ("test", self.tt_set)):
+            self._decode_set(name, dataset)
+
+    def _decode_set(self, split_name: str, dataset):
+        # rows stream to disk per batch; error rates are running sums
+        n_utts = 0
+        wer_sum = cer_sum = 0.0
+        wer_n = cer_n = 0
+        audio_sec = 0.0
+        fused = None
+        k8 = 0
+        t0 = time.time()
+        out_file = self.outdir / f"{split_name}_output.csv"
+        with open(out_file, "w", encoding="utf-8") as f_out, \
+                open(self.outdir / f"{split_name}_beam.csv", "w",
+                     encoding="utf-8") as f_beam:
+            f_out.write("idx\thyp\ttruth\n")
+            f_beam.write("idx\trank\tscore\thyp\n")
+            wrote_nbest = False
+            for batch in dataset:
+                out = self._run_batch(batch)
+                if self.decoder is not None:
+                    fused = self.decoder.last_fused
+                    k8 += self.decoder.last_k8_launches
+                for i in range(len(batch["name"])):
+                    if batch["text_len"][i] == 0:
+                        continue
+                    name = batch["name"][i]
+                    ref = batch["text_raw"][i]
+                    hyp = out["best"][i]
+                    f_out.write(f"{name}\t{hyp}\t{ref}\n")
+                    for k, (h, s) in enumerate(out["nbest"][i]):
+                        f_beam.write(f"{name}\t{k}\t{s:.4f}\t{h}\n")
+                        wrote_nbest = True
+                    e = self._er_one(hyp, ref, "wer")
+                    if e is not None:
+                        wer_sum += e
+                        wer_n += 1
+                    e = self._er_one(hyp, ref, "cer")
+                    if e is not None:
+                        cer_sum += e
+                        cer_n += 1
+                    audio_sec += float(batch["wave_len"][i]) / 16000.0
+                    n_utts += 1
+            if not wrote_nbest:
+                f_beam.write("\n")
+        dt = time.time() - t0
+        wer = wer_sum / wer_n if wer_n else 0.0
+        cer = cer_sum / cer_n if cer_n else 0.0
+        route = ("greedy CTC" if self.decoder is None else
+                 f"beam {'fused' if fused else 'unfused'} (K8 launches "
+                 f"{k8})")
+        self.verbose(
+            f"{split_name}: {n_utts} utts | WER {wer:.3f} | CER {cer:.3f} | "
+            f"{n_utts / dt:.2f} utts/sec | RTF-inverse {audio_sec / dt:.1f}x "
+            f"realtime | {route} | wrote {out_file}")
+        return {"wer": wer, "cer": cer, "utts_per_sec": n_utts / dt}
+
+    @staticmethod
+    def _er_one(h, r, mode):
+        hs, rs = (h.split(), r.split()) if mode == "wer" else (list(h),
+                                                               list(r))
+        if not rs:
+            return None
+        return edit_distance(hs, rs) / len(rs)
+
+    def _run_batch(self, batch):
+        dev = self.device
+        wave = torch.from_numpy(batch["wave"]).to(dev)
+        wave_len = torch.from_numpy(batch["wave_len"]).to(dev)
+        feat, feat_len = self.frontend(wave, wave_len)
+        B = len(batch["name"])
+        if self.decoder is not None:
+            out = self.decoder.forward(feat, feat_len)
+            tokens = out.tokens.cpu().numpy()
+            lengths = out.lengths.cpu().numpy()
+            scores = out.scores.cpu().numpy()
+            best, nbest = [], []
+            for i in range(B):
+                cands = [(self.tokenizer.decode(
+                    tokens[i, k, :lengths[i, k]].tolist()), float(scores[i, k]))
+                    for k in range(tokens.shape[1])]
+                best.append(cands[0][0])
+                nbest.append(cands)
+            return {"best": best, "nbest": nbest}
+        enc, enc_len = self.model.encode(feat, feat_len)
+        ids = ctc_greedy(self.model.ctc_output(enc)).cpu().numpy()
+        enc_len = enc_len.cpu().numpy()
+        best = [self.tokenizer.decode(ids[i, :enc_len[i]].tolist(),
+                                      ignore_repeat=True) for i in range(B)]
+        return {"best": best, "nbest": [[(b, 0.0)] for b in best]}

@@ -31,7 +31,8 @@ from ..ops.audio import create_transform
 from ..ops.ctc import ctc_loss, ctc_loss_k3
 from ..optim import Optimizer
 from ..utils.metrics import cal_er
-from ..utils.torch_ckpt import load_torch_checkpoint, save_checkpoint
+from ..utils.jax_ckpt import load_checkpoint
+from ..utils.torch_ckpt import save_checkpoint
 
 DEV_STEP_RATIO = 1.2  # decode-step headroom during validation
 
@@ -135,7 +136,7 @@ class Solver(BaseSolver):
                      f"{n_params / 1e6:.2f}M | device {dev} | CTC "
                      f"{'K3' if use_k3 else 'plain'}")
         if self.paras.load:
-            ck = load_torch_checkpoint(self.paras.load, self.model)
+            ck = load_checkpoint(self.paras.load, self.model)
             if ck["optimizer"] is not None:
                 self.optimizer.load_state_dict(ck["optimizer"])
             self.step = ck["global_step"]

@@ -5,12 +5,16 @@
       audio1.wav dir_of_audio/ [--beam 8] [--batch 16] [--output out.tsv] [--cpu]
 
 Same flags and output as the JAX package's ``transcribe.py``. ``--load``
-takes a reference-layout torch ASR checkpoint. Runs on the card unless
-``--cpu`` is given; LM fusion is off here (``lm_weight`` forced to 0). The
-config's ``data.text`` may be character, word or subword (a sentencepiece
-``.model`` or a JSON BPE), and its ``decode`` block reaches the beam as it
-is: ``amp: auto`` (the default) decodes in bf16 on the card and in f32 with
-``--cpu``, and ``psi_kernel: true`` takes K6 where its gate opens.
+takes a reference-layout torch ASR checkpoint or one the JAX package wrote.
+Runs on the card unless ``--cpu`` is given. As in the root tool, LM fusion
+is off here (``lm_weight`` forced to 0): decoding with the RNN-LM is
+``python -m end_to_end_asr_pytorch_tpu_torch.main --test``. The config's
+``data.text`` may be character, word or subword (a sentencepiece ``.model``
+or a JSON BPE), and its ``decode`` block reaches the beam as it is:
+``amp: auto`` (the default) decodes in bf16 on the card and in f32 with
+``--cpu``, each beam step's tail is one K8 launch where its scope holds
+(CTC on, amp off) unless ``fused_step: false``, and ``psi_kernel: true``
+takes K6 where its gate opens off K8's route.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from .models.asr import ASR
 from .ops.audio import create_transform
 from .utils.device import resolve_device
 from .utils.text import load_text_encoder
-from .utils.torch_ckpt import load_torch_checkpoint
+from .utils.jax_ckpt import load_checkpoint
 
 
 def collect_files(paths):
@@ -65,7 +69,7 @@ def main(argv=None):
     tokenizer = load_text_encoder(**cfg["data"]["text"])
     frontend, feat_dim = create_transform(cfg["data"]["audio"], device=device)
     model = ASR(feat_dim, tokenizer.vocab_size, cfg["model"], device=device)
-    load_torch_checkpoint(args.load, model)
+    load_checkpoint(args.load, model)
 
     decode_cfg = dict(cfg.get("decode", {}))
     decode_cfg["lm_weight"] = 0.0

@@ -1,5 +1,5 @@
-"""Reference-layout ASR checkpoints (``torch.save``): load one into the
-port's modules, and save the port's training state as one.
+"""Reference-layout checkpoints (``torch.save``): load an ASR or an RNN-LM
+one into the port's modules, and save the port's models as one.
 
 Same key rules as the JAX package's ``translate_asr_state_dict``: keys are
 resolved by suffix with alias lists per slot, recurrent modules are found by
@@ -8,13 +8,17 @@ order, every tensor is shape-checked, and unmatched slots raise with the
 candidate keys listed. Layouts: nn.Linear (out, in) -> (in, out); LSTM
 gates stay (i, f, g, o) with ``b = bias_ih + bias_hh``; GRU biases stay
 separate; convolution weights are already in PyTorch's layout, which the
-port keeps. The RNN-LM loader is not ported yet.
+port keeps. The RNN-LM follows the JAX package's ``translate_lm_state_dict``:
+the embedding (``emb`` / ``embed`` / ``embedding``), its recurrent layers in
+state_dict order, and the output layer (``trans`` / ``out`` / ``proj`` /
+``output_layer``), whose weight is absent under ``emb_tying``.
 
 The save side writes the reference layout ``{"model": state_dict,
 "optimizer": ..., "global_step": int, "<metric>": float}`` with torch
 ``nn.Module`` key names (``asr_state_dict``), which both this loader and the
 JAX package's ``utils/checkpoint.load_checkpoint`` read. The optimizer entry
-is the port's own ``Optimizer.state_dict()``.
+is the port's own ``Optimizer.state_dict()``. ``lm_state_dict`` writes an
+RNN-LM in the same layout (``emb``, ``rnn.*_l{n}``, ``trans``).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.asr import ASR
+from ..models.lm import RNNLM
 from .weights import assign
 
 
@@ -225,15 +230,79 @@ def load_torch_checkpoint(path: str, model: ASR) -> Dict[str, Any]:
     """torch.load a reference checkpoint ({'model': state_dict, ...} or a
     bare state_dict) into ``model``. Returns {'model', 'optimizer' (the
     saved optimizer state, or None), 'global_step'}."""
+    sd, step, opt = _read(path)
+    return {"model": load_asr_state_dict(sd, model), "optimizer": opt,
+            "global_step": step}
+
+
+def translate_lm_state_dict(sd: Dict[str, Any], lm: RNNLM
+                            ) -> Dict[str, np.ndarray]:
+    """Reference RNN-LM state_dict -> {port parameter name: array} for
+    ``lm``'s configuration."""
+    res = KeyResolver(sd)
+    shape = lambda name: tuple(lm.state_dict()[name].shape)
+    out = {"embed": res.find(["emb.weight", "embed.weight", "embedding.weight"],
+                             shape=shape("embed"))}
+    groups = res.rnn_groups()
+    if len(groups) != len(lm.cells):
+        raise ValueError(f"torch checkpoint: found {len(groups)} recurrent "
+                         f"layers, LM has {len(lm.cells)}")
+    for ci, g in enumerate(groups):
+        _cell(out, f"cells.{ci}", lm.module, g)
+    if lm.out_w is not None:                       # no emb_tying
+        out["out_w"] = res.find(["trans.weight", "out.weight", "proj.weight",
+                                 "output_layer.weight"],
+                                shape=shape("out_w")[::-1]).T
+    out["out_b"] = res.find(["trans.bias", "out.bias", "proj.bias",
+                             "output_layer.bias"], shape=shape("out_b"))
+    return out
+
+
+def _read(path: str):
+    """(state_dict, global_step, optimizer state or None) of a torch
+    checkpoint: ``{'model': state_dict, ...}`` or a bare state_dict."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ck, dict) and "model" in ck:
-        sd, step = ck["model"], int(ck.get("global_step", 0))
         opt = ck.get("optimizer")
+        return (ck["model"], int(ck.get("global_step", 0)),
+                opt if isinstance(opt, dict) else None)
+    return ck, 0, None
+
+
+def load_lm_checkpoint(path: str, lm: RNNLM) -> Dict[str, Any]:
+    """torch.load a reference RNN-LM checkpoint into ``lm``. Returns
+    {'model', 'global_step'}."""
+    sd, step, _ = _read(path)
+    return {"model": assign(lm, translate_lm_state_dict(sd, lm),
+                            "torch LM checkpoint"), "global_step": step}
+
+
+def lm_state_dict(lm: RNNLM) -> "OrderedDict[str, torch.Tensor]":
+    """The port's RNN-LM -> a reference-layout ``state_dict`` (``emb``,
+    ``rnn.weight_ih_l{n}`` ..., ``trans``), on the CPU."""
+    t = lambda x: x.detach().cpu().clone()
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["emb.weight"] = t(lm.embed)
+    for ci, cell in enumerate(lm.cells):
+        _rnn_entries(sd, "rnn", cell, f"_l{ci}")
+    if lm.out_w is not None:
+        sd["trans.weight"] = t(lm.out_w.T)
+    sd["trans.bias"] = t(lm.out_b)
+    return sd
+
+
+def _rnn_entries(sd, prefix: str, cell, suffix: str) -> None:
+    """One recurrent cell as torch's nn.LSTM / nn.GRU parameters (an LSTM's
+    bias in ``bias_ih`` with a zero ``bias_hh``)."""
+    t = lambda x: x.detach().cpu().clone()
+    sd[f"{prefix}.weight_ih{suffix}"] = t(cell.w_ih.T)
+    sd[f"{prefix}.weight_hh{suffix}"] = t(cell.w_hh.T)
+    if hasattr(cell, "b"):
+        sd[f"{prefix}.bias_ih{suffix}"] = t(cell.b)
+        sd[f"{prefix}.bias_hh{suffix}"] = torch.zeros_like(t(cell.b))
     else:
-        sd, step, opt = ck, 0, None
-    return {"model": load_asr_state_dict(sd, model),
-            "optimizer": opt if isinstance(opt, dict) else None,
-            "global_step": step}
+        sd[f"{prefix}.bias_ih{suffix}"] = t(cell.b_ih)
+        sd[f"{prefix}.bias_hh{suffix}"] = t(cell.b_hh)
 
 
 def asr_state_dict(model: ASR) -> "OrderedDict[str, torch.Tensor]":
@@ -242,16 +311,7 @@ def asr_state_dict(model: ASR) -> "OrderedDict[str, torch.Tensor]":
     ``bias_ih`` and a zero ``bias_hh``), on the CPU."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     t = lambda x: x.detach().cpu().clone()
-
-    def rnn(prefix, cell, suffix):
-        sd[f"{prefix}.weight_ih{suffix}"] = t(cell.w_ih.T)
-        sd[f"{prefix}.weight_hh{suffix}"] = t(cell.w_hh.T)
-        if hasattr(cell, "b"):
-            sd[f"{prefix}.bias_ih{suffix}"] = t(cell.b)
-            sd[f"{prefix}.bias_hh{suffix}"] = torch.zeros_like(t(cell.b))
-        else:
-            sd[f"{prefix}.bias_ih{suffix}"] = t(cell.b_ih)
-            sd[f"{prefix}.bias_hh{suffix}"] = t(cell.b_hh)
+    rnn = lambda prefix, cell, suffix: _rnn_entries(sd, prefix, cell, suffix)
 
     enc = model.encoder
     pre = enc.prenet

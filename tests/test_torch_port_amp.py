@@ -539,9 +539,10 @@ def test_amp_beam_fold_logp_matches_jax(jax_fused_scan):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_f32_beam_with_psi_kernel_matches_jax_at_v128(seed, monkeypatch):
     """Without amp the gate is evaluated with f32 probs and K6 takes them
-    as they are: the exact path's tolerances hold."""
+    as they are: the exact path's tolerances hold. K8's route leaves psi
+    to K8, so the step tail runs K8's plain version (fused_step false)."""
     calls = _spy_psi_route(monkeypatch)
-    cfg = dict(DECODE_CFG, amp=False, psi_kernel=True)
+    cfg = dict(DECODE_CFG, amp=False, psi_kernel=True, fused_step=False)
     ref, got = _decode_both(seed, 128, cfg, dict(cfg, psi_kernel="interpret"))
     np.testing.assert_array_equal(to_np(got.lengths), np.asarray(ref.lengths))
     np.testing.assert_array_equal(to_np(got.tokens), np.asarray(ref.tokens))

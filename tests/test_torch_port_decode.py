@@ -293,6 +293,12 @@ def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((ROOT / "end_to_end_asr_pytorch_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the entry points, solvers, kernel wrappers and checkpoint readers
+    rel = {str(f.relative_to(ROOT / "end_to_end_asr_pytorch_tpu_torch"))
+           for f in files[:-1]}
+    assert {"main.py", "train.py", "transcribe.py", "solvers/test_asr.py",
+            "ops/cuda/beam_step_kernel.py", "utils/jax_ckpt.py",
+            "utils/torch_ckpt.py"} <= rel
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):

@@ -166,8 +166,8 @@ def test_load_config_reads_the_subword_yaml(tmp_path):
 
 def test_subword_transcribe_matches_root_tool(tmp_path, monkeypatch):
     """The root tool (JAX) and the port's transcribe on a subword YAML; the
-    port again with decode.psi_kernel: true (K6's route; its plain version
-    on the CPU) writes the same rows."""
+    port again with decode.psi_kernel: true and fused_step: false (K6's
+    route; its plain version on the CPU) writes the same rows."""
     import transcribe as jax_transcribe
     import yaml
     from end_to_end_asr_pytorch_tpu_torch import transcribe
@@ -184,6 +184,7 @@ def test_subword_transcribe_matches_root_tool(tmp_path, monkeypatch):
     assert (tmp_path / "port.tsv").read_text() == ref
     cfg = yaml.safe_load((tmp_path / "cfg.yaml").read_text())
     cfg["decode"]["psi_kernel"] = True
+    cfg["decode"]["fused_step"] = False     # K8's route leaves psi to K8
     (tmp_path / "cfg_k6.yaml").write_text(yaml.safe_dump(cfg))
     calls = []
     orig = ctc_prefix.score_candidates

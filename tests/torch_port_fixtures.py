@@ -43,3 +43,12 @@ def waves(seed: int, lens=(7040, 5600, 3300)):
 
 def to_np(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+class OnCard(torch.Tensor):
+    """A CPU tensor that reports itself as a card tensor: the route code
+    picks for the card, taken without one."""
+
+    @property
+    def is_cuda(self):
+        return True
