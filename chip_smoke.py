@@ -10,10 +10,22 @@ Phases, each printing one JSON line:
                 B utterances of 7 s with ragged lengths (log-mel atol 1e-3)
   k2          - the LSTM scan kernel against its plain version at H=512,
                 T=176, both directions, ragged masks (atol 1e-4), at B=128
-                and at the slice's batch; and its bf16 variant (bf16 x_proj
-                and ys, f32 carries) at the same shapes (ys within 1 bf16
-                ulp of the plain version, plus 1e-5 for the f32 sums taken
-                in another order)
+                and at the slice's batch; and K2-bf16, the tensor-core scan
+                (bf16 x_proj and ys, f32 carries), at the same shapes with
+                W_hh rounded to bf16 as decode amp hands it (the row's ms)
+                and with the unrounded f32 W_hh (ms_unrounded_w): ys within
+                1 bf16 ulp of the plain version, plus 1e-5 for the f32 sums
+                taken in another order; its bound at the bf16 tensor rate
+                (three passes, and one pass as bound_ms_one_pass); every
+                design (cluster or grid, 8 or 16 rows per group, in waves
+                where the groups do not fit at once) checked the same way
+                and timed beside the one the wrapper picks; then widths off
+                the main path, H=300, 320 and 1024 at B=32 and 128
+  scan_floor  - (only when named in --phases) the floor of the bf16 scans'
+                step exchange at H=512, T=176: T rounds of barrier plus
+                exchange of h alone, for a cooperative grid (grid.sync, h
+                through L2, 16 or 32 blocks) and a cluster of 16 blocks
+                (barrier.cluster, h through distributed shared memory)
   k2b         - K2's residual outputs (cell states, gates) and the LSTM
                 backward kernel against their plain versions and against
                 autograd through the plain scan, same shapes (residuals and
@@ -25,9 +37,11 @@ Phases, each printing one JSON line:
   k4          - the GRU scan kernel against its plain version at H=512,
                 T=176, both directions, ragged masks, at B=128 and at the
                 slice's batch, without and with its residuals (ys, gates,
-                hp_n atol 1e-4); and its bf16 variant at the same shapes (ys
-                within 1 bf16 ulp + 1e-5, K2-bf16's bound); cuDNN nn.GRU in
-                f32 (TF32 off) and in bf16 as the library yardsticks
+                hp_n atol 1e-4); and K4-bf16 at the same shapes and widths,
+                checked as K2-bf16 (rounded and unrounded W_hh, every
+                design, 1 bf16 ulp + 1e-5);
+                cuDNN nn.GRU in f32 (TF32 off) and in bf16 as the library
+                yardsticks
   k4b         - K4's residuals and the GRU backward kernel against the plain
                 backward and against autograd through the plain scan, same
                 shapes (dxp atol 1e-4, dW_hh and db_hh within 1e-3 of their
@@ -178,9 +192,11 @@ V_CHAR = 3 + len(CHARS)
 V_SUB = 5120          # bench_vocab.py's subword workload
 SECS = 7.0
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s (no tensor cores)
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s (no tensor
+# cores), dense bf16 tensor-core FLOP/s
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 
 
 def emit(obj):
@@ -226,9 +242,9 @@ def device_ms(fn, iters=20):
                if e.device_type == DeviceType.CUDA) / iters / 1e3
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, flops_rate=F32_FLOPS):
     t_bytes = bytes_moved / HBM_BPS * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / flops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -302,11 +318,134 @@ def phase_k1(frontend, batch, seed):
     return res
 
 
+def check_bf16_scan(label, rec, B, T, H, n_gates, scan, plain, run, query,
+                    w_hh, nbytes, library):
+    """K2-bf16 / K4-bf16 (``scan(w, reverse)``) against its plain version
+    (``plain(w, reverse)``), both directions, with W_hh rounded to bf16 as
+    decode amp hands it (the row's ms) and with the unrounded f32 W_hh
+    (checked, and timed as ms_unrounded_w); ys within 1 bf16 ulp + 1e-5.
+    The bound takes the dense bf16 tensor rate for the three passes of the
+    main path (rounded W_hh); bound_ms_one_pass is the same for one bf16
+    pass, the TPU kernel's own product. Then each design of the
+    tensor-core scan (``run(w, mode, rows, reverse)`` -> (ys, launches),
+    launches not counted: clusters or a grid of 8 or 16 rows, in waves
+    where its groups do not fit at once: clusters in one launch, a grid in
+    one launch per wave) is checked in both directions as above, with the
+    rounded W_hh, and timed beside the one ``scan_tc.pick`` takes."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import scan_tc
+    rounded = w_hh.to(torch.bfloat16).float()
+    stats, refs = {}, {}
+    for wname, w in (("rounded", rounded), ("unrounded", w_hh)):
+        err = ulps = differ = 0.0
+        for reverse in (False, True):
+            got = scan(w, reverse)
+            ref = plain(w, reverse)
+            if wname == "rounded":
+                refs[reverse] = ref
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()),
+                  f"{label} output not bf16 and finite")
+            e, u, dif = bf16_diff(got, ref)
+            err, ulps, differ = max(err, e), max(ulps, u), max(differ, dif)
+        check(ulps <= 1.0, f"{label} ys beyond 1 bf16 ulp (+1e-5) of the "
+              f"plain version with {wname} W_hh ({ulps} of the bound) at B={B}")
+        stats[wname] = {"max_abs_err": err, "max_err_over_bf16_ulp_bound": ulps,
+                        "share_of_ys_differing": differ,
+                        "ms": cuda_ms(lambda: scan(w, True), 10)}
+    one_pass = T * 2 * B * H * n_gates * H
+    b_ms, b_by = bound(nbytes, 3 * one_pass, BF16_TC_FLOPS)
+    b1_ms, _ = bound(nbytes, one_pass, BF16_TC_FLOPS)
+    mode, rows = scan_tc.pick(query, H, n_gates, B)
+    designs = {}
+    for m, r in ((scan_tc.CLUSTER, 8), (scan_tc.CLUSTER, 16),
+                 (scan_tc.GRID, 8), (scan_tc.GRID, 16)):
+        name = f"{'cluster' if m == scan_tc.CLUSTER else 'grid'}_rows{r}"
+        ulps = 0.0
+        for reverse in (False, True):
+            got, launches = run(rounded, m, r, reverse)
+            torch.cuda.synchronize()
+            ulps = max(ulps, bf16_diff(got, refs[reverse])[1])
+        check(ulps <= 1.0, f"{label} design {name} ys beyond 1 bf16 ulp "
+              f"(+1e-5) of the plain version ({ulps} of the bound) at B={B}")
+        designs[name] = {"ms": cuda_ms(lambda: run(rounded, m, r, True), 10),
+                         "max_err_over_bf16_ulp_bound": ulps,
+                         "waves": math.ceil(math.ceil(B / r) / max(
+                             1, scan_tc.max_groups(query, H, n_gates, r, m))),
+                         "launches": launches}
+    rec = {**rec, "max_abs_err": max(v["max_abs_err"] for v in stats.values()),
+           "ms": stats["rounded"]["ms"],
+           "ms_unrounded_w": stats["unrounded"]["ms"],
+           "plain_ms": cuda_ms(lambda: plain(rounded, True), 3),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_rate": "bf16 tensor cores, 989 TFLOP/s, 3 passes",
+           "bound_ms_one_pass": b1_ms,
+           "library_ms": cuda_ms(library, 10)}
+    emit({"phase": label, "T": T, "B": B, "H": H,
+          "design": {"mode": "cluster" if mode == scan_tc.CLUSTER else "grid",
+                     "rows": rows},
+          "design_ms": designs, "rounded_w": stats["rounded"],
+          "unrounded_w": stats["unrounded"], **rec})
+    return rec
+
+
+def check_bf16_widths(label, n_gates, scan, plain, query, rng,
+                      extra=lambda H: (), T=176, widths=(300, 320, 1024),
+                      batches=(32, 128)):
+    """K2-bf16 / K4-bf16 at widths off the main path, against the plain
+    version as ``check_bf16_scan`` holds them (both directions, ragged
+    masks, rounded and unrounded W_hh, 1 bf16 ulp + 1e-5): H=320 (units per
+    block not a multiple of 8 for the LSTM, 8-byte copies), H=300 (H and the
+    GRU's gate columns zero-padded to 16, a cluster of 15 blocks) and
+    H=1024 (64 blocks: a cooperative grid only, in waves at B=128).
+    ``scan`` / ``plain`` are the wrappers, called as (x_proj, w_hh,
+    *extra(H), mask, reverse) (the GRU's b_hh); ``query`` is the library's
+    ``*_tc_max_groups``."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import scan_tc
+    out = {}
+    for H in widths:
+        s = 1.0 / math.sqrt(H)
+        w_hh = torch.from_numpy(rng.uniform(
+            -s, s, (H, n_gates * H)).astype(np.float32)).cuda()
+        C, U, kw, kg = scan_tc.plan(H, n_gates)
+        ex = extra(H)
+        for B in batches:
+            xb = torch.from_numpy(rng.randn(T, B, n_gates * H).astype(
+                np.float32)).cuda().to(torch.bfloat16)
+            lens = rng.randint(T // 2, T + 1, size=B)
+            lens[0] = T
+            mask = torch.from_numpy(np.arange(T)[:, None] < lens[None, :]).cuda()
+            res = {"C": C, "U": U, "kw": kw, "kg": kg}
+            for wname, w in (("rounded", w_hh.to(torch.bfloat16).float()),
+                             ("unrounded", w_hh)):
+                ulps = 0.0
+                for reverse in (False, True):
+                    got = scan(xb, w, *ex, mask, reverse)
+                    ref = plain(xb, w, *ex, mask, reverse)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(got).all()),
+                          f"{label} output not finite at H={H}, B={B}")
+                    ulps = max(ulps, bf16_diff(got, ref)[1])
+                check(ulps <= 1.0, f"{label} ys beyond 1 bf16 ulp (+1e-5) of "
+                      f"the plain version with {wname} W_hh ({ulps} of the "
+                      f"bound) at H={H}, B={B}")
+                res[f"{wname}_max_err_over_bf16_ulp_bound"] = ulps
+                res[f"{wname}_ms"] = cuda_ms(
+                    lambda: scan(xb, w, *ex, mask, True), 5)
+            mode, rows = scan_tc.pick(query, H, n_gates, B)
+            res["design"] = {"mode": "cluster" if mode == scan_tc.CLUSTER
+                             else "grid", "rows": rows}
+            out[f"H{H}_B{B}"] = res
+    emit({"phase": f"{label}_widths", "T": T, "widths": out})
+
+
 def phase_k2(seed, slice_batch, T=176, H=512):
     """K2 and its bf16 variant against their plain versions, both
     directions, ragged masks, at B=128 and at the slice's batch (the shape
     the main path gives them; those records are the kernels' lines)."""
     import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build, scan_tc
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
     rng = np.random.RandomState(seed + 1)
     s = 1.0 / math.sqrt(H)
@@ -355,41 +494,58 @@ def phase_k2(seed, slice_batch, T=176, H=512):
             "library_ms": cuda_ms(library, 10)}
         emit({"phase": "k2", "T": T, "B": B, "H": H,
               "cudnn_full_length_max_abs_err": lib_err, **records[B]})
-        # the bf16 variant (decode amp): bf16 x_proj and ys, f32 carries
+        # K2-bf16 (decode amp): bf16 x_proj and ys, f32 carries
         xb = xp.to(torch.bfloat16)
-        err = ulps = differ = 0.0
-        for reverse in (False, True):
-            got = lk.lstm_scan_bf16(xb, w_hh, mask, reverse)
-            ref = lk.lstm_scan_plain(xb, w_hh, mask, reverse)
-            torch.cuda.synchronize()
-            check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()),
-                  "K2 bf16 output not bf16 and finite")
-            e, u, dif = bf16_diff(got, ref)
-            err, ulps, differ = max(err, e), max(ulps, u), max(differ, dif)
-        check(ulps <= 1.0, f"K2 bf16 ys beyond 1 bf16 ulp (+1e-5) of the "
-              f"plain version ({ulps} of the bound) at B={B}")
         cudnn_bf16 = torch.nn.LSTM(4 * H, H).cuda().to(torch.bfloat16)
         cudnn_bf16.load_state_dict(cudnn.state_dict())
-        nbytes = 2 * T * B * 4 * H + 4 * H * 4 * H + 4 * T * B + 2 * T * B * H
-        b_ms, b_by = bound(nbytes, flops)
 
         def library_bf16():
             with torch.no_grad():
                 return cudnn_bf16(xb)[0]
 
-        bf16_records[B] = {
-            "name": "lstm_scan_bf16", "route": "cuda",
-            "source": "end_to_end_asr_pytorch_tpu_torch/csrc/lstm_scan.cu",
-            "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py:92",
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: lk.lstm_scan_bf16(xb, w_hh, mask, True), 10),
-            "plain_ms": cuda_ms(lambda: lk.lstm_scan_plain(xb, w_hh, mask, True), 3),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(library_bf16, 10)}
-        emit({"phase": "k2_bf16", "T": T, "B": B, "H": H,
-              "max_err_over_bf16_ulp_bound": ulps,
-              "share_of_ys_differing": differ, **bf16_records[B]})
+        lib = build.load("lstm_scan", lk._SIGNATURES)
+        bf16_records[B] = check_bf16_scan(
+            "k2_bf16", {
+                "name": "lstm_scan_bf16", "route": "cuda",
+                "source": "end_to_end_asr_pytorch_tpu_torch/csrc/lstm_scan.cu",
+                "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py:92"},
+            B, T, H, 4,
+            lambda w, rev: lk.lstm_scan_bf16(xb, w, mask, rev),
+            lambda w, rev: lk.lstm_scan_plain(xb, w, mask, rev),
+            lambda w, m, r, rev: scan_tc.run(
+                lib.lstm_tc_launch, lib.lstm_tc_max_groups, xb, w, (), mask,
+                rev, 4, m, r),
+            lib.lstm_tc_max_groups, w_hh,
+            2 * T * B * 4 * H + 4 * H * 4 * H + 4 * T * B + 2 * T * B * H,
+            library_bf16)
+    check_bf16_widths("k2_bf16", 4, lk.lstm_scan_bf16, lk.lstm_scan_plain,
+                      lib.lstm_tc_max_groups, rng)
     return records[slice_batch], bf16_records[slice_batch]
+
+
+def phase_scan_floor(T=176, H=512):
+    """The floor of the bf16 scans' step exchange: T rounds of nothing but
+    the barrier and the exchange of h (csrc/scan_floor.cu), for design (a),
+    one cooperative grid with grid.sync() and h through L2, with U=32 and
+    U=16 units per block (16 and 32 blocks per group), and design (b), one
+    cluster of 16 blocks per group with barrier.cluster and h through
+    distributed shared memory; at B=32 in four groups of 8 rows and in two
+    of 16. Threads per block as K2-bf16's
+    at that U."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import scan_tc
+    out = {}
+    for label, mode, C, threads in (
+            ("grid_U32", scan_tc.GRID, 16, 512),
+            ("grid_U16", scan_tc.GRID, 32, 256),
+            ("cluster16", scan_tc.CLUSTER, 16, 512)):
+        for rows, groups in ((8, 4), (16, 2)):
+            ms = cuda_ms(lambda: scan_tc.floor_launch(T, H, C, rows, groups,
+                                                      threads, mode), 20)
+            out[f"{label}_rows{rows}x{groups}"] = {
+                "ms": ms, "us_per_round": ms * 1e3 / T}
+    torch.cuda.synchronize()
+    emit({"phase": "scan_floor", "T": T, "H": H, "floors": out})
 
 
 def phase_k2b(seed, slice_batch, T=176, H=512):
@@ -527,6 +683,7 @@ def phase_k4(seed, slice_batch, T=176, H=512):
     slice's batch (those records are the kernels' lines); cuDNN nn.GRU in
     f32 (TF32 off, as resolve_device sets it) and in bf16 as yardsticks."""
     import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build, scan_tc
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
     rng = np.random.RandomState(seed + 10)
     w_hh, b_hh = gru_weights(rng, H)
@@ -579,40 +736,34 @@ def phase_k4(seed, slice_batch, T=176, H=512):
                   xp, w_hh, b_hh, mask, True, residuals=True), 10),
               "cudnn_tf32": torch.backends.cudnn.allow_tf32,
               "cudnn_full_length_max_abs_err": lib_err, **records[B]})
-        # the bf16 variant (decode amp): bf16 x_proj and ys, f32 carry
+        # K4-bf16 (decode amp): bf16 x_proj and ys, f32 carry
         xb = xp.to(torch.bfloat16)
-        err = ulps = differ = 0.0
-        for reverse in (False, True):
-            got = gk.gru_scan_bf16(xb, w_hh, b_hh, mask, reverse)
-            ref = gk.gru_scan_plain(xb, w_hh, b_hh, mask, reverse)
-            torch.cuda.synchronize()
-            check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()),
-                  "K4 bf16 output not bf16 and finite")
-            e, u, dif = bf16_diff(got, ref)
-            err, ulps, differ = max(err, e), max(ulps, u), max(differ, dif)
-        check(ulps <= 1.0, f"K4 bf16 ys beyond 1 bf16 ulp (+1e-5) of the "
-              f"plain version ({ulps} of the bound) at B={B}")
-        b_ms, b_by = bound(2 * T * B * 3 * H + 4 * (H * 3 * H + 3 * H + T * B)
-                           + 2 * T * B * H, flops)
 
         def library_bf16():
             with torch.no_grad():
                 return cudnn_bf16(xb)[0]
 
-        bf16_records[B] = {
-            "name": "gru_scan_bf16", "route": "cuda",
-            "source": "end_to_end_asr_pytorch_tpu_torch/csrc/gru_scan.cu",
-            "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/gru_kernel.py:109",
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: gk.gru_scan_bf16(xb, w_hh, b_hh, mask,
-                                                   True), 10),
-            "plain_ms": cuda_ms(lambda: gk.gru_scan_plain(xb, w_hh, b_hh,
-                                                          mask, True), 3),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(library_bf16, 10)}
-        emit({"phase": "k4_bf16", "T": T, "B": B, "H": H,
-              "max_err_over_bf16_ulp_bound": ulps,
-              "share_of_ys_differing": differ, **bf16_records[B]})
+        lib = build.load("gru_scan", gk._SIGNATURES)
+        bf16_records[B] = check_bf16_scan(
+            "k4_bf16", {
+                "name": "gru_scan_bf16", "route": "cuda",
+                "source": "end_to_end_asr_pytorch_tpu_torch/csrc/gru_scan.cu",
+                "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/gru_kernel.py:109"},
+            B, T, H, 3,
+            lambda w, rev: gk.gru_scan_bf16(xb, w, b_hh, mask, rev),
+            lambda w, rev: gk.gru_scan_plain(xb, w, b_hh, mask, rev),
+            lambda w, m, r, rev: scan_tc.run(
+                lib.gru_tc_launch, lib.gru_tc_max_groups, xb, w, (b_hh,), mask,
+                rev, 3, m, r),
+            lib.gru_tc_max_groups, w_hh,
+            2 * T * B * 3 * H + 4 * (H * 3 * H + 3 * H + T * B) + 2 * T * B * H,
+            library_bf16)
+
+    check_bf16_widths(
+        "k4_bf16", 3, gk.gru_scan_bf16, gk.gru_scan_plain,
+        lib.gru_tc_max_groups, rng,
+        lambda H: (torch.from_numpy(rng.uniform(-0.1, 0.1, 3 * H).astype(
+            np.float32)).cuda(),))
     return records[slice_batch], bf16_records[slice_batch]
 
 
@@ -1826,12 +1977,14 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--phases",
-                    default="k1,k2,k2b,k3,k4,k4b,k5,k6,k7,k8,slice,"
+                    default="k1,k2,k2b,k3,k4,k4b,k5,k6,k7,k8,"
+                            "slice,"
                             "slice_fused,slice_att,"
                             "entry,slice_amp,slice_sub5k,entry_sub5k,"
                             "slice_gru,entry_gru,slice_gru_amp,test_entry,"
                             "train,train_att,train_gru,train_entry",
-                    help="comma list of phases after build (default: all)")
+                    help="comma list of phases after build (default: all "
+                         "but scan_floor)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1854,7 +2007,8 @@ def main():
           "cuda": torch.version.cuda})
 
     secs = build.build(["fbank", "lstm_scan", "ctc_loss", "loc_att",
-                        "loc_att_train", "psi", "gru_scan", "beam_step"])
+                        "loc_att_train", "psi", "gru_scan", "beam_step"]
+                       + (["scan_floor"] if "scan_floor" in phases else []))
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in build.build_log.items()}
@@ -1867,6 +2021,8 @@ def main():
     if "k2" in phases:
         (kernels["lstm_scan_fused"],
          kernels["lstm_scan_bf16"]) = phase_k2(args.seed, args.batch)
+    if "scan_floor" in phases:
+        phase_scan_floor()
     if "k2b" in phases:
         kernels["lstm_bwd_fused"] = phase_k2b(args.seed, args.batch)
     if "k3" in phases:

@@ -14,11 +14,18 @@
 // also writes the residuals the backward needs, as _fwd_kernel does: the
 // post-activation gates (T, B, 3H) and hp_n (T, B, H), bias included.
 //
-// bf16 variant (decode amp; the TPU kernel's ys take x_proj.dtype): the same
-// kernel instantiated with TX = bf16 for x_proj and ys only. Each x_proj
-// element is widened to f32 as it is read; W_hh, b_hh, the carry and the
-// gate math stay f32; ys is rounded to bf16 (round to nearest even) as it is
-// written. It keeps no residuals.
+// bf16 variant (K4-bf16, decode amp; replaces the same _run_fwd on its bf16
+// x_proj path, whose ys take x_proj.dtype): bf16 x_proj, f32 W_hh and b_hh,
+// an f32 carry and gate math, ys rounded once to bf16. What bounds it on the
+// H100: the T serial steps, each a (B, H) x (H, 3H) product (at B=32,
+// H=512: 5.0e7 FLOP per pass, ~0.05 us at the bf16 tensor rate) behind one
+// barrier and one exchange of h across the blocks, so latency and not the
+// operation rate sets its time. Design: lstm_scan.cu's K2-bf16, the shared
+// tensor-core scan of scan_tc.cuh (one cluster of up to 16 blocks per
+// (layer, direction) and group of 8 or 16 batch rows, or a cooperative grid
+// where the clusters do not fit, W_hh fragments in registers, the carry
+// split into three bf16 parts, the exchange through distributed shared
+// memory); this file keeps only the gate epilogue (GruCell).
 //
 // Backward: replaces gru_kernel.py:_bwd_kernel / _run_bwd. It walks time
 // opposite to the forward. Per step, with h_prev the forward's previous
@@ -31,12 +38,13 @@
 // db_hh = sum dhp are one GEMM and one sum outside the kernel, as in the TPU
 // wrapper.
 //
-// Bound on the H100: the T serial steps, each a (B, H) x (H, 3H) product in
-// f32 (67 TFLOP/s without tensor cores), plus one grid-wide barrier per
-// step. Design, lstm_scan.cu's: ONE persistent cooperative launch per
-// (layer, direction). Block j owns U hidden units across the three gates;
-// its slice of W_hh (float4 per unit and k, the fourth lane zero) stays in
-// shared memory for the whole scan, and so does the backward's carry (the
+// Bound of the f32 kernels on the H100: the T serial steps, each a
+// (B, H) x (H, 3H) product in f32 (67 TFLOP/s without tensor cores), plus
+// one grid-wide barrier per step. Design, lstm_scan.cu's: ONE persistent
+// cooperative launch per (layer, direction). Block j owns U hidden units
+// across the three gates; its slice of W_hh (float4 per unit and k, the
+// fourth lane zero) stays in shared memory for the whole scan, and so does
+// the backward's carry (the
 // forward's carry is its own h, which it reads back from the double buffer).
 // Each step a block loads its threads' step inputs first (they do not depend
 // on the product, so their latency overlaps it), then streams the previous
@@ -48,17 +56,16 @@
 // grid.sync(). The grid must be co-resident; the wrapper checks it with the
 // occupancy API and cudaLaunchCooperativeKernel refuses a grid that is not.
 #include "scan_common.cuh"
+#include "scan_tc.cuh"
 
 // U hidden units per block (power of two, 1..128): each thread owns unit
 // u0 + threadIdx / RP and two rows of the batch per pass; rb rows per pass
 // (rb = min(2 RP, B rounded up to even)), kc = HS / rb rows of h per chunk.
-// TX is the element type of x_proj and ys (float, or bf16 without
-// residuals).
-template <int U, typename TX>
+template <int U>
 __global__ void __launch_bounds__(NT) gru_fwd_kernel(
-    const TX* __restrict__ xp, const float* __restrict__ whh,
+    const float* __restrict__ xp, const float* __restrict__ whh,
     const float* __restrict__ bhh, const float* __restrict__ mask,
-    TX* __restrict__ ys, float* hbuf, float* __restrict__ gates_out,
+    float* __restrict__ ys, float* hbuf, float* __restrict__ gates_out,
     float* __restrict__ hpn_out, int T, int B, int H, int reverse) {
   constexpr int RP = NT / U;
   cg::grid_group grid = cg::this_grid();
@@ -92,10 +99,10 @@ __global__ void __launch_bounds__(NT) gru_fwd_kernel(
       for (int j = 0; j < 2; ++j) {
         const int row = r0 + 2 * rp + j;
         const bool ok = 2 * rp < rb && row < B;
-        const TX* xr = xp + ((size_t)t * B + (ok ? row : 0)) * G + unit;
-        x[j][0] = ok ? to_f32(xr[0]) : 0.f;
-        x[j][1] = ok ? to_f32(xr[H]) : 0.f;
-        x[j][2] = ok ? to_f32(xr[2 * H]) : 0.f;
+        const float* xr = xp + ((size_t)t * B + (ok ? row : 0)) * G + unit;
+        x[j][0] = ok ? xr[0] : 0.f;
+        x[j][1] = ok ? xr[H] : 0.f;
+        x[j][2] = ok ? xr[2 * H] : 0.f;
         m[j] = ok ? mask[(size_t)t * B + row] : 0.f;
         a[j][0] = a[j][1] = a[j][2] = 0.f;
       }
@@ -137,7 +144,7 @@ __global__ void __launch_bounds__(NT) gru_fwd_kernel(
         const float h_new = (1.f - z) * n + z * h_old;
         const size_t o = (size_t)t * B + row;
         hnext[(size_t)unit * B + row] = m[j] * h_new + (1.f - m[j]) * h_old;
-        ys[o * H + unit] = from_f32<TX>(m[j] * h_new);
+        ys[o * H + unit] = m[j] * h_new;
         if (keep) {
           float* gr = gates_out + o * G + unit;
           gr[0] = r; gr[H] = z; gr[2 * H] = n;
@@ -257,10 +264,9 @@ __global__ void __launch_bounds__(NT) gru_bwd_kernel(
   }
 }
 
-#define FWD_KERNEL(u) gru_fwd_kernel<u, TX>
+#define FWD_KERNEL(u) gru_fwd_kernel<u>
 #define BWD_KERNEL(u) gru_bwd_kernel<u>
 
-template <typename TX>
 static void* fwd_for(int U) {
   switch (U) { SCAN_CASES(FWD_KERNEL) }
 }
@@ -269,8 +275,8 @@ static void* bwd_for(int U) {
   switch (U) { SCAN_CASES(BWD_KERNEL) }
 }
 
-// Kernel kinds: the f32 forward, the backward, the bf16 forward.
-enum { KIND_FWD = 0, KIND_BWD = 1, KIND_FWD_BF16 = 2 };
+// Kernel kinds of the f32 scans: the forward, the backward.
+enum { KIND_FWD = 0, KIND_BWD = 1 };
 
 // Dynamic shared memory of one block: the W_hh slice (float4 per unit and
 // k), the 64 KB chunk, and the backward's B x U carry.
@@ -281,9 +287,8 @@ extern "C" size_t gru_smem_bytes(int B, int H, int U, int kind) {
 
 static void* kernel_ptr(int U, int kind) {
   switch (kind) {
-    case KIND_FWD: return fwd_for<float>(U);
+    case KIND_FWD: return fwd_for(U);
     case KIND_BWD: return bwd_for(U);
-    case KIND_FWD_BF16: return fwd_for<__nv_bfloat16>(U);
     default: return nullptr;
   }
 }
@@ -313,21 +318,44 @@ extern "C" int gru_fwd_launch(const float* xp, const float* whh,
                      stream);
 }
 
-// The bf16 variant: xp and ys are bf16 (T, B, 3H) / (T, B, H), no residuals.
-extern "C" int gru_fwd_bf16_launch(const void* xp, const float* whh,
-                                   const float* bhh, const float* mask,
-                                   void* ys, float* hbuf, int T, int B, int H,
-                                   int U, int reverse, void* stream) {
-  void* fn = kernel_ptr(U, KIND_FWD_BF16);
-  if (fn == nullptr || H % U != 0) return (int)cudaErrorInvalidValue;
-  const __nv_bfloat16* x = (const __nv_bfloat16*)xp;
-  __nv_bfloat16* y = (__nv_bfloat16*)ys;
-  float* none = nullptr;
-  void* args[] = {(void*)&x, (void*)&whh, (void*)&bhh, (void*)&mask,
-                  (void*)&y, (void*)&hbuf, (void*)&none, (void*)&none,
-                  (void*)&T, (void*)&B, (void*)&H, (void*)&reverse};
-  return scan_launch(fn, U, H, gru_smem_bytes(B, H, U, KIND_FWD_BF16), args,
-                     stream);
+// K4-bf16's gate epilogue: p the product sums h @ W_hh (r, z, n), x the
+// step's x_proj, b_hh added to the product as in hp = h @ W_hh + b_hh.
+struct GruCell {
+  static constexpr int NG = 3;  // gates
+  static constexpr int NS = 0;  // no state beside h
+  const float* bhh;
+  int H;
+  __device__ __forceinline__ float step(const float* p, const float* x,
+                                        float h_old, float*, int, bool,
+                                        int unit) const {
+    const float hr = p[0] + bhh[unit], hz = p[1] + bhh[H + unit];
+    const float hn = p[2] + bhh[2 * H + unit];
+    const float r = sigmoidf_(x[0] + hr);
+    const float z = sigmoidf_(x[1] + hz);
+    const float n = tanhf(x[2] + r * hn);
+    return (1.f - z) * n + z * h_old;
+  }
+};
+
+// Groups of K4-bf16 (clusters of C blocks; TC_GRID: cooperative groups)
+// that can be resident at once, into *out.
+extern "C" int gru_tc_max_groups(int H, int U, int C, int kw, int kg,
+                                 int rows, int mode, int* out) {
+  return tc_max_groups<GruCell>(H, U, C, kw, kg, rows, mode, out);
+}
+
+// K4-bf16: xp (T, B, 3H) and ys (T, B, H) bf16; wrem a scratch of
+// C * warps * kw * 1024 bytes; hbuf (TC_GRID only) 2 * groups * rows * H
+// floats. The launch takes groups g0 .. g0 + groups - 1 of `rows` rows.
+extern "C" int gru_tc_launch(const void* xp, const float* whh,
+                             const float* bhh, const float* mask, void* ys,
+                             void* wrem, float* hbuf, int T, int B, int H,
+                             int U, int C, int kw, int kg, int rows, int g0,
+                             int groups, int mode, int reverse,
+                             void* stream) {
+  TcArgs a = {(const __nv_bfloat16*)xp, whh, mask, (__nv_bfloat16*)ys,
+              (uint4*)wrem, hbuf, T, B, H, U, C, kw, kg, rows, g0, reverse, 0};
+  return tc_scan_launch(a, GruCell{bhh, H}, groups, mode, stream);
 }
 
 // dgbuf: 2 * H * B float4, zero-filled by the caller.

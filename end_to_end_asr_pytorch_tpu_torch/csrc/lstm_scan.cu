@@ -1,5 +1,6 @@
 // Masked LSTM time scan for Hopper: forward (K2, with optional training
-// residuals) and backward (K2b), f32 throughout, and K2's bf16 variant.
+// residuals) and backward (K2b), f32 throughout, and K2's bf16 variant
+// (K2-bf16) on tensor cores.
 //
 // Forward: replaces end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py:
 // _run_fwd (reached through lstm_scan_fused). x_proj (T, B, 4H) = x @ W_ih + b
@@ -13,11 +14,23 @@
 // the carried cell state (T, B, H) and the post-activation gates (T, B, 4H);
 // when they are null (serving) it writes neither.
 //
-// bf16 variant (decode amp; the TPU kernel's outputs take x_proj.dtype): the
-// same kernel instantiated with TX = bf16 for x_proj and ys only. Each
-// x_proj element is widened to f32 as it is read, W_hh, the carries and the
-// gate math stay f32, and ys is rounded to bf16 (round to nearest even) as it
-// is written. It keeps no residuals.
+// bf16 variant (K2-bf16, decode amp; replaces the same _run_fwd on its bf16
+// x_proj path, whose outputs take x_proj.dtype): bf16 x_proj, f32 W_hh, an
+// f32 carry and cell state, f32 gate math, ys rounded once to bf16. What
+// bounds it on the H100: the T serial steps, each a (B, H) x (H, 4H) product
+// (at B=32, H=512: 6.7e7 FLOP per pass, ~0.07 us at the bf16 tensor rate)
+// behind one barrier and one exchange of h across the blocks, so latency
+// and not the operation rate sets its time. Design (scan_tc.cuh): one
+// cluster of up to 16 blocks per (layer, direction) and group of 8 or 16
+// batch rows (one cooperative grid of such groups where the batch needs
+// more clusters than fit, or where the width needs more than 16 blocks to
+// hold W_hh, e.g. H=1024, with the groups in waves), any H that is a
+// multiple of 4, the block's bf16 W_hh slice resident in registers as
+// mma.sync fragments for all T steps, the f32 carry split into three bf16
+// parts per step so the tensor-core product equals the f32 one, the
+// exchange of h through distributed shared memory behind barrier.cluster,
+// and the next step's x_proj brought in with cp.async during the barrier.
+// This file keeps only the gate epilogue (LstmCell).
 //
 // Backward: replaces lstm_kernel.py:_bwd_kernel / _run_bwd. It walks time
 // opposite to the forward and emits dxp (T, B, 4H), the gradient of x_proj;
@@ -30,10 +43,11 @@
 // their dys is dropped. "Previous step" is t-1 for a forward scan and t+1
 // for a reversed one (zero at the first step walked by the forward).
 //
-// Bound on the H100: the T serial steps, each a (B, H) x (H, 4H) product in
-// f32 (no tensor cores at full f32: 67 TFLOP/s), plus one grid-wide barrier
-// per step. Design, the same for both directions of the pass: ONE persistent
-// cooperative launch per (layer, direction). Block j owns U hidden units
+// Bound of the f32 kernels on the H100: the T serial steps, each a
+// (B, H) x (H, 4H) product in f32 (no tensor cores at full f32:
+// 67 TFLOP/s), plus one grid-wide barrier per step. Design, the same for
+// both directions of the pass: ONE persistent cooperative launch per
+// (layer, direction). Block j owns U hidden units
 // across all four gates; its slice of W_hh (4U columns in the forward, U
 // rows in the backward, stored as float4 over the gates) and its carries
 // stay in shared memory for the whole scan. Each step a block first loads
@@ -48,14 +62,14 @@
 // with the occupancy API and cudaLaunchCooperativeKernel refuses a grid that
 // is not.
 #include "scan_common.cuh"
+#include "scan_tc.cuh"
 
 // U hidden units per block (power of two, 1..128): RB = 2 * NT / U rows of
-// the batch per pass (2 per thread), KC = HS / RB rows of h per chunk. TX is
-// the element type of x_proj and ys (float, or bf16 without residuals).
-template <int U, typename TX>
+// the batch per pass (2 per thread), KC = HS / RB rows of h per chunk.
+template <int U>
 __global__ void __launch_bounds__(NT) lstm_fwd_kernel(
-    const TX* __restrict__ xp, const float* __restrict__ whh,
-    const float* __restrict__ mask, TX* __restrict__ ys, float* hbuf,
+    const float* __restrict__ xp, const float* __restrict__ whh,
+    const float* __restrict__ mask, float* __restrict__ ys, float* hbuf,
     float* __restrict__ cs_out, float* __restrict__ gates_out,
     int T, int B, int H, int reverse) {
   constexpr int RP = NT / U;
@@ -91,11 +105,11 @@ __global__ void __launch_bounds__(NT) lstm_fwd_kernel(
       for (int j = 0; j < 2; ++j) {
         const int row = r0 + 2 * rp + j;
         const bool ok = row < B;
-        const TX* x = xp + ((size_t)t * B + (ok ? row : 0)) * G + unit;
-        a[j][0] = ok ? to_f32(x[0]) : 0.f;
-        a[j][1] = ok ? to_f32(x[H]) : 0.f;
-        a[j][2] = ok ? to_f32(x[2 * H]) : 0.f;
-        a[j][3] = ok ? to_f32(x[3 * H]) : 0.f;
+        const float* x = xp + ((size_t)t * B + (ok ? row : 0)) * G + unit;
+        a[j][0] = ok ? x[0] : 0.f;
+        a[j][1] = ok ? x[H] : 0.f;
+        a[j][2] = ok ? x[2 * H] : 0.f;
+        a[j][3] = ok ? x[3 * H] : 0.f;
         m[j] = ok ? mask[(size_t)t * B + row] : 0.f;
       }
       for (int k0 = 0; k0 < H; k0 += KC) {
@@ -134,7 +148,7 @@ __global__ void __launch_bounds__(NT) lstm_fwd_kernel(
         const size_t o = (size_t)t * B + row;
         c_s[row * U + u] = c_keep;
         hnext[(size_t)unit * B + row] = m[j] * h_new + (1.f - m[j]) * h_old;
-        ys[o * H + unit] = from_f32<TX>(m[j] * h_new);
+        ys[o * H + unit] = m[j] * h_new;
         if (keep) {
           cs_out[o * H + unit] = c_keep;
           float* gr = gates_out + o * G + unit;
@@ -260,10 +274,9 @@ __global__ void __launch_bounds__(NT) lstm_bwd_kernel(
   }
 }
 
-#define FWD_KERNEL(u) lstm_fwd_kernel<u, TX>
+#define FWD_KERNEL(u) lstm_fwd_kernel<u>
 #define BWD_KERNEL(u) lstm_bwd_kernel<u>
 
-template <typename TX>
 static void* fwd_for(int U) {
   switch (U) { SCAN_CASES(FWD_KERNEL) }
 }
@@ -272,8 +285,8 @@ static void* bwd_for(int U) {
   switch (U) { SCAN_CASES(BWD_KERNEL) }
 }
 
-// Kernel kinds: the f32 forward, the backward, the bf16 forward.
-enum { KIND_FWD = 0, KIND_BWD = 1, KIND_FWD_BF16 = 2 };
+// Kernel kinds of the f32 scans: the forward, the backward.
+enum { KIND_FWD = 0, KIND_BWD = 1 };
 
 // Dynamic shared memory of one block: the W_hh slice (float4 per unit and
 // k), the 64 KB chunk, and the carries (one B x U array forward, two back).
@@ -284,9 +297,8 @@ extern "C" size_t lstm_smem_bytes(int B, int H, int U, int kind) {
 
 static void* kernel_ptr(int U, int kind) {
   switch (kind) {
-    case KIND_FWD: return fwd_for<float>(U);
+    case KIND_FWD: return fwd_for(U);
     case KIND_BWD: return bwd_for(U);
-    case KIND_FWD_BF16: return fwd_for<__nv_bfloat16>(U);
     default: return nullptr;
   }
 }
@@ -313,21 +325,40 @@ extern "C" int lstm_fwd_launch(const float* xp, const float* whh,
                      stream);
 }
 
-// The bf16 variant: xp and ys are bf16 (T, B, 4H) / (T, B, H), no residuals.
-extern "C" int lstm_fwd_bf16_launch(const void* xp, const float* whh,
-                                    const float* mask, void* ys, float* hbuf,
-                                    int T, int B, int H, int U, int reverse,
-                                    void* stream) {
-  void* fn = kernel_ptr(U, KIND_FWD_BF16);
-  if (fn == nullptr || H % U != 0) return (int)cudaErrorInvalidValue;
-  const __nv_bfloat16* x = (const __nv_bfloat16*)xp;
-  __nv_bfloat16* y = (__nv_bfloat16*)ys;
-  float* none = nullptr;
-  void* args[] = {(void*)&x, (void*)&whh, (void*)&mask, (void*)&y,
-                  (void*)&hbuf, (void*)&none, (void*)&none, (void*)&T,
-                  (void*)&B, (void*)&H, (void*)&reverse};
-  return scan_launch(fn, U, H, lstm_smem_bytes(B, H, U, KIND_FWD_BF16), args,
-                     stream);
+// K2-bf16's gate epilogue: p the product sums h @ W_hh, x the step's x_proj
+// (i, f, g, o), c the cell state of this row and unit (held when masked).
+struct LstmCell {
+  static constexpr int NG = 4;  // gates
+  static constexpr int NS = 1;  // state floats per row and unit: c
+  __device__ __forceinline__ float step(const float* p, const float* x,
+                                        float h_old, float* c, int,
+                                        bool m, int) const {
+    const float gi = sigmoidf_(x[0] + p[0]), gf = sigmoidf_(x[1] + p[1]);
+    const float gg = tanhf(x[2] + p[2]), go = sigmoidf_(x[3] + p[3]);
+    const float c_new = gf * c[0] + gi * gg;
+    if (m) c[0] = c_new;
+    return go * tanhf(c_new);
+  }
+};
+
+// Groups of K2-bf16 (clusters of C blocks; TC_GRID: cooperative groups)
+// that can be resident at once, into *out.
+extern "C" int lstm_tc_max_groups(int H, int U, int C, int kw, int kg,
+                                  int rows, int mode, int* out) {
+  return tc_max_groups<LstmCell>(H, U, C, kw, kg, rows, mode, out);
+}
+
+// K2-bf16: xp (T, B, 4H) and ys (T, B, H) bf16; wrem a scratch of
+// C * warps * kw * 1024 bytes; hbuf (TC_GRID only) 2 * groups * rows * H
+// floats. The launch takes groups g0 .. g0 + groups - 1 of `rows` rows.
+extern "C" int lstm_tc_launch(const void* xp, const float* whh,
+                              const float* mask, void* ys, void* wrem,
+                              float* hbuf, int T, int B, int H, int U, int C,
+                              int kw, int kg, int rows, int g0, int groups,
+                              int mode, int reverse, void* stream) {
+  TcArgs a = {(const __nv_bfloat16*)xp, whh, mask, (__nv_bfloat16*)ys,
+              (uint4*)wrem, hbuf, T, B, H, U, C, kw, kg, rows, g0, reverse, 0};
+  return tc_scan_launch(a, LstmCell{}, groups, mode, stream);
 }
 
 // dgbuf: 2 * H * B float4, zero-filled by the caller.

@@ -1,10 +1,9 @@
-// What the recurrent time scans (lstm_scan.cu, gru_scan.cu) share: the
-// block size and shared-memory chunk, the f32 / bf16 element conversions,
-// the co-residency query and the cooperative launch of one persistent grid
-// of H / U blocks (U hidden units per block, a template constant).
+// What the f32 recurrent time scans (lstm_scan.cu, gru_scan.cu) share: the
+// block size and shared-memory chunk, the co-residency query and the
+// cooperative launch of one persistent grid of H / U blocks (U hidden units
+// per block, a template constant).
 #pragma once
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -14,19 +13,6 @@ namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename TX> __device__ __forceinline__ TX from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // The instantiation for U hidden units per block (nullptr for another U).

@@ -17,10 +17,11 @@ directions, with no flipped copies.
 
 Numerics: the kernels compute in f32 throughout (no Precision.DEFAULT bf16
 multiplies) and are held to the f32 plain versions. The forward also takes
-bf16 x_proj (decode amp): ``gru_scan_bf16`` widens x_proj as it reads it,
-keeps W_hh, b_hh, the carry and the gate math in f32 and writes ys rounded
-to bf16, as the TPU kernel does; its plain version is ``gru_scan_plain`` on
-bf16 x_proj.
+bf16 x_proj (decode amp): ``gru_scan_bf16`` (K4-bf16) widens x_proj as it
+reads it, keeps W_hh, b_hh, the carry and the gate math in f32 and writes ys
+rounded to bf16, as the TPU kernel does; its plain version is
+``gru_scan_plain`` on bf16 x_proj. On the card it is K2-bf16's tensor-core
+scan (``scan_tc``) with the GRU's gate epilogue.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, scan_tc
 from .lstm_kernel import _pick_units, _prev_step
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -37,8 +38,8 @@ _SIGNATURES = {
     "gru_max_coresident": (_I, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
     "gru_fwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P]),
-    "gru_fwd_bf16_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _P]),
+    "gru_tc_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
+    "gru_tc_launch": (_I, [_P] * 7 + [_I] * 12 + [_P]),
     "gru_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _P]),
 }
@@ -149,7 +150,7 @@ def gru_scan_bwd_plain(gates: torch.Tensor, hp_n: torch.Tensor,
 
 
 # kernel kinds of gru_max_coresident
-_FWD, _BWD, _FWD_BF16 = 0, 1, 2
+_FWD, _BWD = 0, 1
 
 
 def _check_fwd(what, x_proj, w_hh, b_hh, mask, dtype):
@@ -209,27 +210,19 @@ gru_scan_fused.launches = 0
 def gru_scan_bf16(x_proj: torch.Tensor, w_hh: torch.Tensor,
                   b_hh: torch.Tensor, mask: torch.Tensor,
                   reverse: bool = False) -> torch.Tensor:
-    """K4's bf16 variant (decode amp). x_proj (T, B, 3H) bf16, w_hh (H, 3H)
-    and b_hh (3H,) f32, mask (T, B) bool -> ys (T, B, H) bf16; carry and
-    gate math f32. CPU tensors take the plain version; CUDA tensors launch
-    the kernel. Either way, inputs of another dtype or layout raise."""
+    """K4-bf16 (decode amp). x_proj (T, B, 3H) bf16, w_hh (H, 3H) and b_hh
+    (3H,) f32, mask (T, B) bool -> ys (T, B, H) bf16; carry and gate math
+    f32. CPU tensors take the plain version; CUDA tensors launch the
+    tensor-core kernel (``scan_tc``). Either way, inputs of another dtype
+    or layout raise."""
     T, B, H = _check_fwd("gru_scan_bf16", x_proj, w_hh, b_hh, mask,
                          torch.bfloat16)
     if x_proj.device.type == "cpu":
         return gru_scan_plain(x_proj, w_hh, b_hh, mask, reverse)
     lib = build.load("gru_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib.gru_max_coresident, _FWD_BF16)
-    dev = x_proj.device
-    ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
-    hbuf = torch.zeros((2, H, B), dtype=torch.float32, device=dev)
-    m = mask.to(torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gru_fwd_bf16_launch(x_proj.data_ptr(), w_hh.data_ptr(),
-                                 b_hh.data_ptr(), m.data_ptr(), ys.data_ptr(),
-                                 hbuf.data_ptr(), T, B, H, U, int(reverse),
-                                 stream)
-    build.check(rc, "gru_scan_bf16 launch")
-    gru_scan_bf16.launches += 1
+    ys, n = scan_tc.run(lib.gru_tc_launch, lib.gru_tc_max_groups, x_proj,
+                        w_hh, (b_hh,), mask, reverse, 3)
+    gru_scan_bf16.launches += n
     return ys
 
 

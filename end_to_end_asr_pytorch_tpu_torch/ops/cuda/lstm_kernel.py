@@ -18,9 +18,12 @@ in both directions and makes no flipped copies.
 Numerics: the TPU kernels pin Precision.DEFAULT (bf16 multiplies on a TPU,
 f32 in CPU interpret mode). These kernels compute in f32 throughout and are
 held to the f32 plain versions. The forward also takes bf16 x_proj (decode
-amp, the TPU kernel's x_proj.dtype outputs): ``lstm_scan_bf16`` reads bf16
-x_proj, keeps W_hh, the carries and the gate math in f32 and writes ys
-rounded to bf16; its plain version is ``lstm_scan_plain`` on bf16 x_proj.
+amp, the TPU kernel's x_proj.dtype outputs): ``lstm_scan_bf16`` (K2-bf16)
+reads bf16 x_proj, keeps W_hh, the carries and the gate math in f32 and
+writes ys rounded to bf16; its plain version is ``lstm_scan_plain`` on bf16
+x_proj. On the card it is a separate design, the tensor-core scan of
+``scan_tc`` (one thread-block cluster per layer, direction and group of
+batch rows, the product exact to f32 through a three-part split of h).
 The JAX package's own CPU scan rounds the carries to bf16 each step, which
 the TPU kernel does not: the port follows the kernel.
 """
@@ -31,7 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, scan_tc
 
 _NT = 256  # threads per block in the kernels
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,8 +42,8 @@ _SIGNATURES = {
     "lstm_max_coresident": (_I, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
     "lstm_fwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _P]),
-    "lstm_fwd_bf16_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _P]),
+    "lstm_tc_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
+    "lstm_tc_launch": (_I, [_P] * 6 + [_I] * 12 + [_P]),
     "lstm_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _P]),
 }
@@ -145,7 +148,7 @@ def dw_hh(ys: torch.Tensor, dxp: torch.Tensor, reverse: bool) -> torch.Tensor:
 
 
 # kernel kinds of lstm_max_coresident
-_FWD, _BWD, _FWD_BF16 = 0, 1, 2
+_FWD, _BWD = 0, 1
 
 
 def _pick_units(H: int, B: int, max_coresident, kind: int) -> int:
@@ -214,10 +217,11 @@ lstm_scan_fused.launches = 0
 
 def lstm_scan_bf16(x_proj: torch.Tensor, w_hh: torch.Tensor,
                    mask: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """K2's bf16 variant (decode amp). x_proj (T, B, 4H) bf16, w_hh (H, 4H)
-    f32, mask (T, B) bool -> ys (T, B, H) bf16; carries and gate math f32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    Either way, inputs of another dtype or layout raise."""
+    """K2-bf16 (decode amp). x_proj (T, B, 4H) bf16, w_hh (H, 4H) f32, mask
+    (T, B) bool -> ys (T, B, H) bf16; carries and gate math f32. CPU tensors
+    take the plain version; CUDA tensors launch the tensor-core kernel
+    (``scan_tc``), whose product equals the f32 one. Either way, inputs of
+    another dtype or layout raise."""
     T, B, G = x_proj.shape
     H = G // 4
     build.check_inputs("lstm_scan_bf16", x_proj,
@@ -229,17 +233,9 @@ def lstm_scan_bf16(x_proj: torch.Tensor, w_hh: torch.Tensor,
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_scan_bf16: unsupported device {x_proj.device}")
     lib = build.load("lstm_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib.lstm_max_coresident, _FWD_BF16)
-    dev = x_proj.device
-    ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
-    hbuf = torch.zeros((2, H, B), dtype=torch.float32, device=dev)
-    m = mask.to(torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.lstm_fwd_bf16_launch(x_proj.data_ptr(), w_hh.data_ptr(),
-                                  m.data_ptr(), ys.data_ptr(), hbuf.data_ptr(),
-                                  T, B, H, U, int(reverse), stream)
-    build.check(rc, "lstm_scan_bf16 launch")
-    lstm_scan_bf16.launches += 1
+    ys, n = scan_tc.run(lib.lstm_tc_launch, lib.lstm_tc_max_groups, x_proj,
+                        w_hh, (), mask, reverse, 4)
+    lstm_scan_bf16.launches += n
     return ys
 
 
