@@ -42,10 +42,15 @@ Phases, each printing one JSON line:
                 design, 1 bf16 ulp + 1e-5);
                 cuDNN nn.GRU in f32 (TF32 off) and in bf16 as the library
                 yardsticks
-  k4b         - K4's residuals and the GRU backward kernel against the plain
-                backward and against autograd through the plain scan, same
-                shapes (dxp atol 1e-4, dW_hh and db_hh within 1e-3 of their
-                max magnitude)
+  k4b         - K4's residuals and the GRU backward kernel (the tensor-core
+                backward scan) against the plain backward and against
+                autograd through the plain scan, same shapes (dxp atol
+                1e-4, dW_hh and db_hh within 1e-3 of their max magnitude),
+                for the picked design and every other (cluster or grid, 8
+                or 16 rows per group, in waves where they do not fit),
+                each timed; its bound at the f32 rate and at the tensor
+                rate of its six bf16 passes; cuDNN nn.GRU fwd+bwd - fwd as
+                the yardstick; then H=320 and H=1024 at B=32 and 128
   k5          - the beam-step location-attention kernel against its plain
                 version at B=128 and the slice's batch, K=8, T=176, d=300,
                 F=10, ragged lengths (align atol 1e-5, ctx atol 1e-4)
@@ -65,14 +70,18 @@ Phases, each printing one JSON line:
   k8          - the fused beam-step tail kernel against its plain version
                 on real beam states: the slice's model, LM, batch and
                 config recorded at steps 0, 1, 40 and the last (B=32, K=8,
-                V=31, T=176; step 40 also without the LM), and the same
-                decode at V=5120 at step 1
+                V=31, T=176: one block per utterance), the same decode at
+                V=5120 (a cluster of 16 blocks) at steps 1, 40 and the
+                last, both also without the LM at step 40, at V=999 (4
+                uneven slices) at steps 1 and 40, a batch of 128 at
+                V=5120, step 1, and beams of 16 and 4 at V=31 (16 also at
+                V=5120)
                 (winners equal on every slot, dead ones included, unless
                 the plain scores are a near tie within 1e-5; scores and
                 psi rtol / atol 1e-5; r rtol / atol 1e-4; max_abs_err over
-                base, psi, finished scores and r); times at step 40, and
-                the device time of the kernel and of the plain tail per
-                step
+                base, psi, finished scores and r); times at step 40 of
+                V=31 and V=5120 and at step 1 of the batch of 128, and the
+                device time of the kernel and of the plain tail per step
   slice       - serving main path: bench.py's model at full width (VGG +
                 3x BiLSTM-512, loc attention 300 / kernel 100, LSTM-512
                 decoder and LM, beam 8, V=31, CTC 0.3 + LM 0.3, decode.amp
@@ -140,7 +149,8 @@ Phases, each printing one JSON line:
                 bench.py's model, 4 steps, validation every 2), then
                 transcribe of two dev WAVs with its latest.pth
 Then a line with the per-kernel measurements ({"kernels": [...]}: K1 and K2
-launches counted on the slice's run, K8 on slice_fused's, K5 on
+launches counted on the slice's run, K8 on slice_fused's (and its V=5120
+row on slice_sub5k_f32's), K5 on
 slice_att's, K2's bf16 variant
 on slice_amp's, K6 on slice_sub5k's, K2b and K3 on the train run, K7 on
 train_att's, K4 on slice_gru's, K4's bf16 variant on slice_gru_amp's, K4b
@@ -767,41 +777,94 @@ def phase_k4(seed, slice_batch, T=176, H=512):
     return records[slice_batch], bf16_records[slice_batch]
 
 
-def phase_k4b(seed, slice_batch, T=176, H=512):
-    """K4's residuals and K4b against the plain backward and against
-    autograd through the plain scan, both directions, ragged masks, at
-    B=128 and at the slice's batch; cuDNN nn.GRU fwd+bwd - fwd as the
-    yardstick."""
+def k4b_bound(B, T, H):
+    """K4b's bound (reads gates, hp_n, ys, dys, mask, W_hh; writes dxp,
+    dW_hh, db_hh), at the f32 rate for the recurrent product and the dW_hh
+    GEMM (2 T B H 3H operations each), and with the recurrent product at
+    the dense bf16 tensor rate for the six split passes the kernel runs
+    (the GEMM stays f32, TF32 off)."""
+    nbytes = 4 * (T * B * (3 * H + 3 * H + 3 * H) + T * B + 2 * H * 3 * H
+                  + 3 * H)
+    prod = T * 2 * B * 3 * H * H
+    f32 = bound(nbytes, 2 * prod + T * 20 * B * H)
+    ops_ms = (6 * prod / BF16_TC_FLOPS + (prod + T * 20 * B * H) / F32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BPS * 1e3
+    tensor = (t_bytes, "bytes") if t_bytes >= ops_ms else (ops_ms, "operations")
+    return f32, tensor
+
+
+def check_k4b(gk, w_hh, b_hh, xp, dys, mask, designs):
+    """K4b against the plain backward and against autograd through the
+    plain scan, both directions: dxp atol 1e-4, dW_hh and db_hh within 1e-3
+    of their max magnitude; for the picked design and each of ``designs``
+    ((mode, rows) forced, launches not counted). Returns the worst errors
+    and each design's launches."""
     import torch
-    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
-    rng = np.random.RandomState(seed + 11)
-    w_hh, b_hh = gru_weights(rng, H)
-    cudnn = cudnn_gru(w_hh, b_hh)
-    records = {}
-    for B in (128, slice_batch):
-        xp, dys, mask = gru_case(rng, B, T, H)
-        errs = {"dxp": 0.0, "dw": 0.0, "db": 0.0, "ag_dxp": 0.0, "ag_dw": 0.0,
-                "ag_db": 0.0}
-        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
-        for reverse in (False, True):
-            ys, gates, hp_n = gk.gru_scan_fused(xp, w_hh, b_hh, mask, reverse,
-                                                residuals=True)
-            dxp, dw, db = gk.gru_bwd_fused(gates, hp_n, ys, mask, w_hh, dys,
-                                           reverse)
-            pys, pg, ph = gk.gru_scan_fwd_plain(xp, w_hh, b_hh, mask, reverse)
-            pdxp, pdw, pdb = gk.gru_scan_bwd_plain(pg, ph, pys, mask, w_hh,
-                                                   dys, reverse)
-            x, w, b = (t.clone().requires_grad_(True) for t in (xp, w_hh, b_hh))
-            gk.gru_scan_plain(x, w, b, mask, reverse).backward(dys)
+    errs = {"dxp": 0.0, "dw": 0.0, "db": 0.0, "ag_dxp": 0.0, "ag_dw": 0.0,
+            "ag_db": 0.0}
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    launches = {}
+    for reverse in (False, True):
+        ys, gates, hp_n = gk.gru_scan_fused(xp, w_hh, b_hh, mask, reverse,
+                                            residuals=True)
+        pys, pg, ph = gk.gru_scan_fwd_plain(xp, w_hh, b_hh, mask, reverse)
+        pdxp, pdw, pdb = gk.gru_scan_bwd_plain(pg, ph, pys, mask, w_hh, dys,
+                                               reverse)
+        x, w, b = (t.clone().requires_grad_(True) for t in (xp, w_hh, b_hh))
+        gk.gru_scan_plain(x, w, b, mask, reverse).backward(dys)
+        for design in (None, *designs):
+            if design is None:
+                dxp, dw, db = gk.gru_bwd_fused(gates, hp_n, ys, mask, w_hh,
+                                               dys, reverse)
+            else:
+                dxp, dhp, n = gk.gru_bwd_tc(gates, hp_n, ys, mask, w_hh, dys,
+                                            reverse, *design)
+                dw, db = gk.dw_db(ys, dhp, reverse)
+                launches[design] = n
             torch.cuda.synchronize()
             check(all(bool(torch.isfinite(t).all()) for t in (dxp, dw, db)),
-                  "K4b output not finite")
+                  f"K4b output not finite (design {design})")
             for tag, (rx, rw, rb) in (("", (pdxp, pdw, pdb)),
                                       ("ag_", (x.grad, w.grad, b.grad))):
                 errs[tag + "dxp"] = max(errs[tag + "dxp"],
                                         float((dxp - rx).abs().max()))
                 errs[tag + "dw"] = max(errs[tag + "dw"], rel(dw, rw))
                 errs[tag + "db"] = max(errs[tag + "db"], rel(db, rb))
+    return errs, launches
+
+
+def phase_k4b(seed, slice_batch, T=176, H=512):
+    """K4's residuals and K4b (the tensor-core backward scan) against the
+    plain backward and against autograd through the plain scan, both
+    directions, ragged masks, at B=128 and at the slice's batch, for the
+    design the wrapper picks and for every design (cluster or grid, 8 or
+    16 rows per group, in waves where the groups do not fit at once),
+    each timed; then H=320 and H=1024 (a grid of 64 blocks) off the main
+    path. cuDNN nn.GRU fwd+bwd - fwd as the yardstick."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build, scan_tc
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
+    rng = np.random.RandomState(seed + 11)
+    w_hh, b_hh = gru_weights(rng, H)
+    cudnn = cudnn_gru(w_hh, b_hh)
+    lib = build.load("gru_scan", gk._SIGNATURES)
+    query = lib.gru_tc_bwd_max_groups
+    all_designs = [(m, r) for m in (scan_tc.CLUSTER, scan_tc.GRID)
+                   for r in (8, 16)]
+    dname = lambda d: (f"{'cluster' if d[0] == scan_tc.CLUSTER else 'grid'}"
+                       f"_rows{d[1]}")
+
+    def fits(d, B, Hw):
+        """Whether a design's blocks fit the card at all (a cluster may
+        run in waves; a grid wave needs one group resident)."""
+        return scan_tc.max_groups(query, Hw, 3, d[1], d[0],
+                                  scan_tc.plan_bwd) >= 1
+
+    records = {}
+    for B in (128, slice_batch):
+        xp, dys, mask = gru_case(rng, B, T, H)
+        designs = [d for d in all_designs if fits(d, B, H)]
+        errs, launches = check_k4b(gk, w_hh, b_hh, xp, dys, mask, designs)
         check(errs["dxp"] <= 1e-4 and errs["ag_dxp"] <= 1e-4,
               f"K4b dxp max abs err {errs} at B={B}")
         check(max(errs["dw"], errs["db"], errs["ag_dw"], errs["ag_db"]) <= 1e-3,
@@ -818,12 +881,16 @@ def phase_k4b(seed, slice_batch, T=176, H=512):
 
         lib_fwd_ms = cuda_ms(lib_fwd, 10)
         lib_ms = cuda_ms(lib_fwd_bwd, 10) - lib_fwd_ms
-        # reads gates, hp_n, ys, dys, mask, W_hh; writes dxp, dW_hh, db_hh;
-        # the recurrent product and the dW_hh GEMM each 2*T*B*H*3H operations
-        nbytes = 4 * (T * B * (3 * H + 3 * H + 3 * H) + T * B + 2 * H * 3 * H
-                      + 3 * H)
-        flops = T * (4 * B * 3 * H * H + 20 * B * H)
-        b_ms, b_by = bound(nbytes, flops)
+        (b_ms, b_by), (bt_ms, bt_by) = k4b_bound(B, T, H)
+        mode, rows = scan_tc.pick(query, H, 3, B, scan_tc.plan_bwd,
+                                  grid_first=True)
+        design_ms = {dname(d): {
+            "ms": cuda_ms(lambda: gk.gru_bwd_tc(gates, hp_n, ys, mask, w_hh,
+                                                dys, True, *d), 10),
+            "launches": launches[d],
+            "groups_resident": scan_tc.max_groups(query, H, 3, d[1], d[0],
+                                                  scan_tc.plan_bwd)}
+            for d in designs}
         records[B] = {
             "name": "gru_bwd_fused", "route": "cuda",
             "source": "end_to_end_asr_pytorch_tpu_torch/csrc/gru_scan.cu",
@@ -835,11 +902,39 @@ def phase_k4b(seed, slice_batch, T=176, H=512):
                 gates, hp_n, ys, mask, w_hh, dys, True), 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         emit({"phase": "k4b", "T": T, "B": B, "H": H,
+              "plan": dict(zip(("C", "U", "kw", "kg"), scan_tc.plan_bwd(H, 3))),
+              "design": dname((mode, rows)), "design_ms": design_ms,
+              "kernel_ms": cuda_ms(lambda: gk.gru_bwd_tc(
+                  gates, hp_n, ys, mask, w_hh, dys, True), 10),
+              "bound_ms_tensor": bt_ms, "bound_by_tensor": bt_by,
+              "bound_rate_tensor": "recurrent product: 6 bf16 passes at 989 "
+                                   "TFLOP/s; dW_hh GEMM at the f32 rate",
               "dw_err_over_max": errs["dw"], "db_err_over_max": errs["db"],
               "autograd_dxp_max_abs_err": errs["ag_dxp"],
               "autograd_dw_err_over_max": errs["ag_dw"],
               "autograd_db_err_over_max": errs["ag_db"],
               "library_fwd_ms": lib_fwd_ms, **records[B]})
+    widths = {}
+    for Hw in (320, 1024):
+        w2, b2 = gru_weights(rng, Hw)
+        for B in (32, 128):
+            xp, dys, mask = gru_case(rng, B, T, Hw)
+            errs, _ = check_k4b(gk, w2, b2, xp, dys, mask, [])
+            check(errs["dxp"] <= 1e-4 and errs["ag_dxp"] <= 1e-4 and max(
+                errs["dw"], errs["db"], errs["ag_dw"], errs["ag_db"]) <= 1e-3,
+                f"K4b errors {errs} at H={Hw}, B={B}")
+            ys, gates, hp_n = gk.gru_scan_fused(xp, w2, b2, mask, True,
+                                                residuals=True)
+            before = gk.gru_bwd_fused.launches
+            gk.gru_bwd_fused(gates, hp_n, ys, mask, w2, dys, True)
+            widths[f"H{Hw}_B{B}"] = {
+                **errs, "launches": gk.gru_bwd_fused.launches - before,
+                "plan": scan_tc.plan_bwd(Hw, 3),
+                "design": dname(scan_tc.pick(query, Hw, 3, B, scan_tc.plan_bwd,
+                                             grid_first=True)),
+                "ms": cuda_ms(lambda: gk.gru_bwd_fused(
+                    gates, hp_n, ys, mask, w2, dys, True), 5)}
+    emit({"phase": "k4b_widths", "T": T, "widths": widths})
     return records[slice_batch]
 
 
@@ -1256,56 +1351,77 @@ def k8_bound(B, K, T, V):
     return bound(nbytes, 2 * bk * T * V)
 
 
+V_ODD = 999           # a vocabulary K8's cluster slices unevenly
+
+
 def phase_k8(frontend, batch, seed):
-    """K8 against its plain version on real beam states: the slice's model,
-    LM, batch and config (amp off) recorded at steps 0, 1, 40 and the last,
-    and the same decode at V=5120 recorded at step 1. Times per launch at
-    step 40 (CUDA events over 20 calls), the plain tail's, and the device
-    time of both per step."""
+    """K8 against its plain version on real beam states of the slice's
+    model, LM and config (amp off): at V=31 (one block per utterance)
+    recorded at steps 0, 1, 40 and the last, at V=5120 (a cluster of 16
+    blocks) at steps 1, 40 and the last, both also without the LM at step
+    40; at V=999 (a cluster of 4 uneven slices) at steps 1 and 40; and a
+    batch of 128 at V=5120, step 1; beams of 16 (two psi passes: V=31 at
+    steps 1 and 40, V=5120 at step 1) and of 4 (V=31, steps 1 and 40).
+    Times per launch (CUDA events over 20 calls) at step 40 of both widths and step 1 of the batch of 128, the
+    plain tail's, and the device time of both per step. Returns the kernels
+    line's rows for V=31 and V=5120."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import beam_step_kernel as bsk
-    w, wl = make_waves(batch, seed + 2)          # the slice's batch
-    wave, wave_len = torch.from_numpy(w).cuda(), torch.from_numpy(wl).cuda()
-    res = {}
-    for vocab, steps in ((V_CHAR, (0, 1, 40, "last")), (V_SUB, (1,))):
+    res, rows = {}, {}
+    for vocab, B, K, steps, timed in (
+            (V_CHAR, batch, 8, (0, 1, 40, "last"), 40),
+            (V_SUB, batch, 8, (1, 40, "last"), 40),
+            (V_ODD, batch, 8, (1, 40), None),
+            (V_SUB, 128, 8, (1,), 1),
+            (V_CHAR, batch, 16, (1, 40), None),   # two psi passes
+            (V_SUB, batch, 16, (1,), None),
+            (V_CHAR, batch, 4, (1, 40), None)):
+        w, wl = make_waves(B, seed + 2)          # the slice's batch
+        wave, wave_len = torch.from_numpy(w).cuda(), torch.from_numpy(wl).cuda()
         model, lm = slice_models(frontend, seed, vocab)
-        rec = record_beam_steps(frontend, model, lm, DECODE_CFG, wave,
-                                wave_len, steps, stop_early=vocab == V_SUB)
+        rec = record_beam_steps(frontend, model, lm,
+                                {**DECODE_CFG, "beam_size": K}, wave,
+                                wave_len, steps,
+                                stop_early="last" not in steps)
+        del model, lm
         cases = [(step, args, kw) for step, (args, kw) in rec.items()]
-        if vocab == V_CHAR:                  # the no-LM kernel path too
+        if "last" in steps:                  # the no-LM kernel path too
             args, kw = rec[40]
             cases.append(("40, no LM", (*args[:2], None, *args[3:]),
                           {**kw, "lw": 0.0}))
         for step, args, kw in cases:
             c = k8_compare(args, kw)
-            B, K, V = args[1].shape
+            _, Kr, V = args[1].shape
+            check(Kr == K, f"recorded a beam of {Kr}, wanted {K}")
             T = args[8].shape[2]
             emit({"phase": "k8", "vocab": V, "step": args[0],
-                  "recorded_as": step, "B": B, "K": K, "T": T, **c})
-            res[(vocab, step)] = c
-        del model, lm
-        args, kw = rec[40 if vocab == V_CHAR else 1]
-        B, K, V = args[1].shape
+                  "recorded_as": step, "B": B, "K": K, "T": T,
+                  "clusters": bsk.clusters(V), **c})
+            res[(vocab, B, K, step)] = c
+        if timed is None:
+            continue
+        args, kw = rec[timed]
+        _, _, V = args[1].shape
         T = args[8].shape[2]
         b_ms, b_by = k8_bound(B, K, T, V)
         rec_v = {"name": "beam_step_fused", "route": "cuda",
                  "source": "end_to_end_asr_pytorch_tpu_torch/csrc/beam_step.cu",
                  "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/"
                              "beam_step_kernel.py:281",
-                 "max_abs_err": max(c["max_abs_err"] for (v, _), c in res.items()
-                                    if v == vocab),
+                 "max_abs_err": max(c["max_abs_err"] for (v, b, k, _), c in
+                                    res.items() if (v, b, k) == (vocab, B, K)),
                  "ms": cuda_ms(lambda: bsk.beam_step_fused(*args, **kw), 20),
                  "plain_ms": cuda_ms(lambda: bsk.beam_step_plain(*args, **kw), 20),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         emit({"phase": "k8_time", "vocab": V, "step": args[0], "B": B, "K": K,
-              "T": T, **rec_v,
+              "T": T, "clusters": bsk.clusters(V), **rec_v,
               "library": "none: no single PyTorch call computes a beam step",
               "device_ms": device_ms(lambda: bsk.beam_step_fused(*args, **kw)),
               "plain_device_ms": device_ms(
                   lambda: bsk.beam_step_plain(*args, **kw))})
-        if vocab == V_CHAR:
-            record = rec_v
-    return record
+        if B == batch:
+            rows[vocab] = rec_v
+    return rows[V_CHAR], {**rows[V_SUB], "name": "beam_step_fused (V=5120)"}
 
 
 def with_attention(**keys):
@@ -1457,7 +1573,8 @@ def phase_slice_other(frontend, sl, decode_cfg, name, expect,
           "top1_identical_share_vs_slice": same, "launches": got})
     bd = (slice_breakdown(frontend, sl["model"], decoder, sl["wave"],
                           sl["wave_len"], name) if breakdown else None)
-    return {"out": out, "seconds_per_batch": dt, "breakdown": bd}
+    return {"out": out, "seconds_per_batch": dt, "breakdown": bd,
+            "launches": got}
 
 
 def slice_breakdown(frontend, model, decoder, wave, wave_len, name):
@@ -2010,7 +2127,8 @@ def main():
                         "loc_att_train", "psi", "gru_scan", "beam_step"]
                        + (["scan_floor"] if "scan_floor" in phases else []))
     ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "Function properties" in ln]
              for k, v in build.build_log.items()}
     emit({"phase": "build", "seconds": secs, "ptxas": ptxas})
 
@@ -2040,7 +2158,9 @@ def main():
         (kernels["loc_att_fwd_fused"],
          kernels["loc_att_bwd_fused"]) = phase_k7(args.seed, args.batch)
     if "k8" in phases:
-        kernels["beam_step_fused"] = phase_k8(frontend, args.batch, args.seed)
+        (kernels["beam_step_fused"],
+         kernels["beam_step_fused_v5120"]) = phase_k8(frontend, args.batch,
+                                                      args.seed)
 
     def record(launches, names):
         for name in names:
@@ -2085,7 +2205,7 @@ def main():
         phase_slice_other(frontend, sl, {**sub_cfg, "psi_kernel": False},
                           "slice_sub5k_no_psi_kernel", amp_expect,
                           breakdown=True)
-        # f32 at V=5120: K8 (slower than the plain tail on the device)
+        # f32 at V=5120: K8 (a cluster of 16 blocks per utterance)
         # against its plain version, end to end
         f32 = [phase_slice_other(frontend, sl, cfg, name, exp, breakdown=True)
                for cfg, name, exp in (
@@ -2093,6 +2213,9 @@ def main():
                    (UNFUSED_CFG, "slice_sub5k_f32_unfused", SLICE_EXPECT))]
         compare_slices(f32[0], f32[1], "slice_sub5k_f32_vs_unfused",
                        args.batch)
+        if "beam_step_fused_v5120" in kernels:
+            kernels["beam_step_fused_v5120"]["launches"] = \
+                f32[0]["launches"]["beam_step_fused"]
         if "entry_sub5k" in phases:
             phase_entry(sl["model"], args.seed, "entry_sub5k",
                         {k: v for k, v in sub_cfg.items()

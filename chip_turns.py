@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Times K4b and K8 of one checkout of the PyTorch port on one GPU, so that
+two commits can be compared on the same card in turns.
+
+    python3 chip_turns.py [--root DIR] [--seed 0] [--cases k4b,k8_31,...]
+
+``--root`` is the checkout whose ``end_to_end_asr_pytorch_tpu_torch`` is
+imported (default: this one); run the script once per checkout, in turns
+(parent, change, change, parent), inside one call on the card. It prints
+one JSON line per measurement and last the card's name and power limit:
+
+  k4b  - gru_bwd_fused (with the dW_hh GEMM) at T=176, H=512, B=32 and 128,
+         reversed, ragged masks, beside cuDNN nn.GRU fwd+bwd - fwd (TF32 off)
+  k8   - beam_step_fused at B=32 (V=31 and V=5120) and B=128 (V=5120), K=8,
+         T=176, on beam states made by 40 plain beam steps over random
+         logits and CTC log-probs from --seed (ms by CUDA events over 20
+         calls, and the least of 9 more such trials: where the host's
+         enqueue is slower than the card, as at V=31, the host's noise
+         only ever adds; device ms by the profiler), beside the plain tail
+
+``--cases`` keeps only the named ones (k4b, k8_31, k8_5120, k8_5120_b128;
+default all). It needs CUDA and exits with an error without it.
+"""
+import argparse
+import inspect
+import subprocess
+import sys
+from pathlib import Path
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cases", default="k4b,k8_31,k8_5120,k8_5120_b128")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_turns: CUDA is not available")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import chip_smoke as cs              # this checkout's timing helpers
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    from end_to_end_asr_pytorch_tpu_torch.ops import ctc_prefix
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import beam_step_kernel as bsk
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
+    import numpy as np
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = str(Path(args.root).resolve())
+    assert Path(bsk.__file__).resolve().is_relative_to(root), bsk.__file__
+
+    cases = set(args.cases.split(","))
+    T, H = 176, 512
+    for B in ((32, 128) if "k4b" in cases else ()):
+        rng = np.random.RandomState(args.seed + B)
+        w_hh, b_hh = cs.gru_weights(rng, H)
+        xp, dys, mask = cs.gru_case(rng, B, T, H)
+        ys, gates, hp_n = gk.gru_scan_fused(xp, w_hh, b_hh, mask, True,
+                                            residuals=True)
+        cudnn = cs.cudnn_gru(w_hh, b_hh)
+        xl = xp.clone().requires_grad_(True)
+        fwd = cs.cuda_ms(lambda: cudnn(xl)[0], 10)
+        cs.emit({"turn": "k4b", "root": root, "B": B,
+                 "ms": cs.cuda_ms(lambda: gk.gru_bwd_fused(
+                     gates, hp_n, ys, mask, w_hh, dys, True), 10),
+                 "cudnn_ms": cs.cuda_ms(
+                     lambda: cudnn(xl)[0].backward(dys), 10) - fwd})
+
+    takes_probs = "probs" in inspect.signature(bsk.beam_step_fused).parameters
+    for B, V, name in ((32, 31, "k8_31"), (32, 5120, "k8_5120"),
+                       (128, 5120, "k8_5120_b128")):
+        if name not in cases:
+            continue
+        g = torch.Generator(device="cuda").manual_seed(args.seed + V)
+        K = 8
+        lens = torch.randint(T // 2, T + 1, (B,), generator=g, device="cuda")
+        lens[0] = T
+        raw = torch.randn(B, T, V, generator=g, device="cuda") * 3
+        lp = ctc_prefix.pad_ctc_log_probs(torch.log_softmax(raw, -1),
+                                          lens.to(torch.int32))
+        r, _ = ctc_prefix.init_state(lp, K)
+        state = [torch.zeros(B, K, device="cuda"),
+                 (torch.arange(K, device="cuda")[None] == 0).expand(
+                     B, K).contiguous(),
+                 torch.full((B, K), 1, dtype=torch.int64, device="cuda"),
+                 torch.full((B, K), -1e30, device="cuda"),
+                 torch.zeros((B, K), dtype=torch.int64, device="cuda"),
+                 r.contiguous()]
+        mn = torch.ceil(0.05 * lens.float()).to(torch.int32)
+        mx = torch.clamp(torch.ceil(0.6 * lens.float()).to(torch.int32), min=1)
+        kw = dict(aw=0.7, cw=0.3, lw=0.3, eos=1, pad=0, blank=0)
+        probs = torch.exp(lp)
+        for t in range(41):
+            logits = torch.randn(B, K, V, generator=g, device="cuda") * 2
+            lm = torch.randn(B, K, V, generator=g, device="cuda") * 2
+            base, valid, last, fin_norm, fin_meta, r = state
+            step = (t, logits, lm, base, valid, last, fin_norm, fin_meta, r,
+                    lp, mn, mx)
+            o = bsk.beam_step_plain(*step, probs=probs, **kw)
+            state = [o.new_base, o.new_valid, o.v_idx, o.fin_norm, o.fin_meta,
+                     o.r.contiguous()]
+        fkw = {**kw, "probs": probs} if takes_probs else kw
+        fused = lambda: bsk.beam_step_fused(*step, **fkw)
+        plain = lambda: bsk.beam_step_plain(*step, probs=probs, **kw)
+        cs.emit({"turn": "k8", "root": root, "B": B, "V": V,
+                 "ms": cs.cuda_ms(fused, 20),
+                 "ms_min_of_9": min(cs.cuda_ms(fused, 20) for _ in range(9)),
+                 "device_ms": cs.device_ms(fused),
+                 "plain_ms": cs.cuda_ms(plain, 20),
+                 "plain_device_ms": cs.device_ms(plain)})
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -27,34 +27,32 @@
 // split into three bf16 parts, the exchange through distributed shared
 // memory); this file keeps only the gate epilogue (GruCell).
 //
-// Backward: replaces gru_kernel.py:_bwd_kernel / _run_bwd. It walks time
-// opposite to the forward. Per step, with h_prev the forward's previous
-// output (t-1, or t+1 reversed; zero at the first step the forward walked):
+// Backward (K4b): replaces gru_kernel.py:_bwd_kernel / _run_bwd. It walks
+// time opposite to the forward. Per step, with h_prev the forward's
+// previous output (t-1, or t+1 reversed; zero at the first step the forward
+// walked):
 //   dh = dh_carry + dys[t] ; dz = dh (h_prev - n) ; dn = dh (1 - z) ;
 //   dan = dn (1 - n^2) ; dar = dan hp_n r (1 - r) ; daz = dz z (1 - z) ;
 //   dxp = m [dar, daz, dan] ; dhp = m [dar, daz, dan r] ;
 //   dh_carry <- dhp . W_hh^T + m dh z + (1 - m) dh_carry.
 // It writes dxp and dhp (T, B, 3H); dW_hh = hs_prev^T . dhp and
 // db_hh = sum dhp are one GEMM and one sum outside the kernel, as in the TPU
-// wrapper.
+// wrapper. It runs on the tensor cores: see the note at GruBwdCell below.
 //
-// Bound of the f32 kernels on the H100: the T serial steps, each a
+// Bound of the f32 forward on the H100: the T serial steps, each a
 // (B, H) x (H, 3H) product in f32 (67 TFLOP/s without tensor cores), plus
 // one grid-wide barrier per step. Design, lstm_scan.cu's: ONE persistent
 // cooperative launch per (layer, direction). Block j owns U hidden units
 // across the three gates; its slice of W_hh (float4 per unit and k, the
-// fourth lane zero) stays in shared memory for the whole scan, and so does
-// the backward's carry (the
-// forward's carry is its own h, which it reads back from the double buffer).
-// Each step a block loads its threads' step inputs first (they do not depend
-// on the product, so their latency overlaps it), then streams the previous
-// step's full h (forward, (H, B)) or full dhp (backward, (H, B) of float4:
-// its product reduces over all 3H columns, so every block needs all of
-// them) through a 64 KB shared-memory chunk of rb = B (rounded up to even,
-// at most 2 NT / U) rows, accumulates in registers, writes its slice of the
-// step's outputs into a global double buffer and meets the other blocks at
-// grid.sync(). The grid must be co-resident; the wrapper checks it with the
-// occupancy API and cudaLaunchCooperativeKernel refuses a grid that is not.
+// fourth lane zero) stays in shared memory for the whole scan. Each step a
+// block loads its threads' step inputs first (they do not depend on the
+// product, so their latency overlaps it), then streams the previous step's
+// full h ((H, B)) through a 64 KB shared-memory chunk of rb = B (rounded up
+// to even, at most 2 NT / U) rows, accumulates in registers, writes its
+// slice of the step's outputs into a global double buffer and meets the
+// other blocks at grid.sync(). The grid must be co-resident; the wrapper
+// checks it with the occupancy API and cudaLaunchCooperativeKernel refuses
+// a grid that is not.
 #include "scan_common.cuh"
 #include "scan_tc.cuh"
 
@@ -156,141 +154,21 @@ __global__ void __launch_bounds__(NT) gru_fwd_kernel(
   }
 }
 
-// Backward (K4b). Block j owns units u0..u0+U-1: w_s[k*U + u] holds
-// W_hh[u0+u, g*H + k] for the three gates g, dgbuf[k*B + row] the previous
-// walked step's dhp of unit k (float4 over the gates, the fourth lane zero),
-// dh_s[row*U + u] the part of the next carry that is not the product:
-// m dh z + (1 - m) dh_carry.
-template <int U>
-__global__ void __launch_bounds__(NT) gru_bwd_kernel(
-    const float* __restrict__ gates, const float* __restrict__ hpn,
-    const float* __restrict__ ys, const float* __restrict__ dys,
-    const float* __restrict__ mask, const float* __restrict__ whh,
-    float* __restrict__ dxp, float* __restrict__ dhp, float4* dgbuf,
-    int T, int B, int H, int reverse) {
-  constexpr int RP = NT / U;
-  constexpr int HS4 = HS / 4;
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem4[];
-  const int G = 3 * H;
-  float4* w_s = smem4;                       // H*U
-  float4* d_s = smem4 + H * U;               // kc x rb chunk of dhp
-  float* dh_s = (float*)(d_s + HS4);         // B x U
-  const int u0 = blockIdx.x * U;
-
-  for (int idx = threadIdx.x; idx < H * U; idx += NT) {
-    const int k = idx / U, u = idx % U;
-    const float* row = whh + (size_t)(u0 + u) * G + k;
-    w_s[idx] = make_float4(row[0], row[H], row[2 * H], 0.f);
-  }
-  for (int idx = threadIdx.x; idx < B * U; idx += NT) dh_s[idx] = 0.f;
-  __syncthreads();
-
-  const int rp = threadIdx.x % RP;
-  const int u = threadIdx.x / RP;
-  const int unit = u0 + u;
-  const int rb = min(2 * RP, (B + 1) & ~1);
-  const int kc = HS4 / rb;
-  const bool active = 2 * rp < rb;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? s : T - 1 - s;
-    const int tp = reverse ? t + 1 : t - 1;
-    const bool has_prev = tp >= 0 && tp < T;
-    const float4* dprev = dgbuf + (size_t)((s + 1) & 1) * H * B;
-    float4* dnext = dgbuf + (size_t)(s & 1) * H * B;
-    for (int r0 = 0; r0 < B; r0 += rb) {
-      float gr[2], gz[2], gn[2], hn[2], hp[2], dy[2], m[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int row = r0 + 2 * rp + j;
-        const bool ok = active && row < B;
-        const size_t o = (size_t)t * B + (ok ? row : 0);
-        const float* g = gates + o * G + unit;
-        gr[j] = ok ? g[0] : 0.f;
-        gz[j] = ok ? g[H] : 0.f;
-        gn[j] = ok ? g[2 * H] : 0.f;
-        hn[j] = ok ? hpn[o * H + unit] : 0.f;
-        hp[j] = (ok && has_prev) ? ys[((size_t)tp * B + row) * H + unit] : 0.f;
-        dy[j] = ok ? dys[o * H + unit] : 0.f;
-        m[j] = ok ? mask[o] : 0.f;
-      }
-      float acc[2] = {0.f, 0.f};
-      for (int k0 = 0; k0 < H; k0 += kc) {
-        for (int idx = threadIdx.x; idx < kc * rb; idx += NT) {
-          const int kk = idx / rb, r = idx % rb;
-          const int row = r0 + r;
-          d_s[idx] = (k0 + kk < H && row < B)
-                         ? dprev[(size_t)(k0 + kk) * B + row] : zero4;
-        }
-        __syncthreads();
-        if (active) {
-          const int kmax = min(kc, H - k0);
-#pragma unroll 4
-          for (int kk = 0; kk < kmax; ++kk) {
-            const float4 w = w_s[(k0 + kk) * U + u];
-            const float4 d0 = d_s[kk * rb + 2 * rp];
-            const float4 d1 = d_s[kk * rb + 2 * rp + 1];
-            acc[0] = fmaf(d0.x, w.x, acc[0]); acc[0] = fmaf(d0.y, w.y, acc[0]);
-            acc[0] = fmaf(d0.z, w.z, acc[0]);
-            acc[1] = fmaf(d1.x, w.x, acc[1]); acc[1] = fmaf(d1.y, w.y, acc[1]);
-            acc[1] = fmaf(d1.z, w.z, acc[1]);
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int row = r0 + 2 * rp + j;
-        if (!active || row >= B) continue;
-        const int ci = row * U + u;
-        const float dh_carry = acc[j] + dh_s[ci];
-        const float dh = dh_carry + dy[j];
-        const float dz = dh * (hp[j] - gn[j]);
-        const float dn = dh * (1.f - gz[j]);
-        const float dan = dn * (1.f - gn[j] * gn[j]);
-        const float dr = dan * hn[j];
-        const float dar = m[j] * (dr * gr[j] * (1.f - gr[j]));
-        const float daz = m[j] * (dz * gz[j] * (1.f - gz[j]));
-        const float dhn = m[j] * (dan * gr[j]);
-        dh_s[ci] = m[j] * (dh * gz[j]) + (1.f - m[j]) * dh_carry;
-        const size_t o = ((size_t)t * B + row) * G + unit;
-        dxp[o] = dar; dxp[o + H] = daz; dxp[o + 2 * H] = m[j] * dan;
-        dhp[o] = dar; dhp[o + H] = daz; dhp[o + 2 * H] = dhn;
-        dnext[(size_t)unit * B + row] = make_float4(dar, daz, dhn, 0.f);
-      }
-    }
-    grid.sync();
-  }
-}
-
 #define FWD_KERNEL(u) gru_fwd_kernel<u>
-#define BWD_KERNEL(u) gru_bwd_kernel<u>
 
-static void* fwd_for(int U) {
+// Kernel kinds of the f32 cooperative scan: the forward only (K4b runs on
+// the tensor cores).
+enum { KIND_FWD = 0 };
+
+static void* kernel_ptr(int U, int kind) {
+  if (kind != KIND_FWD) return nullptr;
   switch (U) { SCAN_CASES(FWD_KERNEL) }
 }
 
-static void* bwd_for(int U) {
-  switch (U) { SCAN_CASES(BWD_KERNEL) }
-}
-
-// Kernel kinds of the f32 scans: the forward, the backward.
-enum { KIND_FWD = 0, KIND_BWD = 1 };
-
-// Dynamic shared memory of one block: the W_hh slice (float4 per unit and
-// k), the 64 KB chunk, and the backward's B x U carry.
+// Dynamic shared memory of one forward block: the W_hh slice (float4 per
+// unit and k) and the 64 KB chunk.
 extern "C" size_t gru_smem_bytes(int B, int H, int U, int kind) {
-  return (size_t)H * U * sizeof(float4) +
-         (size_t)(HS + (kind == KIND_BWD ? B * U : 0)) * sizeof(float);
-}
-
-static void* kernel_ptr(int U, int kind) {
-  switch (kind) {
-    case KIND_FWD: return fwd_for(U);
-    case KIND_BWD: return bwd_for(U);
-    default: return nullptr;
-  }
+  return (size_t)H * U * sizeof(float4) + (size_t)HS * sizeof(float);
 }
 
 // Blocks of the U-unit kernel of that kind that can be resident at once on
@@ -358,19 +236,87 @@ extern "C" int gru_tc_launch(const void* xp, const float* whh,
   return tc_scan_launch(a, GruCell{bhh, H}, groups, mode, stream);
 }
 
-// dgbuf: 2 * H * B float4, zero-filled by the caller.
-extern "C" int gru_bwd_launch(const float* gates, const float* hpn,
-                              const float* ys, const float* dys,
-                              const float* mask, const float* whh, float* dxp,
-                              float* dhp, void* dgbuf, int T, int B, int H,
-                              int U, int reverse, void* stream) {
-  void* fn = kernel_ptr(U, KIND_BWD);
-  if (fn == nullptr || H % U != 0) return (int)cudaErrorInvalidValue;
-  float4* dg = (float4*)dgbuf;
-  void* args[] = {(void*)&gates, (void*)&hpn, (void*)&ys, (void*)&dys,
-                  (void*)&mask, (void*)&whh, (void*)&dxp, (void*)&dhp,
-                  (void*)&dg, (void*)&T, (void*)&B, (void*)&H,
-                  (void*)&reverse};
-  return scan_launch(fn, U, H, gru_smem_bytes(B, H, U, KIND_BWD), args,
-                     stream);
+// ------------------------------------------------- K4b on the tensor cores
+// Backward (K4b): replaces end_to_end_asr_pytorch_tpu/ops/pallas/
+// gru_kernel.py:149 _run_bwd (pallas_call at :158). What bounds it on the
+// H100: the T serial steps, each a (B, 3H) x (3H, H) product (at B=32,
+// H=512: 5.0e7 FLOP, ~0.75 us at the f32 rate, ~0.3 us for six bf16 passes
+// at the tensor rate) behind one barrier and one exchange of the step's
+// dhp (B x 3H f32) across the blocks: latency, not the operation rate.
+// Design: scan_tc.cuh's backward scan. C blocks (16 at H=512) per group
+// of 8 or 16 batch rows, W_hh fragments in registers (w_hi) and L2 (w_mid,
+// w_lo), dhp split into three bf16 parts so that the tensor-core product
+// equals the f32 one, and the next step's gates, hp_n, h_prev, dys and
+// mask brought in by coalesced cp.async while the step runs. The groups
+// form one cooperative grid that exchanges dhp through L2 behind
+// grid.sync() where the card holds them all (at H=512 up to B=128: for
+// dhp, three times the forward's h, this exchange measured faster than a
+// cluster's), else clusters that exchange it through distributed shared
+// memory behind barrier.cluster. This file keeps the gate epilogue
+// (GruBwdCell); dW_hh and db_hh stay one GEMM and one sum outside the
+// kernel.
+struct GruBwdCell {
+  static constexpr int NG = 3;  // gates (r, z, n)
+  static constexpr int NI = 6;  // inputs per unit: r, z, n, hp_n, h_prev, dy
+  static constexpr int NS = 1;  // m dh z + (1 - m) dh_carry
+  const float *gates, *hpn, *ys, *dys;
+  float *dxp, *dhp;
+  int B, H;
+  // U floats of input `i` at time t (tp the forward's previous step) for
+  // batch row b from unit u0; null: zeros (no previous step)
+  __device__ __forceinline__ const float* src(int i, int t, int tp,
+                                              bool has_prev, int b,
+                                              int u0) const {
+    const size_t o = (size_t)t * B + b;
+    switch (i) {
+      case 0: case 1: case 2: return gates + o * 3 * H + i * H + u0;
+      case 3: return hpn + o * H + u0;
+      case 4: return has_prev ? ys + ((size_t)tp * B + b) * H + u0 : nullptr;
+      default: return dys + o * H + u0;
+    }
+  }
+  __device__ __forceinline__ void step(float p, const float* x, bool mb,
+                                       float* st, int, float* dg, int t,
+                                       int b, int unit) const {
+    const float r = x[0], z = x[1], n = x[2], hn = x[3], hp = x[4];
+    const float m = mb ? 1.f : 0.f;
+    const float dh_carry = p + st[0];
+    const float dh = dh_carry + x[5];
+    const float dz = dh * (hp - n);
+    const float dn = dh * (1.f - z);
+    const float dan = dn * (1.f - n * n);
+    const float dr = dan * hn;
+    const float dar = m * (dr * r * (1.f - r));
+    const float daz = m * (dz * z * (1.f - z));
+    const float dhn = m * (dan * r);
+    st[0] = m * (dh * z) + (1.f - m) * dh_carry;
+    const size_t o = ((size_t)t * B + b) * 3 * H + unit;
+    dxp[o] = dar; dxp[o + H] = daz; dxp[o + 2 * H] = m * dan;
+    dhp[o] = dar; dhp[o + H] = daz; dhp[o + 2 * H] = dhn;
+    dg[0] = dar; dg[1] = daz; dg[2] = dhn;
+  }
+};
+
+// Groups of K4b's tensor-core backward that can be resident at once.
+extern "C" int gru_tc_bwd_max_groups(int H, int U, int C, int kw, int kg,
+                                     int rows, int mode, int* out) {
+  return tc_bwd_max_groups<GruBwdCell>(H, U, C, kw, kg, rows, mode, out);
+}
+
+// K4b on the tensor cores: gates (T, B, 3H), hp_n / ys / dys (T, B, H),
+// mask (T, B) f32, w_hh (H, 3H); writes dxp and dhp (T, B, 3H). wrem a
+// scratch of C * warps * kw * 1024 bytes; hbuf (TC_GRID only) 2 * groups *
+// rows * 3H floats. The launch takes groups g0 .. g0 + groups - 1.
+extern "C" int gru_tc_bwd_launch(const float* gates, const float* hpn,
+                                 const float* ys, const float* dys,
+                                 const float* mask, const float* whh,
+                                 float* dxp, float* dhp, void* wrem,
+                                 float* hbuf, int T, int B, int H, int U,
+                                 int C, int kw, int kg, int rows, int g0,
+                                 int groups, int mode, int reverse,
+                                 void* stream) {
+  TcBwdArgs a = {whh, mask, (uint4*)wrem, hbuf, T, B, H, U, C, kw, kg, rows,
+                 g0, reverse, 0};
+  return tc_bwd_launch(a, GruBwdCell{gates, hpn, ys, dys, dxp, dhp, B, H},
+                       groups, mode, stream);
 }

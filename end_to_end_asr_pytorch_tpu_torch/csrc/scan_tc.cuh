@@ -622,3 +622,401 @@ static int tc_scan_launch(TcArgs a, Cell cell, int groups, int mode,
   void* args[] = {(void*)&a, (void*)&cell};
   return tc_launch(fn, args, a.C, groups, threads, smem, mode, stream);
 }
+
+// ------------------------------------------------------- the backward scan
+// The f32 backward of a recurrent scan on the same tensor cores (K4b in
+// gru_scan.cu; K2b can take it by adding its own Cell). Per walked step it
+// computes the carry's product dhp . W_hh^T, which reduces over the K =
+// NG * H gate columns of the previous walked step's dhp, then the Cell's
+// epilogue. Block `rank` owns U = H / C hidden units (output rows of the
+// transposed product): carry^T (U x rows) = W_hh[u0:u0+U, :] (U x K) .
+// dhp^T (K x rows), U zero-padded to m-tiles of 16 and K to kg groups of
+// kw k-steps of 16. Warp (mi, kgi) holds its W_hh fragments in registers
+// for all T steps (A[m][k] = W_hh[u0 + m][k], contiguous along k).
+//
+// Exact to f32 arithmetic as the forward: dhp is split into three bf16
+// parts each step; training W_hh is not bf16-valued, so W_hh is split too
+// (w_hi in registers; w_mid, w_lo fragments in a global scratch read back
+// from L2) and the six cross terms above f32 rounding are summed:
+// hi.w_hi in one f32 sum, mid.w_hi + lo.w_hi + hi.w_mid + mid.w_mid +
+// hi.w_lo in another (ops/cuda/scan_tc.py split_product).
+//
+// Exchange: each block writes its slice of the step's dhp (rows x NG U f32)
+// to its own double-buffered slot; after one barrier every block copies all
+// C slots into the three bf16 planes (rows x (Kk + 8)) of the next step's
+// product: through distributed shared memory behind barrier.cluster
+// (TC_CLUSTER), or through L2 behind grid.sync() (TC_GRID, slots in a
+// global buffer in k order). The Cell's NI per-unit inputs of the next
+// walked step (U contiguous floats per input and row, so the copies are 16
+// bytes and coalesce) and the mask come in with cp.async while the barrier,
+// the exchange and the product of the current step run.
+struct TcBwdArgs {
+  const float* whh;   // (H, NG*H)
+  const float* mask;  // (T, B), 1 / 0
+  uint4* wrem;        // C * warps * kw * 64 uint4: w_mid, w_lo fragments
+  float* hbuf;        // TC_GRID: (groups, 2, rows, NG*H) exchange slots
+  int T, B, H, U, C, kw, kg, rows, g0, reverse;
+  int Kk;             // NG*H zero-padded to kg * kw * 16 (set by the launch)
+};
+
+__host__ __device__ inline int tc_bwd_mp(int U) { return (U + 15) / 16 * 16; }
+
+__host__ __device__ inline TcLayout tc_bwd_layout(int Kk, int U, int NG,
+                                                  int NI, int NS, int rows,
+                                                  int kg, int mode) {
+  TcLayout L;
+  size_t o = 0;
+  L.s = o;    // three bf16 planes of dhp, rows x (Kk + 8)
+  o = tc_align(o + (size_t)3 * rows * (Kk + 8) * 2);
+  L.p = o;    // kg partial products, MP x (rows + 1) f32
+  o = tc_align(o + (size_t)kg * tc_bwd_mp(U) * (rows + 1) * 4);
+  L.own = o;  // TC_CLUSTER: two slots of this block's dhp, rows x NG U f32
+  if (mode == TC_CLUSTER) o = tc_align(o + (size_t)2 * rows * NG * U * 4);
+  L.st = o;   // the cell's carry state, NS x rows x U f32
+  o = tc_align(o + (size_t)NS * rows * U * 4);
+  L.xs = o;   // two buffers of the step inputs, rows x NI x U f32
+  o = tc_align(o + (size_t)2 * rows * NI * U * 4);
+  L.ms = o;   // two buffers of mask rows
+  o = tc_align(o + (size_t)2 * rows * 4);
+  L.total = o;
+  return L;
+}
+
+// Walked step s -> real time t and the step the forward walked before it
+// (tp, outside [0, T) at the forward's first step).
+__device__ __forceinline__ void tc_bwd_time(const TcBwdArgs& a, int s, int& t,
+                                            int& tp) {
+  t = a.reverse ? s : a.T - 1 - s;
+  tp = a.reverse ? t + 1 : t - 1;
+}
+
+// cp.async of walked step s's inputs (the Cell's NI planes of U floats per
+// row; a null source is zero-filled) and mask rows into one buffer.
+template <class Cell>
+__device__ __forceinline__ void tc_bwd_prefetch(const TcBwdArgs& a,
+                                                const Cell& cell, float* xs,
+                                                float* ms, int s, int b0,
+                                                int nb, int u0) {
+  constexpr int NI = Cell::NI;
+  int t, tp;
+  tc_bwd_time(a, s, t, tp);
+  const bool has_prev = tp >= 0 && tp < a.T;
+  const int U4 = a.U / 4;
+  const int n = nb * NI * U4;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = i / (NI * U4), rem = i - r * NI * U4;
+    const int pl = rem / U4, j = rem - pl * U4;
+    const float* src = cell.src(pl, t, tp, has_prev, b0 + r, u0);
+    float* dst = xs + (size_t)(r * NI + pl) * a.U + 4 * j;
+    if (src != nullptr) tc_cp16(dst, src + 4 * j);
+    else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int r = threadIdx.x; r < nb; r += blockDim.x)
+    tc_cp4(ms + r, a.mask + (size_t)t * a.B + b0 + r);
+  tc_cp_commit();
+}
+
+// Copies slot `buf` of every block of the group (dhp, K = NG H columns per
+// row in k = g H + unit order) into the three bf16 planes of S.
+template <int MODE>
+__device__ __forceinline__ void tc_bwd_fetch(const TcBwdArgs& a, int NG,
+                                             float* own_s, __nv_bfloat16* S,
+                                             int SR, int group, int buf) {
+  const int K = NG * a.H, K4 = K / 4, H4 = a.H / 4, U4 = a.U / 4;
+  const int GU = NG * a.U;
+  const size_t plane = (size_t)a.rows * SR;
+  const int n = a.rows * K4;
+  constexpr int FB = 2;
+  for (int i0 = threadIdx.x; i0 < n; i0 += FB * blockDim.x) {
+    float4 v[FB];
+#pragma unroll
+    for (int f = 0; f < FB; ++f) {
+      const int i = i0 + f * blockDim.x;
+      if (i >= n) break;
+      const int r = i / K4, k4 = i - r * K4;
+      if (MODE == TC_CLUSTER) {
+        const int g = k4 / H4, rem = k4 - g * H4;
+        const int q = rem / U4, j = rem - q * U4;
+        const float* src = cg::this_cluster().map_shared_rank(
+            own_s + (size_t)buf * a.rows * GU, q);
+        v[f] = *reinterpret_cast<const float4*>(src + r * GU + g * a.U +
+                                                4 * j);
+      } else {
+        v[f] = __ldcg(reinterpret_cast<const float4*>(
+            a.hbuf + ((size_t)(group * 2 + buf) * a.rows + r) * K + 4 * k4));
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < FB; ++f) {
+      const int i = i0 + f * blockDim.x;
+      if (i >= n) break;
+      const int r = i / K4, k4 = i - r * K4;
+      __nv_bfloat16 h[4], m[4], l[4];
+      tc_split3(v[f].x, h[0], m[0], l[0]);
+      tc_split3(v[f].y, h[1], m[1], l[1]);
+      tc_split3(v[f].z, h[2], m[2], l[2]);
+      tc_split3(v[f].w, h[3], m[3], l[3]);
+      __nv_bfloat16* d = S + (size_t)r * SR + 4 * k4;
+      *reinterpret_cast<uint2*>(d) =
+          make_uint2(tc_pack(h[0], h[1]), tc_pack(h[2], h[3]));
+      *reinterpret_cast<uint2*>(d + plane) =
+          make_uint2(tc_pack(m[0], m[1]), tc_pack(m[2], m[3]));
+      *reinterpret_cast<uint2*>(d + 2 * plane) =
+          make_uint2(tc_pack(l[0], l[1]), tc_pack(l[2], l[3]));
+    }
+  }
+}
+
+// The backward scan. NTILE n-tiles of 8 rows; blockDim = 32 * MT * kg with
+// MT = ceil(U / 16). Grid: C blocks per group of `rows` batch rows.
+template <class Cell, int MODE, int NTILE>
+__global__ void __launch_bounds__(TC_MAX_THREADS, 1)
+    tc_bwd_kernel(TcBwdArgs a, Cell cell) {
+  constexpr int NG = Cell::NG, NI = Cell::NI, NS = Cell::NS;
+  const int U = a.U, H = a.H, K = NG * H, GU = NG * U;
+  const int MP = tc_bwd_mp(U), MT = MP / 16;
+  const int rank = blockIdx.x % a.C, group = blockIdx.x / a.C;
+  const int u0 = rank * U, b0 = (a.g0 + group) * a.rows;
+  const int nb = min(a.rows, a.B - b0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mi = warp % MT, kgi = warp / MT;
+  const int SR = a.Kk + 8, RS = a.rows + 1;
+  const size_t plane = (size_t)a.rows * SR;
+
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const TcLayout L = tc_bwd_layout(a.Kk, U, NG, NI, NS, a.rows, a.kg, MODE);
+  __nv_bfloat16* S = (__nv_bfloat16*)(tc_smem + L.s);
+  float* P = (float*)(tc_smem + L.p);
+  float* own_s = (float*)(tc_smem + L.own);
+  float* st = (float*)(tc_smem + L.st);
+  float* xs = (float*)(tc_smem + L.xs);
+  float* ms = (float*)(tc_smem + L.ms);
+
+  // zero both slots (slot 0 is the zero dhp before the first walked step;
+  // rows past the batch stay 0), the state and the planes' padding columns
+  for (int b = 0; b < 2; ++b)
+    for (int i = threadIdx.x; i < a.rows * GU; i += blockDim.x) {
+      if (MODE == TC_CLUSTER) {
+        own_s[(size_t)b * a.rows * GU + i] = 0.f;
+      } else {
+        const int r = i / GU, c = i - r * GU, g = c / U;
+        a.hbuf[((size_t)(group * 2 + b) * a.rows + r) * K + g * H + u0 +
+               c - g * U] = 0.f;
+      }
+    }
+  for (int i = threadIdx.x; i < NS * a.rows * U; i += blockDim.x) st[i] = 0.f;
+  if (a.Kk > K) {
+    const int pad = a.Kk - K;
+    for (int i = threadIdx.x; i < 3 * a.rows * pad; i += blockDim.x)
+      S[(size_t)(i / pad) * SR + K + i % pad] = __float2bfloat16_rn(0.f);
+  }
+  tc_bwd_prefetch(a, cell, xs, ms, 0, b0, nb, u0);
+
+  // W fragments: A[m][k] = W_hh[u0 + m][k]; rows past U and k past K zero
+  const int ca = mi * 16 + (lane >> 2), cb = ca + 8;
+  const float* wa = ca < U ? a.whh + (size_t)(u0 + ca) * K : nullptr;
+  const float* wb = cb < U ? a.whh + (size_t)(u0 + cb) * K : nullptr;
+  uint32_t wr[TC_KW][4];
+  bool nonzero = false;
+#pragma unroll
+  for (int i = 0; i < TC_KW; ++i) {
+    if (i < a.kw) {
+      float v[8];
+      tc_wfrag(wa, wb, (kgi * a.kw + i) * 16 + 2 * (lane & 3), K, 1, v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat16 h0 = __float2bfloat16_rn(v[2 * e]);
+        const __nv_bfloat16 h1 = __float2bfloat16_rn(v[2 * e + 1]);
+        nonzero |= v[2 * e] != __bfloat162float(h0) ||
+                   v[2 * e + 1] != __bfloat162float(h1);
+        wr[i][e] = tc_pack(h0, h1);
+      }
+    }
+  }
+  const bool any_rem = __syncthreads_or(nonzero) != 0;
+  uint4* rem = a.wrem + (((size_t)rank * (blockDim.x >> 5) + warp) * a.kw) *
+                            64 + lane * 2;
+  if (any_rem) {
+    for (int i = 0; i < a.kw; ++i) {
+      float v[8];
+      tc_wfrag(wa, wb, (kgi * a.kw + i) * 16 + 2 * (lane & 3), K, 1, v);
+      __nv_bfloat16 h[8], m[8], l[8];
+      for (int e = 0; e < 8; ++e) tc_split3(v[e], h[e], m[e], l[e]);
+      rem[i * 64] = make_uint4(tc_pack(m[0], m[1]), tc_pack(m[2], m[3]),
+                               tc_pack(m[4], m[5]), tc_pack(m[6], m[7]));
+      rem[i * 64 + 1] = make_uint4(tc_pack(l[0], l[1]), tc_pack(l[2], l[3]),
+                                   tc_pack(l[4], l[5]), tc_pack(l[6], l[7]));
+    }
+  }
+
+  if (MODE == TC_CLUSTER) tc_cluster_arrive();
+  for (int s = 0; s < a.T; ++s) {
+    int t, tp;
+    tc_bwd_time(a, s, t, tp);
+    const int cur = s & 1;
+    if (MODE == TC_CLUSTER) tc_cluster_wait();
+    else cg::this_grid().sync();
+
+    tc_bwd_fetch<MODE>(a, NG, own_s, S, SR, group, cur);
+    __syncthreads();
+
+    float acc[NTILE][4], acl[NTILE][4];
+#pragma unroll
+    for (int n = 0; n < NTILE; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = acl[n][e] = 0.f;
+    const int lr = (lane & 7) + ((lane >> 4) << 3);
+    const int lk = ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int i = 0; i < TC_KW; ++i) {
+      if (i < a.kw) {
+        const int k0 = (kgi * a.kw + i) * 16 + lk;
+        uint4 wm, wl;
+        if (any_rem) {
+          wm = rem[i * 64];
+          wl = rem[i * 64 + 1];
+        }
+#pragma unroll
+        for (int pr = 0; pr < (NTILE + 1) / 2; ++pr) {
+          constexpr bool two = NTILE > 1;
+          const int n0 = 2 * pr, n1 = two ? 2 * pr + 1 : 0;
+          const __nv_bfloat16* b = S + (size_t)(16 * pr + lr) * SR + k0;
+          uint32_t bh[4], bm[4], bl[4];
+          if (two) {
+            tc_ldsm4(bh, b);
+            tc_ldsm4(bm, b + plane);
+            tc_ldsm4(bl, b + 2 * plane);
+          } else {
+            tc_ldsm2(bh, b);
+            tc_ldsm2(bm, b + plane);
+            tc_ldsm2(bl, b + 2 * plane);
+          }
+          tc_mma(acc[n0], wr[i], bh[0], bh[1]);
+          tc_mma(acl[n0], wr[i], bm[0], bm[1]);
+          tc_mma(acl[n0], wr[i], bl[0], bl[1]);
+          if (two) {
+            tc_mma(acc[n1], wr[i], bh[2], bh[3]);
+            tc_mma(acl[n1], wr[i], bm[2], bm[3]);
+            tc_mma(acl[n1], wr[i], bl[2], bl[3]);
+          }
+          if (any_rem) {
+            const uint32_t m4[4] = {wm.x, wm.y, wm.z, wm.w};
+            const uint32_t l4[4] = {wl.x, wl.y, wl.z, wl.w};
+            tc_mma(acl[n0], m4, bh[0], bh[1]);
+            tc_mma(acl[n0], m4, bm[0], bm[1]);
+            tc_mma(acl[n0], l4, bh[0], bh[1]);
+            if (two) {
+              tc_mma(acl[n1], m4, bh[2], bh[3]);
+              tc_mma(acl[n1], m4, bm[2], bm[3]);
+              tc_mma(acl[n1], l4, bh[2], bh[3]);
+            }
+          }
+        }
+      }
+    }
+    {
+      float* p = P + (size_t)kgi * MP * RS;
+      const int r = 2 * (lane & 3);
+#pragma unroll
+      for (int n = 0; n < NTILE; ++n) {
+        p[ca * RS + n * 8 + r] = acc[n][0] + acl[n][0];
+        p[ca * RS + n * 8 + r + 1] = acc[n][1] + acl[n][1];
+        p[cb * RS + n * 8 + r] = acc[n][2] + acl[n][2];
+        p[cb * RS + n * 8 + r + 1] = acc[n][3] + acl[n][3];
+      }
+    }
+    tc_cp_wait();
+    __syncthreads();
+
+    // epilogue: one (row, unit) pair per thread and pass
+    const float* x = xs + (size_t)cur * a.rows * NI * U;
+    const float* mk = ms + cur * a.rows;
+    const int nxt = cur ^ 1;
+    for (int i = threadIdx.x; i < nb * U; i += blockDim.x) {
+      const int r = i / U, u = i - r * U;
+      const float* pc = P + (size_t)u * RS + r;
+      float p = pc[0];
+      for (int j = 1; j < a.kg; ++j) p += pc[(size_t)j * MP * RS];
+      float xv[NI], dg[NG];
+#pragma unroll
+      for (int q = 0; q < NI; ++q) xv[q] = x[(size_t)(r * NI + q) * U + u];
+      cell.step(p, xv, mk[r] != 0.f, st + r * U + u, a.rows * U, dg, t,
+                b0 + r, u0 + u);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        if (MODE == TC_CLUSTER)
+          own_s[((size_t)nxt * a.rows + r) * GU + g * U + u] = dg[g];
+        else
+          a.hbuf[((size_t)(group * 2 + nxt) * a.rows + r) * K + g * H + u0 +
+                 u] = dg[g];
+      }
+    }
+    if (s + 1 < a.T)
+      tc_bwd_prefetch(a, cell, xs + (size_t)nxt * a.rows * NI * U,
+                      ms + nxt * a.rows, s + 1, b0, nb, u0);
+    if (MODE == TC_CLUSTER) tc_cluster_arrive();
+  }
+  if (MODE == TC_CLUSTER) tc_cluster_wait();
+}
+
+template <class Cell, int MODE>
+static void* tc_bwd_kernel_ptr(int rows) {
+  if (rows == 8) return (void*)tc_bwd_kernel<Cell, MODE, 1>;
+  if (rows == 16) return (void*)tc_bwd_kernel<Cell, MODE, 2>;
+  return nullptr;
+}
+
+template <class Cell>
+static void* tc_bwd_kernel_for(int rows, int mode) {
+  return mode == TC_CLUSTER ? tc_bwd_kernel_ptr<Cell, TC_CLUSTER>(rows)
+                            : tc_bwd_kernel_ptr<Cell, TC_GRID>(rows);
+}
+
+// Checks the backward split (C blocks of U units, kg k-groups of kw
+// k-steps that cover the NG H columns) and returns the block size, or 0.
+static int tc_bwd_threads(int H, int U, int C, int kw, int kg, int rows,
+                          int NG) {
+  if (H <= 0 || U <= 0 || C <= 0 || U * C != H || U % 4 != 0 || kw <= 0 ||
+      kw > TC_KW || kg <= 0 || 16 * kw * kg < NG * H ||
+      (rows != 8 && rows != 16))
+    return 0;
+  const int threads = 32 * (tc_bwd_mp(U) / 16) * kg;
+  return threads <= TC_MAX_THREADS ? threads : 0;
+}
+
+template <class Cell>
+static size_t tc_bwd_smem(int kw, int kg, int U, int rows, int mode) {
+  return tc_bwd_layout(16 * kw * kg, U, Cell::NG, Cell::NI, Cell::NS, rows,
+                       kg, mode).total;
+}
+
+// Groups of the Cell's backward scan that can be resident at once, into
+// *out (0 where one block's shared memory does not fit).
+template <class Cell>
+static int tc_bwd_max_groups(int H, int U, int C, int kw, int kg, int rows,
+                             int mode, int* out) {
+  const int threads = tc_bwd_threads(H, U, C, kw, kg, rows, Cell::NG);
+  void* fn = tc_bwd_kernel_for<Cell>(rows, mode);
+  if (threads == 0 || fn == nullptr) return (int)cudaErrorInvalidValue;
+  return tc_prepare(fn, C, threads, tc_bwd_smem<Cell>(kw, kg, U, rows, mode),
+                    mode, out);
+}
+
+// Groups g0 .. g0 + groups - 1 of the batch; hbuf (TC_GRID) holds
+// `groups` groups.
+template <class Cell>
+static int tc_bwd_launch(TcBwdArgs a, Cell cell, int groups, int mode,
+                         void* stream) {
+  const int threads =
+      tc_bwd_threads(a.H, a.U, a.C, a.kw, a.kg, a.rows, Cell::NG);
+  a.Kk = 16 * a.kw * a.kg;
+  void* fn = tc_bwd_kernel_for<Cell>(a.rows, mode);
+  if (threads == 0 || fn == nullptr || a.B <= 0 || a.T <= 0 || groups < 1 ||
+      a.g0 < 0 || (a.g0 + groups - 1) * a.rows >= a.B ||
+      (mode == TC_GRID && a.hbuf == nullptr))
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&a, (void*)&cell};
+  return tc_launch(fn, args, a.C, groups, threads,
+                   tc_bwd_smem<Cell>(a.kw, a.kg, a.U, a.rows, mode), mode,
+                   stream);
+}

@@ -156,10 +156,9 @@ class BeamDecoder:
         amp = feat.is_cuda if self.amp == "auto" else self.amp
         self.last_amp = amp
         # K8's scope (the TPU kernel's, less its layout rule), decided
-        # before any launch: CTC over the full vocabulary, f32 (no amp).
-        # At every V: at V=5120 K8 takes more device time than the eager
-        # tail, but the eager step is host-bound and K8's is not, so the
-        # decode is still faster through K8 (PERF.md)
+        # before any launch: CTC over the full vocabulary, f32 (no amp), at
+        # every V (PERF.md: at V=5120 K8 takes a cluster of blocks per
+        # utterance and less device time than the eager tail)
         fused = self.fused_step and self.use_ctc and not amp
         self.last_fused = fused
         k8_0 = beam_step_kernel.beam_step_fused.launches
@@ -227,7 +226,7 @@ class BeamDecoder:
         }
         aw, cw, lw = 1.0 - self.ctc_weight, self.ctc_weight, self.lm_weight
         if fused and cuda_kernels.USE_KERNELS:
-            run_tail = beam_step_fused
+            run_tail = functools.partial(beam_step_fused, probs=ctc_probs)
         else:
             run_tail = functools.partial(
                 beam_step_plain, probs=ctc_probs, blank_lp=blank_lp,

@@ -20,9 +20,13 @@ carry's r) plus ``psi_pick``, the winners' psi, which the beam's exact early
 exit reads: ``BeamStepOut``. Every top-K is a stable descending sort (ties
 to the lowest index), so dead slots gather the states they gather in the
 plain beam. On the H100 the kernel is bound by its bytes (see the CUDA
-source). ``beam_step_plain`` is also the beam's step tail wherever the
-kernel is not taken (amp, no CTC, ``fused_step: false``), so the beam
-holds one eager copy of it.
+source): it runs a cluster of C blocks per utterance, each a slice of the
+vocabulary (``clusters``), and takes the beam's loop-invariant probs =
+exp(ctc_lp) beside ctc_lp. ``split_top_k`` and ``combined_log_norm`` spell
+out how the slices' top-K candidates and row normalisers are combined.
+``beam_step_plain`` is also the beam's step tail wherever the kernel is
+not taken (amp, no CTC, ``fused_step: false``), so the beam holds one eager
+copy of it.
 """
 from __future__ import annotations
 
@@ -39,9 +43,12 @@ NEG_INF = -1e30
 MAX_K = 256  # the packed finished-set metadata: (step << 8) | slot
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "beam_step_launch": (_I, [_P] * 21 + [_I] * 5 + [_F] * 3 + [_I] * 3
+    "beam_step_launch": (_I, [_P] * 20 + [_I] * 6 + [_F] * 3 + [_I] * 3
                          + [_P]),
+    "beam_step_max_clusters": (_I, [_I] * 4 + [ctypes.POINTER(_I)]),
 }
+MAX_CLUSTER = 16       # blocks per cluster (the H100's non-portable size)
+SLICE = 320            # vocabulary columns per block of a cluster, at most
 
 
 class BeamStepOut(NamedTuple):
@@ -165,6 +172,68 @@ def beam_step_plain(t: int, logits: torch.Tensor,
                        fin_meta_o, r_g[:, :, 0], psi_pick)
 
 
+def split_top_k(scores: torch.Tensor, C: int, k: int):
+    """The kernel's joint top-K, spelled out: scores (B, K, V) cut along V
+    into slices of ceil(V / C) columns, each slice's k best over its
+    (hypothesis, column) entries by (value desc, flat index k V + v asc),
+    then the candidates ranked in the same order. Returns (values, flat
+    indices), each (B, k)."""
+    B, K, V = scores.shape
+    vs = -(-V // C)
+    vals, idx = [], []
+    for lo in range(0, V, vs):
+        part = scores[:, :, lo:lo + vs]
+        w = part.shape[2]
+        v, i = top_k(part.reshape(B, K * w), k)
+        vals.append(v)
+        idx.append((i // w) * V + lo + i % w)
+    vals, idx = torch.cat(vals, 1), torch.cat(idx, 1)
+    # rank by (value desc, flat index asc): order by index, then a stable
+    # sort by value
+    order = torch.argsort(idx, dim=1)
+    vals, idx = torch.gather(vals, 1, order), torch.gather(idx, 1, order)
+    v, pos = top_k(vals, k)
+    return v, torch.gather(idx, 1, pos)
+
+
+def combined_log_norm(x: torch.Tensor, C: int) -> torch.Tensor:
+    """The kernel's log-softmax normaliser of each row of x (..., V), its
+    slices combined: m_i, s_i = max, sum exp(x - m_i) of each of C slices
+    of ceil(V / C) columns; M = max m_i, log S with S = sum s_i exp(m_i -
+    M). Returns M + log S, the row's logsumexp (...,)."""
+    V = x.shape[-1]
+    vs = -(-V // C)
+    parts = [x[..., lo:lo + vs] for lo in range(0, V, vs)]
+    m = torch.stack([p.amax(-1) for p in parts], -1)
+    s = torch.stack([torch.exp(p - p.amax(-1, keepdim=True)).sum(-1)
+                     for p in parts], -1)
+    M = m.amax(-1)
+    return M + torch.log((s * torch.exp(m - M[..., None])).sum(-1))
+
+
+def clusters(V: int) -> int:
+    """Blocks per utterance for vocabulary V: one for V <= SLICE, else
+    ceil(V / SLICE) up to 16, lowered until no slice of ceil(V / C)
+    columns is empty."""
+    C = max(1, min(MAX_CLUSTER, -(-V // SLICE)))
+    while C > 1 and (C - 1) * -(-V // C) >= V:
+        C -= 1
+    return C
+
+
+_resident = {}
+
+
+def _max_clusters(lib, K: int, T: int, V: int, C: int, dev: int) -> int:
+    key = (K, T, V, C, dev)
+    if key not in _resident:
+        out = ctypes.c_int(0)
+        build.check(lib.beam_step_max_clusters(K, T, V, C, ctypes.byref(out)),
+                    "beam_step_fused occupancy query")
+        _resident[key] = out.value
+    return _resident[key]
+
+
 def beam_step_fused(t: int, logits: torch.Tensor,
                     lm_logits: Optional[torch.Tensor], base: torch.Tensor,
                     valid: torch.Tensor, last: torch.Tensor,
@@ -172,10 +241,14 @@ def beam_step_fused(t: int, logits: torch.Tensor,
                     r: torch.Tensor, ctc_lp: torch.Tensor,
                     min_len: torch.Tensor, max_len: torch.Tensor, *,
                     aw: float, cw: float, lw: float, eos: int, pad: int,
-                    blank: int = 0) -> BeamStepOut:
-    """K8, with the dtypes of the module docstring, every input contiguous.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    Either way, inputs of another dtype or layout raise."""
+                    blank: int = 0, probs: Optional[torch.Tensor] = None
+                    ) -> BeamStepOut:
+    """K8, with the dtypes of the module docstring, every input contiguous;
+    ``probs`` = exp(ctc_lp) f32 (B, T, V), computed here when not given
+    (the beam passes its loop-invariant copy). CPU tensors take the plain
+    version; CUDA tensors launch the kernel on ``clusters(V)`` blocks per
+    utterance, and a cluster that cannot be resident raises. Either way,
+    inputs of another dtype or layout raise."""
     B, K, V = logits.shape
     T = r.shape[2]
     f32, i64 = torch.float32, torch.int64
@@ -189,30 +262,43 @@ def beam_step_fused(t: int, logits: torch.Tensor,
              ("max_len", max_len, (B,), torch.int32)]
     if lm_logits is not None:
         specs.append(("lm_logits", lm_logits, (B, K, V), f32))
+    if probs is not None:
+        specs.append(("probs", probs, (B, T, V), f32))
     build.check_inputs("beam_step_fused", logits, *specs)
     kw = dict(aw=aw, cw=cw, lw=lw, eos=eos, pad=pad, blank=blank)
     if logits.device.type == "cpu":
         return beam_step_plain(t, logits, lm_logits, base, valid, last,
                                fin_norm, fin_meta, r, ctc_lp, min_len,
-                               max_len, **kw)
+                               max_len, probs=probs, **kw)
     if logits.device.type != "cuda":
         raise ValueError(f"beam_step_fused: unsupported device {logits.device}")
     if K > MAX_K:
         raise ValueError(f"beam_step_fused: K={K} > {MAX_K}")
     lib = build.load("beam_step", _SIGNATURES)
-    new = lambda shape, dt: torch.empty(shape, dtype=dt, device=logits.device)
-    out = BeamStepOut(new(bk, i64), new(bk, i64), new(bk, torch.bool),
-                      new(bk, f32), new(bk, f32), new(bk, i64),
-                      new((B, K, T, 2), f32), new(bk, f32))
-    tot_s, psi_s = new((B, K, V), f32), new((B, K, V), f32)   # scratch
+    C = clusters(V)
+    if _max_clusters(lib, K, T, V, C, logits.device.index) < 1:
+        raise ValueError(f"beam_step_fused: a cluster of {C} blocks at K={K},"
+                         f" T={T}, V={V} cannot be resident on this card")
+    if probs is None:
+        probs = torch.exp(ctc_lp)
+    # the (B, K) outputs as views of one buffer per dtype: fewer allocations
+    # on a path whose time at V=31 is mostly the host's
+    dev = logits.device
+    i64s = torch.empty((3, B, K), dtype=i64, device=dev)
+    f32s = torch.empty((3, B, K), dtype=f32, device=dev)
+    out = BeamStepOut(i64s[0], i64s[1], torch.empty(bk, dtype=torch.bool,
+                                                     device=dev),
+                      f32s[0], f32s[1], i64s[2],
+                      torch.empty((B, K, T, 2), dtype=f32, device=dev),
+                      f32s[2])
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     ptr = lambda x: None if x is None else x.data_ptr()
     rc = lib.beam_step_launch(
         logits.data_ptr(), ptr(lm_logits), base.data_ptr(), valid.data_ptr(),
         last.data_ptr(), fin_norm.data_ptr(), fin_meta.data_ptr(),
-        r.data_ptr(), ctc_lp.data_ptr(), min_len.data_ptr(),
-        max_len.data_ptr(), *(x.data_ptr() for x in out), tot_s.data_ptr(),
-        psi_s.data_ptr(), t, B, K, T, V, aw, cw, lw, eos, pad, blank, stream)
+        r.data_ptr(), ctc_lp.data_ptr(), probs.data_ptr(), min_len.data_ptr(),
+        max_len.data_ptr(), *(x.data_ptr() for x in out), t, B, K, T, V, C,
+        aw, cw, lw, eos, pad, blank, stream)
     build.check(rc, "beam_step_fused launch")
     beam_step_fused.launches += 1
     return out

@@ -6,10 +6,14 @@ Replaces ``end_to_end_asr_pytorch_tpu/ops/pallas/gru_kernel.py``:
 ``_run_fwd`` (forward, with the gate and hp_n residuals) and ``_run_bwd``
 (reverse-time gradients of x_proj and of the hidden projection), tied
 together by the ``jax.custom_vjp`` of ``gru_scan_fused`` (``_g_fwd`` /
-``_g_bwd``), whose counterpart here is ``GRUScan``. The design is K2's
-(``lstm_kernel.py``): one persistent cooperative launch per (layer,
-direction) that keeps its slice of W_hh in shared memory and synchronises
-the grid once per step. dW_hh = hs_prev^T dhp and db_hh = sum dhp are one
+``_g_bwd``), whose counterpart here is ``GRUScan``. The f32 forward's
+design is K2's (``lstm_kernel.py``): one persistent cooperative launch per
+(layer, direction) that keeps its slice of W_hh in shared memory and
+synchronises the grid once per step. The backward runs on the tensor cores
+(``scan_tc.run_bwd``: a cluster of blocks per group of batch rows, W_hh
+fragments in registers, dhp split into bf16 parts so the product equals
+the f32 one, dhp exchanged through distributed shared memory).
+dW_hh = hs_prev^T dhp and db_hh = sum dhp are one
 ``torch.matmul`` and one sum outside the backward kernel, as the TPU wrapper
 leaves them to XLA. The TPU kernels' UNROLL / B_TILE are TPU pipeline
 devices and are not carried over; time is walked by index in both
@@ -40,8 +44,8 @@ _SIGNATURES = {
                             _I, _P]),
     "gru_tc_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
     "gru_tc_launch": (_I, [_P] * 7 + [_I] * 12 + [_P]),
-    "gru_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _P]),
+    "gru_tc_bwd_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
+    "gru_tc_bwd_launch": (_I, [_P] * 10 + [_I] * 12 + [_P]),
 }
 
 
@@ -149,8 +153,8 @@ def gru_scan_bwd_plain(gates: torch.Tensor, hp_n: torch.Tensor,
     return (dxp, *dw_db(ys, dhp, reverse))
 
 
-# kernel kinds of gru_max_coresident
-_FWD, _BWD = 0, 1
+# kernel kind of gru_max_coresident: the f32 forward
+_FWD = 0
 
 
 def _check_fwd(what, x_proj, w_hh, b_hh, mask, dtype):
@@ -251,24 +255,35 @@ def gru_bwd_fused(gates: torch.Tensor, hp_n: torch.Tensor, ys: torch.Tensor,
         return gru_scan_bwd_plain(gates, hp_n, ys, mask, w_hh, dys, reverse)
     if gates.device.type != "cuda":
         raise ValueError(f"gru_bwd_fused: unsupported device {gates.device}")
-    lib = build.load("gru_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib.gru_max_coresident, _BWD)
-    dev = gates.device
-    dxp = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
-    dhp = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
-    dgbuf = torch.zeros((2, H, B, 4), dtype=torch.float32, device=dev)
-    m = mask.to(torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gru_bwd_launch(gates.data_ptr(), hp_n.data_ptr(), ys.data_ptr(),
-                            dys.data_ptr(), m.data_ptr(), w_hh.data_ptr(),
-                            dxp.data_ptr(), dhp.data_ptr(), dgbuf.data_ptr(),
-                            T, B, H, U, int(reverse), stream)
-    build.check(rc, "gru_bwd_fused launch")
-    gru_bwd_fused.launches += 1
+    dxp, dhp, n = gru_bwd_tc(gates, hp_n, ys, mask, w_hh, dys, reverse)
+    gru_bwd_fused.launches += n
     return (dxp, *dw_db(ys, dhp, reverse))
 
 
 gru_bwd_fused.launches = 0
+
+
+def gru_bwd_tc(gates: torch.Tensor, hp_n: torch.Tensor, ys: torch.Tensor,
+               mask: torch.Tensor, w_hh: torch.Tensor, dys: torch.Tensor,
+               reverse: bool = False, mode: Optional[int] = None,
+               rows: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """K4b's launch on checked CUDA tensors -> (dxp, dhp, launches), each
+    (T, B, 3H): the tensor-core backward scan (``scan_tc.run_bwd``) in the
+    design ``mode`` / ``rows`` (default: ``scan_tc.pick``'s). Counts
+    nothing; ``gru_bwd_fused`` does."""
+    T, B, G = gates.shape
+    lib = build.load("gru_scan", _SIGNATURES)
+    dev = gates.device
+    dxp = torch.empty((T, B, G), dtype=torch.float32, device=dev)
+    dhp = torch.empty((T, B, G), dtype=torch.float32, device=dev)
+    m = mask.to(torch.float32)
+    n = scan_tc.run_bwd(
+        lib.gru_tc_bwd_launch, lib.gru_tc_bwd_max_groups,
+        tuple(t.data_ptr() for t in (gates, hp_n, ys, dys, m, w_hh, dxp,
+                                     dhp)),
+        w_hh, T, B, 3, reverse, mode, rows)
+    return dxp, dhp, n
 
 
 class GRUScan(torch.autograd.Function):

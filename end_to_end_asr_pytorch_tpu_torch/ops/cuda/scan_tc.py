@@ -9,6 +9,11 @@ bf16(W_hh) and a remainder, which is zero when W_hh is bf16-valued (decode
 amp rounds its weights, ``ops/amp.bf16_rounded_copy``). The products of bf16
 values are exact in f32 and are summed in f32 (``split_product``); the
 remainder passes run only where ``has_bf16_remainder`` is true.
+
+The f32 backward scan (K4b, ``tc_bwd_kernel``) runs the same arithmetic
+on the carry's product dhp @ W_hh^T (``split_product(dhp, w_hh.t())``):
+dhp is split each step, and training W_hh always takes the remainder
+passes. ``plan_bwd`` / ``run_bwd`` are its block split and launch.
 """
 from __future__ import annotations
 
@@ -86,17 +91,50 @@ def warps(H: int, n_gates: int) -> int:
     return -(-n_gates * U // 16) * kg
 
 
+def plan_bwd(H: int, n_gates: int) -> Tuple[int, int, int, int]:
+    """(C, U, kw, kg) of the backward scan of width H: C blocks of U = H / C
+    output units (U a multiple of 4, zero-padded to m-tiles of 16), each
+    block kg groups of kw k-steps of 16 that cover the n_gates H columns of
+    dhp it reduces over (kw <= 16), at most 16 warps. C is the largest split
+    of at most 16 blocks (a cluster), one with U a multiple of 16 first;
+    where none fits, the smallest larger one (a cooperative grid only, e.g.
+    H=1024). Raises for a width the kernel does not take."""
+    if H <= 0 or H % 4:
+        raise ValueError(f"tensor-core backward scan: H={H} is not a "
+                         f"multiple of 4")
+    ks = -(-n_gates * H // 16)
+    kg = -(-ks // 16)
+    kw = -(-ks // kg)
+    fits = [C for C in range(1, H // 4 + 1)
+            if H % C == 0 and (H // C) % 4 == 0
+            and -(-(H // C) // 16) * kg <= MAX_WARPS]
+    if not fits:
+        raise ValueError(f"tensor-core backward scan: no block split for "
+                         f"H={H} with {n_gates} gates")
+    cluster = [C for C in fits if C <= MAX_CLUSTER]
+    even = [C for C in cluster if (H // C) % 16 == 0]
+    C = max(even or cluster) if cluster else min(fits)
+    return C, H // C, kw, kg
+
+
+def warps_bwd(H: int, n_gates: int) -> int:
+    """Warps per block of ``plan_bwd``'s split."""
+    _, U, _, kg = plan_bwd(H, n_gates)
+    return -(-U // 16) * kg
+
+
 _groups: Dict[tuple, int] = {}
 
 
 def max_groups(query: Callable, H: int, n_gates: int, rows: int,
-               mode: int) -> int:
+               mode: int, planner: Callable = plan) -> int:
     """Groups of ``rows`` rows that can be resident at once (0 for clusters
-    of more than 16 blocks)."""
+    of more than 16 blocks, or where a block's shared memory does not
+    fit). ``planner`` is ``plan`` (forward) or ``plan_bwd``."""
     key = (query.__name__, H, n_gates, rows, mode,
            torch.cuda.current_device())
     if key not in _groups:
-        C, U, kw, kg = plan(H, n_gates)
+        C, U, kw, kg = planner(H, n_gates)
         out = ctypes.c_int(0)
         build.check(query(H, U, C, kw, kg, rows, mode, ctypes.byref(out)),
                     "tensor-core scan occupancy query")
@@ -104,7 +142,9 @@ def max_groups(query: Callable, H: int, n_gates: int, rows: int,
     return _groups[key]
 
 
-def pick(query: Callable, H: int, n_gates: int, B: int) -> Tuple[int, int]:
+def pick(query: Callable, H: int, n_gates: int, B: int,
+         planner: Callable = plan, grid_first: bool = False
+         ) -> Tuple[int, int]:
     """(mode, rows) of a launch at batch B. Fewer rows per group mean less
     work per block and step on more blocks, so the smallest group (8, then
     16 rows) is taken whose groups can all be resident at once: as clusters
@@ -112,14 +152,22 @@ def pick(query: Callable, H: int, n_gates: int, B: int) -> Tuple[int, int]:
     cooperative grid (on an H100 at most 7 clusters of 16 blocks fit, but 8
     groups of 16 blocks do as a grid). Else groups of 16 rows in waves:
     clusters (the card runs them in waves), or grids launched in turn where
-    the split has more than 16 blocks."""
-    modes = (CLUSTER, GRID) if plan(H, n_gates)[0] <= MAX_CLUSTER else (GRID,)
+    the split has more than 16 blocks. ``grid_first`` tries the grid
+    before the clusters at each row count: the backward scan's exchange
+    (3x the forward's) ran faster through L2 than through distributed
+    shared memory at B=32 on an H100 (chip_smoke.py's k4b design_ms)."""
+    modes = ((CLUSTER, GRID) if planner(H, n_gates)[0] <= MAX_CLUSTER
+             else (GRID,))
+    if grid_first:
+        modes = modes[::-1]
     for rows in (8, 16):
         groups = math.ceil(B / rows)
         for mode in modes:
-            if groups <= max_groups(query, H, n_gates, rows, mode):
+            if groups <= max_groups(query, H, n_gates, rows, mode, planner):
                 return mode, rows
-    return modes[0], 16
+    # in waves: 16-row groups where a block of them fits, else 8
+    rows = 16 if max_groups(query, H, n_gates, 16, modes[0], planner) else 8
+    return modes[0], rows
 
 
 def run(launch: Callable, query: Callable, x_proj: torch.Tensor,
@@ -162,6 +210,42 @@ def run(launch: Callable, query: Callable, x_proj: torch.Tensor,
         build.check(rc, "tensor-core scan launch")
         launches += 1
     return ys, launches
+
+
+def run_bwd(launch: Callable, query: Callable, ptrs: tuple, w_hh: torch.Tensor,
+            T: int, B: int, n_gates: int, reverse: bool, mode: int = None,
+            rows: int = None) -> int:
+    """The backward scan on CUDA tensors; returns its kernel launches.
+    ``launch`` / ``query`` are a scan library's ``*_tc_bwd_launch`` and
+    ``*_tc_bwd_max_groups``; ``ptrs`` the data pointers the launch takes
+    before its scratch (its inputs, the f32 mask, w_hh, its outputs).
+    ``mode`` and ``rows`` default to ``pick``'s; groups that cannot all be
+    resident run as clusters in waves (one launch) or as grids launched in
+    turn. A launch the card refuses raises."""
+    H = w_hh.shape[0]
+    C, U, kw, kg = plan_bwd(H, n_gates)
+    if mode is None or rows is None:
+        mode, rows = pick(query, H, n_gates, B, plan_bwd, grid_first=True)
+    groups = math.ceil(B / rows)
+    per_launch = (groups if mode == CLUSTER else
+                  max(1, min(groups, max_groups(query, H, n_gates, rows,
+                                                GRID, plan_bwd))))
+    dev = w_hh.device
+    wrem = torch.empty(C * warps_bwd(H, n_gates) * kw * 256,
+                       dtype=torch.float32, device=dev)
+    hbuf = (torch.empty((per_launch, 2, rows, n_gates * H),
+                        dtype=torch.float32, device=dev)
+            if mode == GRID else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launches = 0
+    for g0 in range(0, groups, per_launch):
+        rc = launch(*ptrs, wrem.data_ptr(),
+                    None if hbuf is None else hbuf.data_ptr(),
+                    T, B, H, U, C, kw, kg, rows, g0,
+                    min(per_launch, groups - g0), mode, int(reverse), stream)
+        build.check(rc, "tensor-core backward scan launch")
+        launches += 1
+    return launches
 
 
 _FLOOR_SIG = {"scan_floor_launch": (ctypes.c_int, [

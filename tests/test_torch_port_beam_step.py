@@ -177,6 +177,23 @@ def test_fused_on_cpu_tensors_is_the_plain_version():
     assert no_lm.v_idx.dtype == torch.int64 and no_lm.r.shape == args[8].shape
 
 
+def test_fused_takes_the_beams_probs():
+    """K8 takes the beam's loop-invariant probs = exp(ctc_lp) beside
+    ctc_lp; on CPU tensors it is the plain version with those probs, and
+    probs of another dtype or shape raise."""
+    ins, T = _slice_inputs(3, seed=8)
+    args = _port_args(3, ins, T)
+    kw = dict(aw=AW, cw=CW, lw=LW, eos=EOS, pad=PAD)
+    probs = torch.exp(args[9])
+    got = bsk.beam_step_fused(*args, probs=probs, **kw)
+    ref = bsk.beam_step_plain(*args, **kw)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    for bad in (probs.to(torch.bfloat16), probs[:, :-1].contiguous()):
+        with pytest.raises(ValueError, match="probs"):
+            bsk.beam_step_fused(*args, probs=bad, **kw)
+
+
 @pytest.mark.parametrize("bad", ["f64_logits", "int32_last", "strided_r",
                                  "int64_len"])
 def test_fused_rejects_other_dtypes_and_layouts(bad):
