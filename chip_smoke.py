@@ -8,9 +8,17 @@ Phases, each printing one JSON line:
   build       - nvcc builds every kernel (csrc/*.cu), all started together
   k1          - the fbank kernel against its plain PyTorch version at
                 B utterances of 7 s with ragged lengths (log-mel atol 1e-3)
-  k2          - the LSTM scan kernel against its plain version at H=512,
-                T=176, both directions, ragged masks (atol 1e-4), at B=128
-                and at the slice's batch; and K2-bf16, the tensor-core scan
+  k2          - K2, the LSTM scan (the tensor-core scan of csrc/scan_tc.cuh
+                in f32: the unrounded W_hh takes the remainder passes),
+                against its plain version at H=512, T=176, both directions,
+                ragged masks, without and with its residuals (ys, cells,
+                gates atol 1e-4), at B=128 and at the slice's batch, for the
+                design the wrapper picks and every design (cluster or grid,
+                8 or 16 rows per group, in waves where they do not fit),
+                each timed with its launches and resident groups; its bound
+                at the f32 rate and at the tensor rate of its six bf16
+                passes; cuDNN nn.LSTM as the yardstick; then H=320 and 1024
+                at B=32 and 128 (k2_widths); and K2-bf16, the tensor-core scan
                 (bf16 x_proj and ys, f32 carries), at the same shapes with
                 W_hh rounded to bf16 as decode amp hands it (the row's ms)
                 and with the unrounded f32 W_hh (ms_unrounded_w): ys within
@@ -26,10 +34,16 @@ Phases, each printing one JSON line:
                 exchange of h alone, for a cooperative grid (grid.sync, h
                 through L2, 16 or 32 blocks) and a cluster of 16 blocks
                 (barrier.cluster, h through distributed shared memory)
-  k2b         - K2's residual outputs (cell states, gates) and the LSTM
-                backward kernel against their plain versions and against
-                autograd through the plain scan, same shapes (residuals and
-                dxp atol 1e-4, dW_hh within 1e-3 of its max magnitude)
+  k2b         - K2's residual outputs (cell states, gates) and K2b, the LSTM
+                backward (the tensor-core backward scan), against their
+                plain versions and against autograd through the plain scan,
+                same shapes (residuals and dxp atol 1e-4, dW_hh within 1e-3
+                of its max magnitude), for the picked design and every
+                design whose blocks fit (at H=512 only 8-row groups do),
+                each timed with its launches and resident groups; its
+                bound at the f32 rate and at the tensor rate of its six
+                bf16 passes; cuDNN nn.LSTM fwd+bwd - fwd as the yardstick;
+                then H=320 and H=1024 at B=32 and 128 (k2b_widths)
   k3          - the CTC forward-backward kernel against its plain version
                 at B=128 and the slice's batch, T=176, U=96, V=31, ragged
                 lengths, repeated labels, one infeasible row (NLL rtol 1e-5,
@@ -88,7 +102,8 @@ Phases, each printing one JSON line:
                 pinned off, decode.fused_step false: the step tail is K8's
                 eager plain version) with random weights from --seed: three
                 timed decode batches with the kernels (each batch must
-                launch K1 once and K2 six times, and no other kernel), one
+                launch K1 once and K2 six times, one launch per call unless
+                a grid's groups run in waves, and no other kernel), one
                 with the plain versions; then a breakdown of one batch
   slice_fused - the same with the default step tail, K8: it must launch
                 exactly once per beam step of every batch; then best-score
@@ -132,7 +147,8 @@ Phases, each printing one JSON line:
                 at full width, Adadelta (lr 1, eps 1e-8, clip 5), joint
                 0.5 CTC + 0.5 CE, teacher forcing 0.9, B waves of 7 s with
                 U=96 labels: a warm-up step, 5 timed steps (each must
-                launch K1 once, K2 and K2b once per encoder scan, K3
+                launch K1 once, K2 and K2b once per encoder scan (in
+                launches: times the waves of a grid that does not fit), K3
                 once), one profiled step split by the step's own profiler
                 ranges, then one step from the same weights and
                 generator with the kernels and with the plain versions
@@ -256,6 +272,45 @@ def bound(bytes_moved, flops, flops_rate=F32_FLOPS):
     t_bytes = bytes_moved / HBM_BPS * 1e3
     t_ops = flops / flops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_bound(nbytes, prod, f32_ops):
+    """A split scan's bound with its recurrent product ``prod`` (operations
+    of one f32 product) as the six bf16 passes of the three-part split at
+    the dense bf16 tensor rate, and ``f32_ops`` (epilogue, a GEMM outside
+    the scan) at the f32 rate."""
+    t_ops = (6 * prod / BF16_TC_FLOPS + f32_ops / F32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the tensor-core scans' designs: (scan_tc.CLUSTER = 0 or GRID = 1, rows)
+SCAN_DESIGNS = ((0, 8), (0, 16), (1, 8), (1, 16))
+
+
+def design_name(d):
+    return f"{'cluster' if d[0] == 0 else 'grid'}_rows{d[1]}"
+
+
+def scan_calls(batch, H=512):
+    """Kernel launches per call of each tensor-core scan wrapper at the
+    main path's width and ``batch``: one, or one per wave where a
+    cooperative grid's groups do not all fit at once (scan_tc.launches)."""
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build, scan_tc
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
+    ll = build.load("lstm_scan", lk._SIGNATURES)
+    gl = build.load("gru_scan", gk._SIGNATURES)
+    bwd = dict(planner=scan_tc.plan_bwd, grid_first=True)
+    return {
+        "lstm_scan_fused": scan_tc.launches(ll.lstm_tc_f32_max_groups, H, 4,
+                                            batch),
+        "lstm_scan_bf16": scan_tc.launches(ll.lstm_tc_max_groups, H, 4, batch),
+        "gru_scan_bf16": scan_tc.launches(gl.gru_tc_max_groups, H, 3, batch),
+        "lstm_bwd_fused": scan_tc.launches(ll.lstm_tc_bwd_max_groups, H, 4,
+                                           batch, **bwd),
+        "gru_bwd_fused": scan_tc.launches(gl.gru_tc_bwd_max_groups, H, 3,
+                                          batch, **bwd)}
 
 
 def bf16_diff(got, ref):
@@ -450,39 +505,105 @@ def check_bf16_widths(label, n_gates, scan, plain, query, rng,
     emit({"phase": f"{label}_widths", "T": T, "widths": out})
 
 
+def scan_case(rng, B, T, H, n_gates):
+    """x_proj (T, B, n_gates H), an upstream gradient (T, B, H) and a
+    ragged mask (the first row full)."""
+    import torch
+    xp = torch.from_numpy(rng.randn(T, B, n_gates * H).astype(
+        np.float32)).cuda()
+    dys = torch.from_numpy(rng.randn(T, B, H).astype(np.float32)).cuda()
+    lens = rng.randint(T // 2, T + 1, size=B)
+    lens[0] = T
+    mask = torch.from_numpy(np.arange(T)[:, None] < lens[None, :]).cuda()
+    return xp, dys, mask
+
+
+def lstm_weights(rng, H):
+    import torch
+    s = 1.0 / math.sqrt(H)
+    return torch.from_numpy(rng.uniform(-s, s, (H, 4 * H)).astype(
+        np.float32)).cuda()
+
+
+def cudnn_lstm(w_hh):
+    """cuDNN's nn.LSTM computing K2's function at full length: identity
+    input weights and no biases make its gates x_proj + h @ W_hh (it also
+    runs a (T*B, 4H) x (4H, 4H) input product that the kernel does not)."""
+    import torch
+    H = w_hh.shape[0]
+    lstm = torch.nn.LSTM(4 * H, H).cuda()
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.eye(4 * H, device="cuda"))
+        lstm.weight_hh_l0.copy_(w_hh.T)
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.zero_()
+    lstm.flatten_parameters()
+    return lstm
+
+
+def check_k2(lk, w_hh, xp, mask, designs):
+    """K2 in f32 (the tensor-core scan, f32 W_hh with its remainder passes)
+    against its plain version, both directions, without residuals (ys) and
+    with them (ys, cs, gates), all atol 1e-4: through the wrapper (the
+    picked design) and each of ``designs`` ((mode, rows) forced, launches
+    not counted). Returns the worst ys and residual errors and each
+    design's launches."""
+    import torch
+    err = res_err = 0.0
+    launches = {}
+    for reverse in (False, True):
+        ref = lk.lstm_scan_plain(xp, w_hh, mask, reverse)
+        pres = lk.lstm_scan_fwd_plain(xp, w_hh, mask, reverse)
+        for design in (None, *designs):
+            for residuals in (False, True):
+                if design is None:
+                    got = lk.lstm_scan_fused(xp, w_hh, mask, reverse,
+                                             residuals=residuals)
+                else:
+                    got, n = lk.lstm_fwd_tc(xp, w_hh, mask, reverse,
+                                            residuals, *design)
+                    launches[design, residuals] = n
+                torch.cuda.synchronize()
+                outs = got if residuals else (got,)
+                check(all(bool(torch.isfinite(t).all()) for t in outs),
+                      f"K2 output not finite (design {design})")
+                if residuals:
+                    res_err = max(res_err, *(float((a - b).abs().max())
+                                             for a, b in zip(got, pres)))
+                else:
+                    err = max(err, float((got - ref).abs().max()))
+    return err, res_err, launches
+
+
+def k2_bytes(B, T, H, residuals):
+    """K2's bytes: reads x_proj, W_hh and the mask, writes ys (and with
+    residuals cs and gates)."""
+    return 4 * (T * B * 4 * H + H * 4 * H + T * B + T * B * H
+                + (T * B * 5 * H if residuals else 0))
+
+
 def phase_k2(seed, slice_batch, T=176, H=512):
-    """K2 and its bf16 variant against their plain versions, both
-    directions, ragged masks, at B=128 and at the slice's batch (the shape
-    the main path gives them; those records are the kernels' lines)."""
+    """K2 (f32, the tensor-core scan; with and without residuals) and its
+    bf16 variant against their plain versions, both directions, ragged
+    masks, at B=128 and at the slice's batch (the shape the main path
+    gives them; those records are the kernels' lines), every design of the
+    f32 route checked and timed; then the f32 route at H=320 and 1024."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build, scan_tc
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
     rng = np.random.RandomState(seed + 1)
-    s = 1.0 / math.sqrt(H)
-    w_hh = torch.from_numpy(rng.uniform(-s, s, (H, 4 * H)).astype(np.float32)).cuda()
-    # cuDNN yardstick at full length: identity input weights make its gates
-    # x_proj + h @ W_hh as here (it also runs a (T*B, 4H) x (4H, 4H) input
-    # product that the kernel does not)
-    cudnn = torch.nn.LSTM(4 * H, H).cuda()
-    with torch.no_grad():
-        cudnn.weight_ih_l0.copy_(torch.eye(4 * H, device="cuda"))
-        cudnn.weight_hh_l0.copy_(w_hh.T)
-        cudnn.bias_ih_l0.zero_()
-        cudnn.bias_hh_l0.zero_()
+    w_hh = lstm_weights(rng, H)
+    cudnn = cudnn_lstm(w_hh)
+    lib = build.load("lstm_scan", lk._SIGNATURES)
+    query = lib.lstm_tc_f32_max_groups
     records, bf16_records = {}, {}
     for B in (128, slice_batch):
-        xp = torch.from_numpy(rng.randn(T, B, 4 * H).astype(np.float32)).cuda()
-        lens = rng.randint(T // 2, T + 1, size=B)
-        lens[0] = T
-        mask = torch.from_numpy(np.arange(T)[:, None] < lens[None, :]).cuda()
-        err = 0.0
-        for reverse in (False, True):
-            got = lk.lstm_scan_fused(xp, w_hh, mask, reverse)
-            ref = lk.lstm_scan_plain(xp, w_hh, mask, reverse)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), "K2 output not finite")
-            err = max(err, float((got - ref).abs().max()))
+        xp, _, mask = scan_case(rng, B, T, H, 4)
+        designs = [d for d in SCAN_DESIGNS
+                   if scan_tc.max_groups(query, H, 4, d[1], d[0]) >= 1]
+        err, res_err, launches = check_k2(lk, w_hh, xp, mask, designs)
         check(err <= 1e-4, f"K2 max abs err {err} > 1e-4 at B={B}")
+        check(res_err <= 1e-4, f"K2 residuals max abs err {res_err} at B={B}")
 
         def library():
             with torch.no_grad():
@@ -490,9 +611,19 @@ def phase_k2(seed, slice_batch, T=176, H=512):
 
         full = torch.ones_like(mask)
         lib_err = float((library() - lk.lstm_scan_fused(xp, w_hh, full)).abs().max())
-        nbytes = 4 * (T * B * 4 * H + H * 4 * H + T * B + T * B * H)
-        flops = T * 2 * B * H * 4 * H
-        b_ms, b_by = bound(nbytes, flops)
+        prod = T * 2 * B * H * 4 * H
+        b_ms, b_by = bound(k2_bytes(B, T, H, False), prod)
+        bt_ms, bt_by = tensor_bound(k2_bytes(B, T, H, False), prod,
+                                    T * 30 * B * H)
+        mode, rows = scan_tc.pick(query, H, 4, B)
+        design_ms = {design_name(d): {
+            "ms": cuda_ms(lambda: lk.lstm_fwd_tc(xp, w_hh, mask, True, False,
+                                                 *d), 10),
+            "ms_residuals": cuda_ms(lambda: lk.lstm_fwd_tc(
+                xp, w_hh, mask, True, True, *d), 10),
+            "launches": launches[d, False],
+            "groups_resident": scan_tc.max_groups(query, H, 4, d[1], d[0])}
+            for d in designs}
         records[B] = {
             "name": "lstm_scan_fused", "route": "cuda",
             "source": "end_to_end_asr_pytorch_tpu_torch/csrc/lstm_scan.cu",
@@ -503,17 +634,25 @@ def phase_k2(seed, slice_batch, T=176, H=512):
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(library, 10)}
         emit({"phase": "k2", "T": T, "B": B, "H": H,
+              "plan": dict(zip(("C", "U", "kw", "kg"), scan_tc.plan(H, 4))),
+              "design": design_name((mode, rows)), "design_ms": design_ms,
+              "residual_max_abs_err": res_err,
+              "ms_residuals": cuda_ms(lambda: lk.lstm_scan_fused(
+                  xp, w_hh, mask, True, residuals=True), 10),
+              "bound_ms_tensor": bt_ms, "bound_by_tensor": bt_by,
+              "bound_rate_tensor": "recurrent product: 6 bf16 passes at 989 "
+                                   "TFLOP/s; epilogue at the f32 rate",
+              "bound_ms_residuals": bound(k2_bytes(B, T, H, True), prod)[0],
               "cudnn_full_length_max_abs_err": lib_err, **records[B]})
         # K2-bf16 (decode amp): bf16 x_proj and ys, f32 carries
         xb = xp.to(torch.bfloat16)
-        cudnn_bf16 = torch.nn.LSTM(4 * H, H).cuda().to(torch.bfloat16)
-        cudnn_bf16.load_state_dict(cudnn.state_dict())
+        cudnn_bf16 = cudnn_lstm(w_hh).to(torch.bfloat16)
+        cudnn_bf16.flatten_parameters()
 
         def library_bf16():
             with torch.no_grad():
                 return cudnn_bf16(xb)[0]
 
-        lib = build.load("lstm_scan", lk._SIGNATURES)
         bf16_records[B] = check_bf16_scan(
             "k2_bf16", {
                 "name": "lstm_scan_bf16", "route": "cuda",
@@ -530,6 +669,25 @@ def phase_k2(seed, slice_batch, T=176, H=512):
             library_bf16)
     check_bf16_widths("k2_bf16", 4, lk.lstm_scan_bf16, lk.lstm_scan_plain,
                       lib.lstm_tc_max_groups, rng)
+    widths = {}
+    for Hw in (320, 1024):
+        w2 = lstm_weights(rng, Hw)
+        for B in (32, 128):
+            xp, _, mask = scan_case(rng, B, T, Hw, 4)
+            err, res_err, _ = check_k2(lk, w2, xp, mask, [])
+            check(err <= 1e-4 and res_err <= 1e-4,
+                  f"K2 errors {err} / {res_err} at H={Hw}, B={B}")
+            before = lk.lstm_scan_fused.launches
+            lk.lstm_scan_fused(xp, w2, mask, True)
+            widths[f"H{Hw}_B{B}"] = {
+                "max_abs_err": err, "residual_max_abs_err": res_err,
+                "launches": lk.lstm_scan_fused.launches - before,
+                "plan": scan_tc.plan(Hw, 4),
+                "design": design_name(scan_tc.pick(query, Hw, 4, B)),
+                "ms": cuda_ms(lambda: lk.lstm_scan_fused(xp, w2, mask, True), 5),
+                "ms_residuals": cuda_ms(lambda: lk.lstm_scan_fused(
+                    xp, w2, mask, True, residuals=True), 5)}
+    emit({"phase": "k2_widths", "T": T, "widths": widths})
     return records[slice_batch], bf16_records[slice_batch]
 
 
@@ -558,58 +716,92 @@ def phase_scan_floor(T=176, H=512):
     emit({"phase": "scan_floor", "T": T, "H": H, "floors": out})
 
 
-def phase_k2b(seed, slice_batch, T=176, H=512):
-    """K2's residual outputs and K2b against their plain versions, both
-    directions, ragged masks, at B=128 and at the slice's batch; K2b's dxp
-    and dW_hh also against autograd through the plain scan."""
+def k2b_bound(B, T, H):
+    """K2b's bound (reads gates, cs, ys, dys, mask, W_hh; writes dxp and
+    dW_hh), at the f32 rate for the recurrent product and the dW_hh GEMM
+    (2 T B H 4H operations each), and with the recurrent product at the
+    dense bf16 tensor rate for the six split passes the kernel runs (the
+    GEMM stays f32, TF32 off)."""
+    nbytes = 4 * (T * B * (4 * H + 3 * H + 4 * H) + T * B + 2 * H * 4 * H)
+    prod = T * 2 * B * 4 * H * H
+    return (bound(nbytes, 2 * prod + T * 20 * B * H),
+            tensor_bound(nbytes, prod, prod + T * 20 * B * H))
+
+
+def check_k2b(lk, w_hh, xp, dys, mask, designs):
+    """K2's residuals against the plain forward, and K2b against the plain
+    backward and against autograd through the plain scan, both directions:
+    residuals and dxp atol 1e-4, dW_hh within 1e-3 of its max magnitude;
+    for the picked design and each of ``designs`` ((mode, rows) forced,
+    launches not counted). Returns the worst errors and each design's
+    launches."""
     import torch
+    errs = {"residuals": 0.0, "dxp": 0.0, "dw": 0.0, "ag_dxp": 0.0,
+            "ag_dw": 0.0}
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    launches = {}
+    for reverse in (False, True):
+        ys, cs, gates = lk.lstm_scan_fused(xp, w_hh, mask, reverse,
+                                           residuals=True)
+        ref = pys, pcs, pgates = lk.lstm_scan_fwd_plain(xp, w_hh, mask,
+                                                        reverse)
+        pdxp, pdw = lk.lstm_scan_bwd_plain(pgates, pcs, pys, mask, w_hh, dys,
+                                           reverse)
+        x, w = (t.clone().requires_grad_(True) for t in (xp, w_hh))
+        lk.lstm_scan_plain(x, w, mask, reverse).backward(dys)
+        errs["residuals"] = max(errs["residuals"], *(
+            float((a - b).abs().max()) for a, b in zip((ys, cs, gates), ref)))
+        for design in (None, *designs):
+            if design is None:
+                dxp, dw = lk.lstm_bwd_fused(gates, cs, ys, mask, w_hh, dys,
+                                            reverse)
+            else:
+                dxp, n = lk.lstm_bwd_tc(gates, cs, mask, w_hh, dys, reverse,
+                                        *design)
+                dw = lk.dw_hh(ys, dxp, reverse)
+                launches[design] = n
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in (dxp, dw)),
+                  f"K2b output not finite (design {design})")
+            for tag, (rx, rw) in (("", (pdxp, pdw)), ("ag_", (x.grad, w.grad))):
+                errs[tag + "dxp"] = max(errs[tag + "dxp"],
+                                        float((dxp - rx).abs().max()))
+                errs[tag + "dw"] = max(errs[tag + "dw"], rel(dw, rw))
+    return errs, launches
+
+
+def k2b_ok(errs):
+    return (errs["residuals"] <= 1e-4 and errs["dxp"] <= 1e-4
+            and errs["ag_dxp"] <= 1e-4 and errs["dw"] <= 1e-3
+            and errs["ag_dw"] <= 1e-3)
+
+
+def phase_k2b(seed, slice_batch, T=176, H=512):
+    """K2's residual outputs and K2b (the tensor-core backward scan)
+    against their plain versions, K2b also against autograd through the
+    plain scan, both directions, ragged masks, at B=128 and at the slice's
+    batch, for the design the wrapper picks and every design whose blocks
+    fit (cluster or grid, 8 or 16 rows per group, in waves where the groups
+    do not fit at once), each timed; then H=320 and H=1024 (a grid of 64
+    blocks) off the main path. cuDNN nn.LSTM fwd+bwd - fwd as the
+    yardstick."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build, scan_tc
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
     rng = np.random.RandomState(seed + 4)
-    s = 1.0 / math.sqrt(H)
-    w_hh = torch.from_numpy(rng.uniform(-s, s, (H, 4 * H)).astype(np.float32)).cuda()
-    cudnn = torch.nn.LSTM(4 * H, H).cuda()
-    with torch.no_grad():
-        cudnn.weight_ih_l0.copy_(torch.eye(4 * H, device="cuda"))
-        cudnn.weight_hh_l0.copy_(w_hh.T)
-        cudnn.bias_ih_l0.zero_()
-        cudnn.bias_hh_l0.zero_()
+    w_hh = lstm_weights(rng, H)
+    cudnn = cudnn_lstm(w_hh)
+    lib = build.load("lstm_scan", lk._SIGNATURES)
+    query = lib.lstm_tc_bwd_max_groups
+    resident = lambda d, Hw: scan_tc.max_groups(query, Hw, 4, d[1], d[0],
+                                                scan_tc.plan_bwd)
     records = {}
     for B in (128, slice_batch):
-        xp = torch.from_numpy(rng.randn(T, B, 4 * H).astype(np.float32)).cuda()
-        dys = torch.from_numpy(rng.randn(T, B, H).astype(np.float32)).cuda()
-        lens = rng.randint(T // 2, T + 1, size=B)
-        lens[0] = T
-        mask = torch.from_numpy(np.arange(T)[:, None] < lens[None, :]).cuda()
-        res_err = dxp_err = dw_rel = ag_dxp_err = ag_dw_rel = 0.0
-        for reverse in (False, True):
-            got = lk.lstm_scan_fused(xp, w_hh, mask, reverse, residuals=True)
-            ref = lk.lstm_scan_fwd_plain(xp, w_hh, mask, reverse)
-            dxp, dw = lk.lstm_bwd_fused(got[2], got[1], got[0], mask, w_hh,
-                                        dys, reverse)
-            pdxp, pdw = lk.lstm_scan_bwd_plain(ref[2], ref[1], ref[0], mask,
-                                               w_hh, dys, reverse)
-            x = xp.clone().requires_grad_(True)
-            w = w_hh.clone().requires_grad_(True)
-            lk.lstm_scan_plain(x, w, mask, reverse).backward(dys)
-            torch.cuda.synchronize()
-            check(all(bool(torch.isfinite(t).all()) for t in (*got, dxp, dw)),
-                  "K2 residuals / K2b output not finite")
-            res_err = max(res_err, *(float((a - b).abs().max())
-                                     for a, b in zip(got, ref)))
-            dxp_err = max(dxp_err, float((dxp - pdxp).abs().max()))
-            dw_rel = max(dw_rel, float((dw - pdw).abs().max() / pdw.abs().max()))
-            ag_dxp_err = max(ag_dxp_err, float((dxp - x.grad).abs().max()))
-            ag_dw_rel = max(ag_dw_rel, float((dw - w.grad).abs().max()
-                                             / w.grad.abs().max()))
-        check(res_err <= 1e-4, f"K2 residuals max abs err {res_err} at B={B}")
-        check(dxp_err <= 1e-4 and ag_dxp_err <= 1e-4,
-              f"K2b dxp max abs err {dxp_err} / {ag_dxp_err} at B={B}")
-        check(dw_rel <= 1e-3 and ag_dw_rel <= 1e-3,
-              f"K2b dW_hh err / max |dW| {dw_rel} / {ag_dw_rel} at B={B}")
+        xp, dys, mask = scan_case(rng, B, T, H, 4)
+        designs = [d for d in SCAN_DESIGNS if resident(d, H) >= 1]
+        errs, launches = check_k2b(lk, w_hh, xp, dys, mask, designs)
+        check(k2b_ok(errs), f"K2 residuals / K2b errors {errs} at B={B}")
         ys, cs, gates = lk.lstm_scan_fused(xp, w_hh, mask, True, residuals=True)
-        fwd_res_ms = cuda_ms(lambda: lk.lstm_scan_fused(xp, w_hh, mask, True,
-                                                        residuals=True), 10)
-        fwd_ms = cuda_ms(lambda: lk.lstm_scan_fused(xp, w_hh, mask, True), 10)
         xl = xp.clone().requires_grad_(True)
 
         def lib_fwd():
@@ -620,33 +812,58 @@ def phase_k2b(seed, slice_batch, T=176, H=512):
 
         lib_fwd_ms = cuda_ms(lib_fwd, 10)
         lib_ms = cuda_ms(lib_fwd_bwd, 10) - lib_fwd_ms
-        # reads gates, cs, ys, dys, mask, W_hh; writes dxp and dW_hh; the
-        # recurrent product and the dW_hh GEMM each 2*T*B*H*4H operations
-        nbytes = 4 * (T * B * (4 * H + 3 * H + 4 * H) + T * B + 2 * H * 4 * H)
-        flops = T * (4 * B * 4 * H * H + 20 * B * H)
-        b_ms, b_by = bound(nbytes, flops)
-        fb_ms, fb_by = bound(4 * (T * B * 4 * H + H * 4 * H + T * B
-                                  + T * B * (H + H + 4 * H)), T * 2 * B * H * 4 * H)
+        (b_ms, b_by), (bt_ms, bt_by) = k2b_bound(B, T, H)
+        mode, rows = scan_tc.pick(query, H, 4, B, scan_tc.plan_bwd,
+                                  grid_first=True)
+        design_ms = {design_name(d): {
+            "ms": cuda_ms(lambda: lk.lstm_bwd_tc(gates, cs, mask, w_hh, dys,
+                                                 True, *d), 10),
+            "launches": launches[d], "groups_resident": resident(d, H)}
+            for d in designs}
         records[B] = {
             "name": "lstm_bwd_fused", "route": "cuda",
             "source": "end_to_end_asr_pytorch_tpu_torch/csrc/lstm_scan.cu",
             "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py:185",
-            "max_abs_err": dxp_err,
+            "max_abs_err": errs["dxp"],
             "ms": cuda_ms(lambda: lk.lstm_bwd_fused(gates, cs, ys, mask, w_hh,
                                                     dys, True), 10),
             "plain_ms": cuda_ms(lambda: lk.lstm_scan_bwd_plain(
                 gates, cs, ys, mask, w_hh, dys, True), 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         emit({"phase": "k2b", "T": T, "B": B, "H": H,
-              "residual_max_abs_err": res_err, "dw_err_over_max": dw_rel,
-              "autograd_dxp_max_abs_err": ag_dxp_err,
-              "autograd_dw_err_over_max": ag_dw_rel,
-              "k2_residuals_ms": fwd_res_ms, "k2_serving_ms": fwd_ms,
-              "k2_residuals_plain_ms": cuda_ms(lambda: lk.lstm_scan_fwd_plain(
-                  xp, w_hh, mask, True), 3),
-              "k2_residuals_library_ms": lib_fwd_ms,
-              "k2_residuals_bound_ms": fb_ms, "k2_residuals_bound_by": fb_by,
-              **records[B]})
+              "plan": dict(zip(("C", "U", "kw", "kg"), scan_tc.plan_bwd(H, 4))),
+              "design": design_name((mode, rows)), "design_ms": design_ms,
+              "designs_not_fitting": [design_name(d) for d in SCAN_DESIGNS
+                                      if d not in designs],
+              "kernel_ms": cuda_ms(lambda: lk.lstm_bwd_tc(
+                  gates, cs, mask, w_hh, dys, True), 10),
+              "bound_ms_tensor": bt_ms, "bound_by_tensor": bt_by,
+              "bound_rate_tensor": "recurrent product: 6 bf16 passes at 989 "
+                                   "TFLOP/s; dW_hh GEMM at the f32 rate",
+              "residual_max_abs_err": errs["residuals"],
+              "dw_err_over_max": errs["dw"],
+              "autograd_dxp_max_abs_err": errs["ag_dxp"],
+              "autograd_dw_err_over_max": errs["ag_dw"],
+              "library_fwd_ms": lib_fwd_ms, **records[B]})
+    widths = {}
+    for Hw in (320, 1024):
+        w2 = lstm_weights(rng, Hw)
+        for B in (32, 128):
+            xp, dys, mask = scan_case(rng, B, T, Hw, 4)
+            errs, _ = check_k2b(lk, w2, xp, dys, mask, [])
+            check(k2b_ok(errs), f"K2b errors {errs} at H={Hw}, B={B}")
+            ys, cs, gates = lk.lstm_scan_fused(xp, w2, mask, True,
+                                               residuals=True)
+            before = lk.lstm_bwd_fused.launches
+            lk.lstm_bwd_fused(gates, cs, ys, mask, w2, dys, True)
+            widths[f"H{Hw}_B{B}"] = {
+                **errs, "launches": lk.lstm_bwd_fused.launches - before,
+                "plan": scan_tc.plan_bwd(Hw, 4),
+                "design": design_name(scan_tc.pick(
+                    query, Hw, 4, B, scan_tc.plan_bwd, grid_first=True)),
+                "ms": cuda_ms(lambda: lk.lstm_bwd_fused(
+                    gates, cs, ys, mask, w2, dys, True), 5)}
+    emit({"phase": "k2b_widths", "T": T, "widths": widths})
     return records[slice_batch]
 
 
@@ -665,18 +882,6 @@ def cudnn_gru(w_hh, b_hh):
         gru.bias_hh_l0.copy_(b_hh)
     gru.flatten_parameters()
     return gru
-
-
-def gru_case(rng, B, T, H):
-    """x_proj (T, B, 3H), an upstream gradient (T, B, H) and a ragged mask
-    (the first row full)."""
-    import torch
-    xp = torch.from_numpy(rng.randn(T, B, 3 * H).astype(np.float32)).cuda()
-    dys = torch.from_numpy(rng.randn(T, B, H).astype(np.float32)).cuda()
-    lens = rng.randint(T // 2, T + 1, size=B)
-    lens[0] = T
-    mask = torch.from_numpy(np.arange(T)[:, None] < lens[None, :]).cuda()
-    return xp, dys, mask
 
 
 def gru_weights(rng, H):
@@ -702,7 +907,7 @@ def phase_k4(seed, slice_batch, T=176, H=512):
     cudnn_bf16.flatten_parameters()
     records, bf16_records = {}, {}
     for B in (128, slice_batch):
-        xp, _, mask = gru_case(rng, B, T, H)
+        xp, _, mask = scan_case(rng, B, T, H, 3)
         err = res_err = 0.0
         for reverse in (False, True):
             got = gk.gru_scan_fused(xp, w_hh, b_hh, mask, reverse)
@@ -786,11 +991,8 @@ def k4b_bound(B, T, H):
     nbytes = 4 * (T * B * (3 * H + 3 * H + 3 * H) + T * B + 2 * H * 3 * H
                   + 3 * H)
     prod = T * 2 * B * 3 * H * H
-    f32 = bound(nbytes, 2 * prod + T * 20 * B * H)
-    ops_ms = (6 * prod / BF16_TC_FLOPS + (prod + T * 20 * B * H) / F32_FLOPS) * 1e3
-    t_bytes = nbytes / HBM_BPS * 1e3
-    tensor = (t_bytes, "bytes") if t_bytes >= ops_ms else (ops_ms, "operations")
-    return f32, tensor
+    return (bound(nbytes, 2 * prod + T * 20 * B * H),
+            tensor_bound(nbytes, prod, prod + T * 20 * B * H))
 
 
 def check_k4b(gk, w_hh, b_hh, xp, dys, mask, designs):
@@ -849,10 +1051,6 @@ def phase_k4b(seed, slice_batch, T=176, H=512):
     cudnn = cudnn_gru(w_hh, b_hh)
     lib = build.load("gru_scan", gk._SIGNATURES)
     query = lib.gru_tc_bwd_max_groups
-    all_designs = [(m, r) for m in (scan_tc.CLUSTER, scan_tc.GRID)
-                   for r in (8, 16)]
-    dname = lambda d: (f"{'cluster' if d[0] == scan_tc.CLUSTER else 'grid'}"
-                       f"_rows{d[1]}")
 
     def fits(d, B, Hw):
         """Whether a design's blocks fit the card at all (a cluster may
@@ -862,8 +1060,8 @@ def phase_k4b(seed, slice_batch, T=176, H=512):
 
     records = {}
     for B in (128, slice_batch):
-        xp, dys, mask = gru_case(rng, B, T, H)
-        designs = [d for d in all_designs if fits(d, B, H)]
+        xp, dys, mask = scan_case(rng, B, T, H, 3)
+        designs = [d for d in SCAN_DESIGNS if fits(d, B, H)]
         errs, launches = check_k4b(gk, w_hh, b_hh, xp, dys, mask, designs)
         check(errs["dxp"] <= 1e-4 and errs["ag_dxp"] <= 1e-4,
               f"K4b dxp max abs err {errs} at B={B}")
@@ -884,7 +1082,7 @@ def phase_k4b(seed, slice_batch, T=176, H=512):
         (b_ms, b_by), (bt_ms, bt_by) = k4b_bound(B, T, H)
         mode, rows = scan_tc.pick(query, H, 3, B, scan_tc.plan_bwd,
                                   grid_first=True)
-        design_ms = {dname(d): {
+        design_ms = {design_name(d): {
             "ms": cuda_ms(lambda: gk.gru_bwd_tc(gates, hp_n, ys, mask, w_hh,
                                                 dys, True, *d), 10),
             "launches": launches[d],
@@ -903,7 +1101,7 @@ def phase_k4b(seed, slice_batch, T=176, H=512):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         emit({"phase": "k4b", "T": T, "B": B, "H": H,
               "plan": dict(zip(("C", "U", "kw", "kg"), scan_tc.plan_bwd(H, 3))),
-              "design": dname((mode, rows)), "design_ms": design_ms,
+              "design": design_name((mode, rows)), "design_ms": design_ms,
               "kernel_ms": cuda_ms(lambda: gk.gru_bwd_tc(
                   gates, hp_n, ys, mask, w_hh, dys, True), 10),
               "bound_ms_tensor": bt_ms, "bound_by_tensor": bt_by,
@@ -918,7 +1116,7 @@ def phase_k4b(seed, slice_batch, T=176, H=512):
     for Hw in (320, 1024):
         w2, b2 = gru_weights(rng, Hw)
         for B in (32, 128):
-            xp, dys, mask = gru_case(rng, B, T, Hw)
+            xp, dys, mask = scan_case(rng, B, T, Hw, 3)
             errs, _ = check_k4b(gk, w2, b2, xp, dys, mask, [])
             check(errs["dxp"] <= 1e-4 and errs["ag_dxp"] <= 1e-4 and max(
                 errs["dw"], errs["db"], errs["ag_dw"], errs["ag_db"]) <= 1e-3,
@@ -930,7 +1128,7 @@ def phase_k4b(seed, slice_batch, T=176, H=512):
             widths[f"H{Hw}_B{B}"] = {
                 **errs, "launches": gk.gru_bwd_fused.launches - before,
                 "plan": scan_tc.plan_bwd(Hw, 3),
-                "design": dname(scan_tc.pick(query, Hw, 3, B, scan_tc.plan_bwd,
+                "design": design_name(scan_tc.pick(query, Hw, 3, B, scan_tc.plan_bwd,
                                              grid_first=True)),
                 "ms": cuda_ms(lambda: gk.gru_bwd_fused(
                     gates, hp_n, ys, mask, w2, dys, True), 5)}
@@ -1429,8 +1627,9 @@ def with_attention(**keys):
     return {**MODEL_CFG, "attention": {**MODEL_CFG["attention"], **keys}}
 
 
-# the launches each decode batch must make: kernel -> count, "steps" for
-# once per beam step; kernels left out must not launch
+# the launches each decode batch must make: kernel -> calls (each call of a
+# tensor-core scan makes scan_calls' launches), "steps" for once per beam
+# step; kernels left out must not launch
 SLICE_EXPECT = {"fbank_fused": 1, "lstm_scan_fused": 6}
 FUSED_EXPECT = {**SLICE_EXPECT, "beam_step_fused": "steps"}
 
@@ -1461,6 +1660,7 @@ def phase_slice(frontend, batch, seed, device, name="slice",
     run()                                   # warm-up (cuDNN / cuBLAS plans)
     torch.cuda.synchronize()
     counters = launch_counters()
+    calls = scan_calls(batch)
     batches = []
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -1477,7 +1677,7 @@ def phase_slice(frontend, batch, seed, device, name="slice",
     steps = decoder.last_steps
     for b in batches:
         want = {k: (b["decode_steps"] if expect.get(k) == "steps"
-                    else expect.get(k, 0)) for k in counters}
+                    else expect.get(k, 0) * calls.get(k, 1)) for k in counters}
         check({k: b[k] for k in counters} == want,
               f"{name}: every batch must launch {want}, got {batches}")
     enc_k, _ = run()
@@ -1563,8 +1763,9 @@ def phase_slice_other(frontend, sl, decode_cfg, name, expect,
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     got = {k: fn.launches for k, fn in counters.items()}
+    calls = scan_calls(sl["wave"].shape[0])
     want = {k: (decoder.last_steps if expect.get(k) == "steps"
-                else expect.get(k, 0)) for k in counters}
+                else expect.get(k, 0) * calls.get(k, 1)) for k in counters}
     check(got == want, f"{name}: the batch must launch {want}, got {got}")
     diff, same = compare_top1(sl["out"], out)
     emit({"phase": name, "amp": decoder.last_amp,
@@ -1777,10 +1978,12 @@ def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
     n_scans = len(enc["dim"]) * (2 if enc["bidirection"] else 1)
     k7 = data[2].shape[1] if solver.model.attention.use_pallas_train else 0
     scan = enc["module"].lower()                   # lstm or gru
+    calls = scan_calls(batch)
     per_step = {k: 0 for k in launch_counters()}
-    per_step.update({"fbank_fused": 1, f"{scan}_scan_fused": n_scans,
-                     f"{scan}_bwd_fused": n_scans, "ctc_loss_fused": 1,
-                     "loc_att_fwd_fused": k7, "loc_att_bwd_fused": k7})
+    per_step.update({"fbank_fused": 1, "ctc_loss_fused": 1,
+                     "loc_att_fwd_fused": k7, "loc_att_bwd_fused": k7,
+                     **{k: n_scans * calls.get(k, 1)
+                        for k in (f"{scan}_scan_fused", f"{scan}_bwd_fused")}})
     solver.train_step(*data)                       # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Times K4b and K8 of one checkout of the PyTorch port on one GPU, so that
+"""Times K2, K2b, K4b and K8 of one checkout of the PyTorch port on one GPU, so that
 two commits can be compared on the same card in turns.
 
-    python3 chip_turns.py [--root DIR] [--seed 0] [--cases k4b,k8_31,...]
+    python3 chip_turns.py [--root DIR] [--seed 0] [--cases k2,k2b,k4b,...]
 
 ``--root`` is the checkout whose ``end_to_end_asr_pytorch_tpu_torch`` is
 imported (default: this one); run the script once per checkout, in turns
 (parent, change, change, parent), inside one call on the card. It prints
 one JSON line per measurement and last the card's name and power limit:
 
+  k2   - lstm_scan_fused in f32 (serving, and with its training residuals)
+         at T=176, H=512, B=32 and 128, reversed, ragged masks, beside
+         cuDNN nn.LSTM's forward (TF32 off)
+  k2b  - lstm_bwd_fused (with the dW_hh GEMM) at the same shapes, beside
+         cuDNN nn.LSTM fwd+bwd - fwd
   k4b  - gru_bwd_fused (with the dW_hh GEMM) at T=176, H=512, B=32 and 128,
          reversed, ragged masks, beside cuDNN nn.GRU fwd+bwd - fwd (TF32 off)
   k8   - beam_step_fused at B=32 (V=31 and V=5120) and B=128 (V=5120), K=8,
@@ -18,8 +23,8 @@ one JSON line per measurement and last the card's name and power limit:
          enqueue is slower than the card, as at V=31, the host's noise
          only ever adds; device ms by the profiler), beside the plain tail
 
-``--cases`` keeps only the named ones (k4b, k8_31, k8_5120, k8_5120_b128;
-default all). It needs CUDA and exits with an error without it.
+``--cases`` keeps only the named ones (k2, k2b, k4b, k8_31, k8_5120,
+k8_5120_b128; default all). It needs CUDA and exits with an error without it.
 """
 import argparse
 import inspect
@@ -33,7 +38,8 @@ def main():
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cases", default="k4b,k8_31,k8_5120,k8_5120_b128")
+    ap.add_argument("--cases",
+                    default="k2,k2b,k4b,k8_31,k8_5120,k8_5120_b128")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -44,18 +50,42 @@ def main():
     from end_to_end_asr_pytorch_tpu_torch.ops import ctc_prefix
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import beam_step_kernel as bsk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
     import numpy as np
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     root = str(Path(args.root).resolve())
-    assert Path(bsk.__file__).resolve().is_relative_to(root), bsk.__file__
+    for mod in (bsk, lk):
+        assert Path(mod.__file__).resolve().is_relative_to(root), mod.__file__
 
     cases = set(args.cases.split(","))
     T, H = 176, 512
+    for B in ((32, 128) if cases & {"k2", "k2b"} else ()):
+        rng = np.random.RandomState(args.seed + B)
+        w_hh = cs.lstm_weights(rng, H)
+        xp, dys, mask = cs.scan_case(rng, B, T, H, 4)
+        cudnn = cs.cudnn_lstm(w_hh)
+        xl = xp.clone().requires_grad_(True)
+        fwd = cs.cuda_ms(lambda: cudnn(xl)[0], 10)
+        if "k2" in cases:
+            cs.emit({"turn": "k2", "root": root, "B": B,
+                     "ms": cs.cuda_ms(lambda: lk.lstm_scan_fused(
+                         xp, w_hh, mask, True), 10),
+                     "ms_residuals": cs.cuda_ms(lambda: lk.lstm_scan_fused(
+                         xp, w_hh, mask, True, residuals=True), 10),
+                     "cudnn_ms": cs.cuda_ms(lambda: cudnn(xp)[0], 10)})
+        if "k2b" in cases:
+            ys, c, gates = lk.lstm_scan_fused(xp, w_hh, mask, True,
+                                              residuals=True)
+            cs.emit({"turn": "k2b", "root": root, "B": B,
+                     "ms": cs.cuda_ms(lambda: lk.lstm_bwd_fused(
+                         gates, c, ys, mask, w_hh, dys, True), 10),
+                     "cudnn_ms": cs.cuda_ms(
+                         lambda: cudnn(xl)[0].backward(dys), 10) - fwd})
     for B in ((32, 128) if "k4b" in cases else ()):
         rng = np.random.RandomState(args.seed + B)
         w_hh, b_hh = cs.gru_weights(rng, H)
-        xp, dys, mask = cs.gru_case(rng, B, T, H)
+        xp, dys, mask = cs.scan_case(rng, B, T, H, 3)
         ys, gates, hp_n = gk.gru_scan_fused(xp, w_hh, b_hh, mask, True,
                                             residuals=True)
         cudnn = cs.cudnn_gru(w_hh, b_hh)

@@ -41,7 +41,7 @@
 //
 // Bound of the f32 forward on the H100: the T serial steps, each a
 // (B, H) x (H, 3H) product in f32 (67 TFLOP/s without tensor cores), plus
-// one grid-wide barrier per step. Design, lstm_scan.cu's: ONE persistent
+// one grid-wide barrier per step. Design: ONE persistent
 // cooperative launch per (layer, direction). Block j owns U hidden units
 // across the three gates; its slice of W_hh (float4 per unit and k, the
 // fourth lane zero) stays in shared memory for the whole scan. Each step a
@@ -199,13 +199,14 @@ extern "C" int gru_fwd_launch(const float* xp, const float* whh,
 // K4-bf16's gate epilogue: p the product sums h @ W_hh (r, z, n), x the
 // step's x_proj, b_hh added to the product as in hp = h @ W_hh + b_hh.
 struct GruCell {
+  using X = __nv_bfloat16;      // x_proj and ys
   static constexpr int NG = 3;  // gates
   static constexpr int NS = 0;  // no state beside h
   const float* bhh;
   int H;
   __device__ __forceinline__ float step(const float* p, const float* x,
                                         float h_old, float*, int, bool,
-                                        int unit) const {
+                                        int unit, int, int) const {
     const float hr = p[0] + bhh[unit], hz = p[1] + bhh[H + unit];
     const float hn = p[2] + bhh[2 * H + unit];
     const float r = sigmoidf_(x[0] + hr);
@@ -231,8 +232,8 @@ extern "C" int gru_tc_launch(const void* xp, const float* whh,
                              int U, int C, int kw, int kg, int rows, int g0,
                              int groups, int mode, int reverse,
                              void* stream) {
-  TcArgs a = {(const __nv_bfloat16*)xp, whh, mask, (__nv_bfloat16*)ys,
-              (uint4*)wrem, hbuf, T, B, H, U, C, kw, kg, rows, g0, reverse, 0};
+  TcArgs a = {xp, whh, mask, ys, (uint4*)wrem, hbuf, T, B, H, U, C, kw, kg,
+              rows, g0, reverse, 0};
   return tc_scan_launch(a, GruCell{bhh, H}, groups, mode, stream);
 }
 

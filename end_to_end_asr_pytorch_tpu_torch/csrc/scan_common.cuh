@@ -1,7 +1,8 @@
-// What the f32 recurrent time scans (lstm_scan.cu, gru_scan.cu) share: the
-// block size and shared-memory chunk, the co-residency query and the
-// cooperative launch of one persistent grid of H / U blocks (U hidden units
-// per block, a template constant).
+// The gate activation of the recurrent scans (lstm_scan.cu, gru_scan.cu),
+// and what K4's cooperative f32 forward (gru_scan.cu) needs: the block size
+// and shared-memory chunk, the co-residency query and the cooperative
+// launch of one persistent grid of H / U blocks (U hidden units per block,
+// a template constant).
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

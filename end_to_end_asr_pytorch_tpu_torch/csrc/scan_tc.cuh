@@ -1,8 +1,9 @@
-// The tensor-core time scan shared by the bf16 decode kernels K2-bf16
-// (lstm_scan.cu) and K4-bf16 (gru_scan.cu): the split of the f32 carry,
-// the fragment loads, the step exchange and the launch. Each kernel keeps
-// only its gate epilogue (a Cell: NG gates, NS floats of state per unit and
-// row, and step()).
+// The tensor-core time scan shared by K2 (lstm_scan.cu: f32, with optional
+// training residuals, and its bf16 decode variant K2-bf16) and K4-bf16
+// (gru_scan.cu): the split of the f32 carry, the fragment loads, the step
+// exchange and the launch. Each kernel keeps only its gate epilogue (a
+// Cell: the element type X of x_proj and ys, f32 or bf16; NG gates; NS
+// floats of state per unit and row; and step()).
 //
 // Per (layer, direction) and per group of 8 or 16 batch rows (picked by
 // ops/cuda/scan_tc.py), C blocks walk all T steps together: one thread
@@ -24,7 +25,8 @@
 // f32 (hi in one accumulator, mid + lo in another). W is split as it is
 // loaded, w = w_hi + w_mid + w_lo; a block whose remainder is zero (W_hh
 // rounded to bf16, decode amp's main path) runs the three w_hi passes only;
-// otherwise it adds (hi + mid) . w_mid + hi . w_lo, whose fragments it keeps
+// otherwise (K2 in f32: training and f32-decode W_hh is not bf16-valued) it
+// adds (hi + mid) . w_mid + hi . w_lo, whose fragments it keeps
 // in a global scratch in fragment order (read back from L2 each step).
 //
 // Step exchange: each block writes its U units of the new h (f32, rows x U)
@@ -52,10 +54,10 @@ namespace cg = cooperative_groups;
 enum { TC_CLUSTER = 0, TC_GRID = 1 };
 
 struct TcArgs {
-  const __nv_bfloat16* xp;  // (T, B, NG*H)
+  const void* xp;           // (T, B, NG*H) of the Cell's X
   const float* whh;         // (H, NG*H)
   const float* mask;        // (T, B), 1 / 0
-  __nv_bfloat16* ys;        // (T, B, H)
+  void* ys;                 // (T, B, H) of the Cell's X
   uint4* wrem;              // C * warps * kw * 32 * 2 uint4: w_mid, w_lo frags
   float* hbuf;              // TC_GRID: (groups, 2, rows, H) exchange slots
   int T, B, H, U, C, kw, kg, rows, g0, reverse;  // g0: first group
@@ -86,8 +88,10 @@ __host__ __device__ inline int tc_cols(int NG, int U) {
   return (NG * U + 15) / 16 * 16;
 }
 
+// xbytes: bytes of one x_proj element (2 for bf16, 4 for f32).
 __host__ __device__ inline TcLayout tc_layout(int Hk, int U, int NG, int NS,
-                                              int rows, int kg, int mode) {
+                                              int rows, int kg, int mode,
+                                              int xbytes = 2) {
   TcLayout L;
   size_t o = 0;
   const int GC = NG * U, SR = Hk + 8;
@@ -99,8 +103,8 @@ __host__ __device__ inline TcLayout tc_layout(int Hk, int U, int NG, int NS,
   if (mode == TC_CLUSTER) o = tc_align(o + (size_t)2 * rows * U * 4);
   L.st = o;   // the cell's state, NS x rows x U f32
   o = tc_align(o + (size_t)NS * rows * U * 4);
-  L.xs = o;   // two buffers of x_proj rows, rows x GC bf16
-  o = tc_align(o + (size_t)2 * rows * GC * 2);
+  L.xs = o;   // two buffers of x_proj rows, rows x GC elements
+  o = tc_align(o + (size_t)2 * rows * GC * xbytes);
   L.ms = o;   // two buffers of mask rows
   o = tc_align(o + (size_t)2 * rows * 4);
   L.total = o;
@@ -162,6 +166,15 @@ __device__ __forceinline__ void tc_cp4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
                "l"(src));
 }
+__device__ __forceinline__ float tc_f32(float v) { return v; }
+__device__ __forceinline__ float tc_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void tc_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void tc_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 __device__ __forceinline__ void tc_cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -251,23 +264,25 @@ __device__ __forceinline__ void tc_wfrag(const float* wa, const float* wb,
 }
 
 // cp.async of step t's x_proj rows (this block's GC columns) and mask rows
-// into one buffer; one commit group. U is a multiple of 4 (8-byte copies)
-// and, where it is a multiple of 8, every copy is 16 bytes.
-template <int NG>
-__device__ __forceinline__ void tc_prefetch(const TcArgs& a,
-                                            __nv_bfloat16* xs, float* ms,
-                                            int t, int b0, int nb, int u0) {
+// into one buffer; one commit group. U is a multiple of 4: f32 rows take
+// 16-byte copies, bf16 rows 8-byte ones, or 16 where U is a multiple of 8.
+template <int NG, class X>
+__device__ __forceinline__ void tc_prefetch(const TcArgs& a, X* xs,
+                                            float* ms, int t, int b0, int nb,
+                                            int u0) {
+  constexpr int E = sizeof(X);
   const int GC = NG * a.U, G = NG * a.H;
-  const int vec = a.U % 8 == 0 ? 8 : 4;  // bf16 per copy: 16 or 8 bytes
+  // elements per copy: 16 bytes, or 8 where U is not a multiple of 16 bytes
+  const int vec = a.U % (16 / E) == 0 ? 16 / E : 8 / E;
   const int nv = a.U / vec;
   const int n = nb * NG * nv;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int r = i / (NG * nv), rem = i - r * NG * nv;
     const int g = rem / nv, j = rem - g * nv;
-    const __nv_bfloat16* src =
-        a.xp + ((size_t)t * a.B + b0 + r) * G + g * a.H + u0 + j * vec;
-    __nv_bfloat16* dst = xs + r * GC + g * a.U + j * vec;
-    if (vec == 8) tc_cp16(dst, src);
+    const X* src = (const X*)a.xp + ((size_t)t * a.B + b0 + r) * G +
+                   g * a.H + u0 + j * vec;
+    X* dst = xs + r * GC + g * a.U + j * vec;
+    if (vec * E == 16) tc_cp16(dst, src);
     else tc_cp8(dst, src);
   }
   for (int r = threadIdx.x; r < nb; r += blockDim.x)
@@ -282,6 +297,7 @@ template <class Cell, int MODE, int NTILE, bool PAD>
 __global__ void __launch_bounds__(TC_MAX_THREADS, 1)
     tc_scan_kernel(TcArgs a, Cell cell) {
   constexpr int NG = Cell::NG;
+  using X = typename Cell::X;
   const int U = a.U, H = a.H, GC = NG * U;
   const int PC = PAD ? tc_cols(NG, U) : GC, MT = PC / 16;
   const int rank = blockIdx.x % a.C, group = blockIdx.x / a.C;
@@ -293,13 +309,13 @@ __global__ void __launch_bounds__(TC_MAX_THREADS, 1)
   const size_t plane = (size_t)a.rows * SR;
 
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  const TcLayout L =
-      tc_layout(PAD ? a.Hk : H, U, NG, Cell::NS, a.rows, a.kg, MODE);
+  const TcLayout L = tc_layout(PAD ? a.Hk : H, U, NG, Cell::NS, a.rows, a.kg,
+                               MODE, sizeof(X));
   __nv_bfloat16* S = (__nv_bfloat16*)(tc_smem + L.s);
   float* P = (float*)(tc_smem + L.p);
   float* own_s = (float*)(tc_smem + L.own);
   float* st = (float*)(tc_smem + L.st);
-  __nv_bfloat16* xs = (__nv_bfloat16*)(tc_smem + L.xs);
+  X* xs = (X*)(tc_smem + L.xs);
   float* ms = (float*)(tc_smem + L.ms);
 
   // zero both slots (slot 0 is the initial h; rows past the batch stay 0)
@@ -446,7 +462,7 @@ __global__ void __launch_bounds__(TC_MAX_THREADS, 1)
     __syncthreads();
 
     // epilogue: one (row, unit) pair per thread and pass
-    const __nv_bfloat16* x = xs + (size_t)cur * a.rows * GC;
+    const X* x = xs + (size_t)cur * a.rows * GC;
     const float* mk = ms + cur * a.rows;
     const float* hold = tc_slot<MODE>(a, own_s, group, rank, cur);
     float* hnew = tc_slot<MODE>(a, own_s, group, rank, cur ^ 1);
@@ -460,16 +476,16 @@ __global__ void __launch_bounds__(TC_MAX_THREADS, 1)
         float sum = pc[0];
         for (int j = 1; j < a.kg; ++j) sum += pc[(size_t)j * PC * RS];
         pre[g] = sum;
-        xv[g] = __bfloat162float(x[r * GC + g * U + u]);
+        xv[g] = tc_f32(x[r * GC + g * U + u]);
       }
       const bool m = mk[r] != 0.f;
       const float h_old = MODE == TC_CLUSTER ? hold[r * ostride + u]
                                              : __ldcg(hold + r * ostride + u);
-      const float h_new =
-          cell.step(pre, xv, h_old, st + r * U + u, a.rows * U, m, u0 + u);
+      const float h_new = cell.step(pre, xv, h_old, st + r * U + u,
+                                    a.rows * U, m, u0 + u, t, b0 + r);
       hnew[r * ostride + u] = m ? h_new : h_old;
-      a.ys[((size_t)t * a.B + b0 + r) * H + u0 + u] =
-          __float2bfloat16_rn(m ? h_new : 0.f);
+      tc_store((X*)a.ys + ((size_t)t * a.B + b0 + r) * H + u0 + u,
+               m ? h_new : 0.f);
     }
     if (s + 1 < a.T)
       tc_prefetch<NG>(a, xs + (size_t)(cur ^ 1) * a.rows * GC,
@@ -600,8 +616,8 @@ static int tc_max_groups(int H, int U, int C, int kw, int kg, int rows,
   const int Hk = tc_kext(H, kw, kg);
   void* fn = tc_kernel_for<Cell>(rows, mode, H, Hk, U);
   if (threads == 0 || fn == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      tc_layout(Hk, U, Cell::NG, Cell::NS, rows, kg, mode).total;
+  const size_t smem = tc_layout(Hk, U, Cell::NG, Cell::NS, rows, kg, mode,
+                                sizeof(typename Cell::X)).total;
   return tc_prepare(fn, C, threads, smem, mode, out);
 }
 
@@ -617,15 +633,15 @@ static int tc_scan_launch(TcArgs a, Cell cell, int groups, int mode,
       a.g0 < 0 || (a.g0 + groups - 1) * a.rows >= a.B ||
       (mode == TC_GRID && a.hbuf == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      tc_layout(a.Hk, a.U, Cell::NG, Cell::NS, a.rows, a.kg, mode).total;
+  const size_t smem = tc_layout(a.Hk, a.U, Cell::NG, Cell::NS, a.rows, a.kg,
+                                mode, sizeof(typename Cell::X)).total;
   void* args[] = {(void*)&a, (void*)&cell};
   return tc_launch(fn, args, a.C, groups, threads, smem, mode, stream);
 }
 
 // ------------------------------------------------------- the backward scan
-// The f32 backward of a recurrent scan on the same tensor cores (K4b in
-// gru_scan.cu; K2b can take it by adding its own Cell). Per walked step it
+// The f32 backward of a recurrent scan on the same tensor cores (K2b in
+// lstm_scan.cu, K4b in gru_scan.cu: each adds its own Cell). Per walked step it
 // computes the carry's product dhp . W_hh^T, which reduces over the K =
 // NG * H gate columns of the previous walked step's dhp, then the Cell's
 // epilogue. Block `rank` owns U = H / C hidden units (output rows of the

@@ -6,18 +6,18 @@ Replaces ``end_to_end_asr_pytorch_tpu/ops/pallas/gru_kernel.py``:
 ``_run_fwd`` (forward, with the gate and hp_n residuals) and ``_run_bwd``
 (reverse-time gradients of x_proj and of the hidden projection), tied
 together by the ``jax.custom_vjp`` of ``gru_scan_fused`` (``_g_fwd`` /
-``_g_bwd``), whose counterpart here is ``GRUScan``. The f32 forward's
-design is K2's (``lstm_kernel.py``): one persistent cooperative launch per
-(layer, direction) that keeps its slice of W_hh in shared memory and
-synchronises the grid once per step. The backward runs on the tensor cores
-(``scan_tc.run_bwd``: a cluster of blocks per group of batch rows, W_hh
+``_g_bwd``), whose counterpart here is ``GRUScan``. The f32 forward is
+one persistent cooperative launch per (layer, direction) that keeps its
+slice of W_hh in shared memory and synchronises the grid once per step.
+The backward runs on the tensor cores (``scan_tc.run_bwd``: a
+cooperative grid, or clusters, of blocks per group of batch rows, W_hh
 fragments in registers, dhp split into bf16 parts so the product equals
-the f32 one, dhp exchanged through distributed shared memory).
-dW_hh = hs_prev^T dhp and db_hh = sum dhp are one
-``torch.matmul`` and one sum outside the backward kernel, as the TPU wrapper
-leaves them to XLA. The TPU kernels' UNROLL / B_TILE are TPU pipeline
-devices and are not carried over; time is walked by index in both
-directions, with no flipped copies.
+the f32 one, dhp exchanged through L2 or distributed shared memory).
+dW_hh = hs_prev^T dhp and db_hh = sum dhp are one ``torch.matmul`` and one
+sum outside the backward kernel, as the TPU wrapper leaves them to XLA.
+The TPU kernels' UNROLL / B_TILE are TPU pipeline devices and are not
+carried over; time is walked by index in both directions, with no flipped
+copies.
 
 Numerics: the kernels compute in f32 throughout (no Precision.DEFAULT bf16
 multiplies) and are held to the f32 plain versions. The forward also takes
@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, scan_tc
-from .lstm_kernel import _pick_units, _prev_step
+from .lstm_kernel import _prev_step
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -155,6 +155,26 @@ def gru_scan_bwd_plain(gates: torch.Tensor, hp_n: torch.Tensor,
 
 # kernel kind of gru_max_coresident: the f32 forward
 _FWD = 0
+_NT = 256  # threads per block of the f32 forward
+
+
+def _pick_units(H: int, B: int, max_coresident, kind: int) -> int:
+    """Hidden units per block of the f32 forward: the smallest power of two
+    that divides H and leaves a grid that is co-resident on the card.
+    ``max_coresident`` is the library's occupancy query
+    (``gru_max_coresident``)."""
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    U = 1
+    while U <= _NT // 2:
+        if H % U == 0 and H // U <= sms:
+            out = ctypes.c_int(0)
+            build.check(max_coresident(B, H, U, kind, ctypes.byref(out)),
+                        "scan occupancy query")
+            if H // U <= out.value:
+                return U
+        U *= 2
+    raise ValueError(f"scan kernel: no co-resident grid for H={H}, B={B}")
 
 
 def _check_fwd(what, x_proj, w_hh, b_hh, mask, dtype):

@@ -7,25 +7,24 @@ Replaces ``end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py``:
 ``_run_bwd`` (reverse-time gate gradients), tied together by the
 ``jax.custom_vjp`` of ``lstm_scan_fused`` (``_fused_fwd`` / ``_fused_bwd``),
 whose counterpart here is ``LSTMScan``. On the H100 both passes are bound by
-their T serial (B, H) x (H, 4H) f32 products; each kernel is one persistent
-cooperative launch per (layer, direction) that keeps its slice of W_hh and
-its carries in shared memory and synchronises the grid once per step (see
-the CUDA source). dW_hh is one ``torch.matmul`` outside the backward kernel,
-as the TPU wrapper leaves it to XLA. The TPU kernels' UNROLL / B_TILE are
-TPU pipeline devices and are not carried over; the port walks time by index
-in both directions and makes no flipped copies.
+the latency of their T serial steps, each a (B, H) x (H, 4H) product behind
+one exchange across blocks; both run on the tensor cores of ``scan_tc``
+(per layer, direction and group of batch rows a cluster or a cooperative
+grid of blocks that hold their W_hh fragments in registers and split the
+f32 carry into three bf16 parts, so the product equals the f32 one). dW_hh
+is one ``torch.matmul`` outside the backward kernel, as the TPU wrapper
+leaves it to XLA. The TPU kernels' UNROLL / B_TILE are TPU pipeline devices
+and are not carried over; the port walks time by index in both directions
+and makes no flipped copies.
 
 Numerics: the TPU kernels pin Precision.DEFAULT (bf16 multiplies on a TPU,
-f32 in CPU interpret mode). These kernels compute in f32 throughout and are
+f32 in CPU interpret mode). These kernels compute to f32 accuracy and are
 held to the f32 plain versions. The forward also takes bf16 x_proj (decode
 amp, the TPU kernel's x_proj.dtype outputs): ``lstm_scan_bf16`` (K2-bf16)
 reads bf16 x_proj, keeps W_hh, the carries and the gate math in f32 and
 writes ys rounded to bf16; its plain version is ``lstm_scan_plain`` on bf16
-x_proj. On the card it is a separate design, the tensor-core scan of
-``scan_tc`` (one thread-block cluster per layer, direction and group of
-batch rows, the product exact to f32 through a three-part split of h).
-The JAX package's own CPU scan rounds the carries to bf16 each step, which
-the TPU kernel does not: the port follows the kernel.
+x_proj. The JAX package's own CPU scan rounds the carries to bf16 each
+step, which the TPU kernel does not: the port follows the kernel.
 """
 from __future__ import annotations
 
@@ -36,16 +35,14 @@ import torch
 
 from . import build, scan_tc
 
-_NT = 256  # threads per block in the kernels
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "lstm_max_coresident": (_I, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
-    "lstm_fwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _P]),
     "lstm_tc_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
     "lstm_tc_launch": (_I, [_P] * 6 + [_I] * 12 + [_P]),
-    "lstm_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _P]),
+    "lstm_tc_f32_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
+    "lstm_tc_f32_launch": (_I, [_P] * 8 + [_I] * 12 + [_P]),
+    "lstm_tc_bwd_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
+    "lstm_tc_bwd_launch": (_I, [_P] * 8 + [_I] * 12 + [_P]),
 }
 
 
@@ -139,6 +136,40 @@ def lstm_scan_bwd_plain(gates: torch.Tensor, cs: torch.Tensor,
     return dxp, dw_hh(ys, dxp, reverse)
 
 
+def lstm_bwd_steps_plain(gates: torch.Tensor, cs: torch.Tensor,
+                         mask: torch.Tensor, w_hh: torch.Tensor,
+                         dys: torch.Tensor, reverse: bool = False
+                         ) -> torch.Tensor:
+    """The backward kernel's own output dxp (T, B, 4H) as K2b's tensor-core
+    scan computes it: the carry product through ``scan_tc.split_product``
+    of the previous walked step's gate gradients and W_hh^T, then the
+    epilogue of ``LstmBwdCell`` in its order (dh_carry = p + st_dh;
+    st_dh = (1 - m) dh_carry; dc_carry = m dc f + (1 - m) dc_carry)."""
+    T, B, G = gates.shape
+    H = G // 4
+    cs_prev = _prev_step(cs, reverse)
+    st_dh = torch.zeros((B, H), dtype=gates.dtype, device=gates.device)
+    dc_c = torch.zeros_like(st_dh)
+    prev = torch.zeros((B, G), dtype=gates.dtype, device=gates.device)
+    w_t = w_hh.t()
+    dxp = torch.zeros_like(gates)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        i, f, g, o = gates[t].split(H, dim=-1)
+        m = mask[t][:, None].to(gates.dtype)
+        dh_carry = scan_tc.split_product(prev, w_t) + st_dh
+        dh = dh_carry + dys[t]
+        tc = torch.tanh(cs[t])
+        dc = dc_c + dh * o * (1.0 - tc * tc)
+        dxp[t] = m * torch.cat([(dc * g) * i * (1.0 - i),
+                                (dc * cs_prev[t]) * f * (1.0 - f),
+                                (dc * i) * (1.0 - g * g),
+                                (dh * tc) * o * (1.0 - o)], dim=-1)
+        st_dh = (1.0 - m) * dh_carry
+        dc_c = m * (dc * f) + (1.0 - m) * dc_c
+        prev = dxp[t]
+    return dxp
+
+
 def dw_hh(ys: torch.Tensor, dxp: torch.Tensor, reverse: bool) -> torch.Tensor:
     """dW_hh = sum_t hs_prev[t]^T dxp[t], hs_prev the forward's previous
     output (one GEMM, outside the kernel)."""
@@ -147,36 +178,15 @@ def dw_hh(ys: torch.Tensor, dxp: torch.Tensor, reverse: bool) -> torch.Tensor:
     return hs_prev.reshape(-1, H).t() @ dxp.reshape(-1, G)
 
 
-# kernel kinds of lstm_max_coresident
-_FWD, _BWD = 0, 1
-
-
-def _pick_units(H: int, B: int, max_coresident, kind: int) -> int:
-    """Hidden units per block: the smallest power of two that divides H and
-    leaves a grid that is co-resident on the card. ``max_coresident`` is a
-    scan library's occupancy query (``lstm_`` or ``gru_max_coresident``)."""
-    dev = torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    U = 1
-    while U <= _NT // 2:
-        if H % U == 0 and H // U <= sms:
-            out = ctypes.c_int(0)
-            build.check(max_coresident(B, H, U, kind, ctypes.byref(out)),
-                        "scan occupancy query")
-            if H // U <= out.value:
-                return U
-        U *= 2
-    raise ValueError(f"scan kernel: no co-resident grid for H={H}, B={B}")
-
-
 def lstm_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
                     mask: torch.Tensor, reverse: bool = False,
                     residuals: bool = False):
     """K2. x_proj (T, B, 4H) f32, w_hh (H, 4H) f32, mask (T, B) bool ->
     ys (T, B, H), or (ys, cs, gates) with ``residuals``. bf16 x_proj goes to
     ``lstm_scan_bf16`` (no residuals). CPU tensors take the plain version;
-    CUDA tensors launch the kernel. Either way, inputs of another dtype or
-    layout raise."""
+    CUDA tensors launch the tensor-core scan (``lstm_fwd_tc``), once, or
+    once per wave where a grid's groups do not all fit. Either way, inputs
+    of another dtype or layout raise."""
     T, B, G = x_proj.shape
     H = G // 4
     if x_proj.dtype == torch.bfloat16 and not residuals:
@@ -191,28 +201,32 @@ def lstm_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
         return lstm_scan_plain(x_proj, w_hh, mask, reverse)
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_scan_fused: unsupported device {x_proj.device}")
-    lib = build.load("lstm_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib.lstm_max_coresident, _FWD)
-    dev = x_proj.device
-    ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    cs = gates = None
-    if residuals:
-        cs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-        gates = torch.empty((T, B, G), dtype=torch.float32, device=dev)
-    hbuf = torch.zeros((2, H, B), dtype=torch.float32, device=dev)
-    m = mask.to(torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.lstm_fwd_launch(x_proj.data_ptr(), w_hh.data_ptr(), m.data_ptr(),
-                             ys.data_ptr(), hbuf.data_ptr(),
-                             cs.data_ptr() if residuals else None,
-                             gates.data_ptr() if residuals else None,
-                             T, B, H, U, int(reverse), stream)
-    build.check(rc, "lstm_scan_fused launch")
-    lstm_scan_fused.launches += 1
-    return (ys, cs, gates) if residuals else ys
+    out, n = lstm_fwd_tc(x_proj, w_hh, mask, reverse, residuals)
+    lstm_scan_fused.launches += n
+    return out
 
 
 lstm_scan_fused.launches = 0
+
+
+def lstm_fwd_tc(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                mask: torch.Tensor, reverse: bool = False,
+                residuals: bool = False, mode: Optional[int] = None,
+                rows: Optional[int] = None):
+    """K2's launch on checked f32 CUDA tensors -> (ys or (ys, cs, gates),
+    launches): the tensor-core scan (``scan_tc.run``) in the design
+    ``mode`` / ``rows`` (default: ``scan_tc.pick``'s). Counts nothing;
+    ``lstm_scan_fused`` does."""
+    T, B, G = x_proj.shape
+    H = G // 4
+    lib = build.load("lstm_scan", _SIGNATURES)
+    res = ((torch.empty((T, B, H), dtype=torch.float32, device=x_proj.device),
+            torch.empty((T, B, G), dtype=torch.float32, device=x_proj.device))
+           if residuals else ())
+    ys, n = scan_tc.run(lib.lstm_tc_f32_launch, lib.lstm_tc_f32_max_groups,
+                        x_proj, w_hh, (), mask, reverse, 4, mode, rows,
+                        tuple(t.data_ptr() for t in res) or (None, None))
+    return ((ys, *res) if residuals else ys), n
 
 
 def lstm_scan_bf16(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -248,8 +262,8 @@ def lstm_bwd_fused(gates: torch.Tensor, cs: torch.Tensor, ys: torch.Tensor,
     """K2b. gates (T, B, 4H), cs / ys / dys (T, B, H), mask (T, B) bool,
     w_hh (H, 4H), all f32 -> (dxp (T, B, 4H), dW_hh (H, 4H)); dW_hh is one
     GEMM after the kernel. CPU tensors take the plain version; CUDA tensors
-    launch the kernel. Either way, inputs of another dtype or layout
-    raise."""
+    launch the tensor-core backward scan (``lstm_bwd_tc``). Either way,
+    inputs of another dtype or layout raise."""
     T, B, G = gates.shape
     H = G // 4
     build.check_inputs("lstm_bwd_fused", gates,
@@ -263,22 +277,31 @@ def lstm_bwd_fused(gates: torch.Tensor, cs: torch.Tensor, ys: torch.Tensor,
         return lstm_scan_bwd_plain(gates, cs, ys, mask, w_hh, dys, reverse)
     if gates.device.type != "cuda":
         raise ValueError(f"lstm_bwd_fused: unsupported device {gates.device}")
-    lib = build.load("lstm_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib.lstm_max_coresident, _BWD)
-    dev = gates.device
-    dxp = torch.empty((T, B, G), dtype=torch.float32, device=dev)
-    dgbuf = torch.zeros((2, H, B, 4), dtype=torch.float32, device=dev)
-    m = mask.to(torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.lstm_bwd_launch(gates.data_ptr(), cs.data_ptr(), dys.data_ptr(),
-                             m.data_ptr(), w_hh.data_ptr(), dxp.data_ptr(),
-                             dgbuf.data_ptr(), T, B, H, U, int(reverse), stream)
-    build.check(rc, "lstm_bwd_fused launch")
-    lstm_bwd_fused.launches += 1
+    dxp, n = lstm_bwd_tc(gates, cs, mask, w_hh, dys, reverse)
+    lstm_bwd_fused.launches += n
     return dxp, dw_hh(ys, dxp, reverse)
 
 
 lstm_bwd_fused.launches = 0
+
+
+def lstm_bwd_tc(gates: torch.Tensor, cs: torch.Tensor, mask: torch.Tensor,
+                w_hh: torch.Tensor, dys: torch.Tensor, reverse: bool = False,
+                mode: Optional[int] = None, rows: Optional[int] = None
+                ) -> Tuple[torch.Tensor, int]:
+    """K2b's launch on checked CUDA tensors -> (dxp (T, B, 4H), launches):
+    the tensor-core backward scan (``scan_tc.run_bwd``) in the design
+    ``mode`` / ``rows`` (default: ``scan_tc.pick``'s, the grid first).
+    Counts nothing; ``lstm_bwd_fused`` does."""
+    T, B, G = gates.shape
+    lib = build.load("lstm_scan", _SIGNATURES)
+    dxp = torch.empty((T, B, G), dtype=torch.float32, device=gates.device)
+    m = mask.to(torch.float32)
+    n = scan_tc.run_bwd(
+        lib.lstm_tc_bwd_launch, lib.lstm_tc_bwd_max_groups,
+        tuple(t.data_ptr() for t in (gates, cs, dys, m, w_hh, dxp)),
+        w_hh, T, B, 4, reverse, mode, rows)
+    return dxp, n
 
 
 class LSTMScan(torch.autograd.Function):

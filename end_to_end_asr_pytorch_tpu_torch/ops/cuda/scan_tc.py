@@ -1,6 +1,8 @@
-"""The tensor-core time scan shared by K2-bf16 and K4-bf16
-(``csrc/scan_tc.cuh``): how a scan is split over a cluster of blocks, its
-launch, and plain helpers that spell out the kernel's arithmetic.
+"""The tensor-core time scans of ``csrc/scan_tc.cuh``: the forward shared
+by K2 (f32, with optional training residuals), K2-bf16 and K4-bf16, and the
+backward shared by K2b and K4b. How a scan is split over a cluster of
+blocks, its launch, and plain helpers that spell out the kernel's
+arithmetic.
 
 Arithmetic: the kernel's step product h @ W_hh runs on bf16 tensor cores
 yet equals the f32 product to f32 rounding. The f32 carry h is split into
@@ -8,12 +10,14 @@ three bf16 parts whose sum is h (``split3``); W_hh is split into w_hi =
 bf16(W_hh) and a remainder, which is zero when W_hh is bf16-valued (decode
 amp rounds its weights, ``ops/amp.bf16_rounded_copy``). The products of bf16
 values are exact in f32 and are summed in f32 (``split_product``); the
-remainder passes run only where ``has_bf16_remainder`` is true.
+remainder passes run only where ``has_bf16_remainder`` is true, as for the
+W_hh of training and of the f32 decode (K2 in f32).
 
-The f32 backward scan (K4b, ``tc_bwd_kernel``) runs the same arithmetic
-on the carry's product dhp @ W_hh^T (``split_product(dhp, w_hh.t())``):
-dhp is split each step, and training W_hh always takes the remainder
-passes. ``plan_bwd`` / ``run_bwd`` are its block split and launch.
+The f32 backward scan (K2b and K4b, ``tc_bwd_kernel``) runs the same
+arithmetic on the carry's product dhp @ W_hh^T (``split_product(dhp,
+w_hh.t())``, dhp the previous walked step's gate gradients): dhp is split
+each step, and training W_hh always takes the remainder passes.
+``plan_bwd`` / ``run_bwd`` are its block split and launch.
 """
 from __future__ import annotations
 
@@ -150,12 +154,14 @@ def pick(query: Callable, H: int, n_gates: int, B: int,
     16 rows) is taken whose groups can all be resident at once: as clusters
     (the faster exchange, chip_smoke.py's scan_floor phase), else as one
     cooperative grid (on an H100 at most 7 clusters of 16 blocks fit, but 8
-    groups of 16 blocks do as a grid). Else groups of 16 rows in waves:
+    groups of 16 blocks do as a grid). Else groups of 16 rows in waves
+    (8 where a block of 16 rows does not fit, as in K2b's scan at H=512):
     clusters (the card runs them in waves), or grids launched in turn where
-    the split has more than 16 blocks. ``grid_first`` tries the grid
-    before the clusters at each row count: the backward scan's exchange
-    (3x the forward's) ran faster through L2 than through distributed
-    shared memory at B=32 on an H100 (chip_smoke.py's k4b design_ms)."""
+    the split has more than 16 blocks or the grid comes first.
+    ``grid_first`` tries the grid before the clusters at each row count:
+    the backward scan's exchange (3x the forward's for the GRU, 4x for the
+    LSTM) ran faster through L2 than through distributed shared memory at
+    B=32 on an H100 (chip_smoke.py's k4b design_ms)."""
     modes = ((CLUSTER, GRID) if planner(H, n_gates)[0] <= MAX_CLUSTER
              else (GRID,))
     if grid_first:
@@ -170,28 +176,50 @@ def pick(query: Callable, H: int, n_gates: int, B: int,
     return modes[0], rows
 
 
-def run(launch: Callable, query: Callable, x_proj: torch.Tensor,
-        w_hh: torch.Tensor, extra: tuple, mask: torch.Tensor, reverse: bool,
-        n_gates: int, mode: int = None, rows: int = None
-        ) -> Tuple[torch.Tensor, int]:
-    """The scan on CUDA tensors -> (ys (T, B, H) bf16, kernel launches).
-    ``launch`` / ``query`` are a scan library's ``*_tc_launch`` and
-    ``*_tc_max_groups``; ``extra`` the pointers between w_hh and the mask
-    (the GRU's b_hh). ``mode`` and ``rows`` default to ``pick``'s. One
-    launch holds every group as clusters (the card runs them in waves) or
-    as a grid where they can all be resident; a grid takes as many launches
-    as it needs otherwise. A launch the card refuses raises."""
-    T, B, G = x_proj.shape
-    H = G // n_gates
-    C, U, kw, kg = plan(H, n_gates)
+def schedule(query: Callable, H: int, n_gates: int, B: int,
+             planner: Callable = plan, grid_first: bool = False,
+             mode: int = None, rows: int = None) -> Tuple[int, int, int, int]:
+    """(mode, rows, groups, per_launch) of a scan at batch B: the design
+    (``mode`` and ``rows`` default to ``pick``'s), its groups of ``rows``
+    rows, and how many of them one launch takes: all as clusters (the card
+    runs them in waves), as many as can be resident as a grid."""
     if mode is None or rows is None:
-        mode, rows = pick(query, H, n_gates, B)
+        mode, rows = pick(query, H, n_gates, B, planner, grid_first)
     groups = math.ceil(B / rows)
     per_launch = (groups if mode == CLUSTER else
                   max(1, min(groups, max_groups(query, H, n_gates, rows,
-                                                GRID))))
+                                                GRID, planner))))
+    return mode, rows, groups, per_launch
+
+
+def launches(query: Callable, H: int, n_gates: int, B: int,
+             planner: Callable = plan, grid_first: bool = False) -> int:
+    """Kernel launches of one ``run`` (or, with ``plan_bwd`` and
+    ``grid_first``, one ``run_bwd``) at batch B in ``pick``'s design."""
+    _, _, groups, per_launch = schedule(query, H, n_gates, B, planner,
+                                        grid_first)
+    return -(-groups // per_launch)
+
+
+def run(launch: Callable, query: Callable, x_proj: torch.Tensor,
+        w_hh: torch.Tensor, extra: tuple, mask: torch.Tensor, reverse: bool,
+        n_gates: int, mode: int = None, rows: int = None, outs: tuple = ()
+        ) -> Tuple[torch.Tensor, int]:
+    """The scan on CUDA tensors -> (ys (T, B, H) in x_proj's dtype, kernel
+    launches). ``launch`` / ``query`` are a scan library's ``*_tc_launch``
+    and ``*_tc_max_groups``; ``extra`` the pointers between w_hh and the
+    mask (the GRU's b_hh), ``outs`` those after ys (K2's residual outputs,
+    or nulls). ``mode`` and ``rows`` default to ``pick``'s. One launch
+    holds every group as clusters (the card runs them in waves) or as a
+    grid where they can all be resident; a grid takes as many launches as
+    it needs otherwise. A launch the card refuses raises."""
+    T, B, G = x_proj.shape
+    H = G // n_gates
+    C, U, kw, kg = plan(H, n_gates)
+    mode, rows, groups, per_launch = schedule(query, H, n_gates, B,
+                                              mode=mode, rows=rows)
     dev = x_proj.device
-    ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+    ys = torch.empty((T, B, H), dtype=x_proj.dtype, device=dev)
     # w_mid / w_lo fragments: 1024 bytes per warp and k-step
     wrem = torch.empty(C * warps(H, n_gates) * kw * 256, dtype=torch.float32,
                        device=dev)
@@ -203,7 +231,7 @@ def run(launch: Callable, query: Callable, x_proj: torch.Tensor,
     for g0 in range(0, groups, per_launch):
         rc = launch(x_proj.data_ptr(), w_hh.data_ptr(),
                     *(t.data_ptr() for t in extra), m.data_ptr(),
-                    ys.data_ptr(), wrem.data_ptr(),
+                    ys.data_ptr(), *outs, wrem.data_ptr(),
                     None if hbuf is None else hbuf.data_ptr(),
                     T, B, H, U, C, kw, kg, rows, g0,
                     min(per_launch, groups - g0), mode, int(reverse), stream)
@@ -224,12 +252,8 @@ def run_bwd(launch: Callable, query: Callable, ptrs: tuple, w_hh: torch.Tensor,
     turn. A launch the card refuses raises."""
     H = w_hh.shape[0]
     C, U, kw, kg = plan_bwd(H, n_gates)
-    if mode is None or rows is None:
-        mode, rows = pick(query, H, n_gates, B, plan_bwd, grid_first=True)
-    groups = math.ceil(B / rows)
-    per_launch = (groups if mode == CLUSTER else
-                  max(1, min(groups, max_groups(query, H, n_gates, rows,
-                                                GRID, plan_bwd))))
+    mode, rows, groups, per_launch = schedule(query, H, n_gates, B, plan_bwd,
+                                              True, mode, rows)
     dev = w_hh.device
     wrem = torch.empty(C * warps_bwd(H, n_gates) * kw * 256,
                        dtype=torch.float32, device=dev)

@@ -110,6 +110,9 @@ def test_plan_bwd_covers_the_repo_widths(H, n_gates):
     assert scan_tc.warps_bwd(H, n_gates) == -(-U // 16) * kg <= 16
     # a cluster for the main path's widths, a grid only where none fits
     assert (C <= 16) == (H <= 512)
+    if H == 512:                    # K4b and K2b on the main path
+        want = {3: (16, 32, 16, 6), 4: (16, 32, 16, 8)}[n_gates]
+        assert (C, U, kw, kg) == want
 
 
 @pytest.mark.parametrize("H", [6, 250, 4096])
