@@ -48,14 +48,18 @@ Phases, each printing one JSON line:
                 at B=128 and the slice's batch, T=176, U=96, V=31, ragged
                 lengths, repeated labels, one infeasible row (NLL rtol 1e-5,
                 gradient atol 1e-5)
-  k4          - the GRU scan kernel against its plain version at H=512,
+  k4          - K4, the GRU scan (the tensor-core scan of csrc/scan_tc.cuh
+                in f32, as K2), against its plain version at H=512,
                 T=176, both directions, ragged masks, at B=128 and at the
                 slice's batch, without and with its residuals (ys, gates,
-                hp_n atol 1e-4); and K4-bf16 at the same shapes and widths,
-                checked as K2-bf16 (rounded and unrounded W_hh, every
-                design, 1 bf16 ulp + 1e-5);
-                cuDNN nn.GRU in f32 (TF32 off) and in bf16 as the library
-                yardsticks
+                hp_n atol 1e-4), for the design the wrapper picks and every
+                design, each timed with and without residuals; its bound at
+                the f32 rate and at the tensor rate of its six bf16 passes;
+                then H=320 and 1024 at B=32 and 128 (k4_widths); and
+                K4-bf16 at the same shapes and widths, checked as K2-bf16
+                (rounded and unrounded W_hh, every design, 1 bf16 ulp +
+                1e-5); cuDNN nn.GRU in f32 (TF32 off) and in bf16 as the
+                library yardsticks
   k4b         - K4's residuals and the GRU backward kernel (the tensor-core
                 backward scan) against the plain backward and against
                 autograd through the plain scan, same shapes (dxp atol
@@ -65,9 +69,16 @@ Phases, each printing one JSON line:
                 each timed; its bound at the f32 rate and at the tensor
                 rate of its six bf16 passes; cuDNN nn.GRU fwd+bwd - fwd as
                 the yardstick; then H=320 and H=1024 at B=32 and 128
-  k5          - the beam-step location-attention kernel against its plain
-                version at B=128 and the slice's batch, K=8, T=176, d=300,
-                F=10, ragged lengths (align atol 1e-5, ctx atol 1e-4)
+  k5          - the beam-step location-attention kernel (one cluster of
+                blocks per utterance) against its plain version at B=128
+                and the slice's batch, K=8, T=176, d=300, F=10, ragged
+                lengths; then an odd shape (B=3, K=5, T=37, d=96, F=3,
+                vdim=80, rows of length 37, 1 and 0), a long one (T=700)
+                and F=20, d=70, vdim=38 (align atol 1e-5, ctx atol 1e-4,
+                a zero-length row uniform 1 / T); CUDA-event and device
+                ms; at B=128 and 32 also every cluster size, checked the
+                same way and timed, with the clusters of each resident at
+                once
   k7          - the training attention step's forward and backward kernels
                 against their plain versions, and the backward also
                 against autograd through the plain forward, at B=128 and
@@ -110,7 +121,8 @@ Phases, each printing one JSON line:
                 difference, top-1 share, launches, host split and device
                 busy side by side with slice
   slice_att   - slice_fused with attention.use_pallas: K5 and K8 must each
-                launch exactly once per beam step of every batch
+                launch exactly once per beam step of every batch (the
+                breakdowns give each kernel's device ms by name)
   slice_amp   - the slice with decode.amp left at auto, which must resolve
                 to bf16 on the card: K2's bf16 variant six times per batch,
                 K6 and K8 never (V=31 fails K6's gate, K8 is f32); top-1
@@ -125,7 +137,8 @@ Phases, each printing one JSON line:
   slice_gru   - the slice with the GRU family (bench.py's model and LM
                 with module GRU: 3x BiGRU-512 encoder, GRU-512 decoder and
                 LM), amp pinned off: each batch must launch K1 once, K4
-                six times and K8 once per beam step, and no other kernel
+                six times (times scan_tc.launches) and K8 once per beam
+                step, and no other kernel
   slice_gru_amp - the same with decode.amp at auto (bf16 on the card): K4's
                 bf16 variant six times per batch; top-1 share and best-score
                 difference against the same batch with amp off
@@ -176,6 +189,7 @@ ends the run with a non-zero exit code. Needs CUDA: without it the script
 fails before printing a result.
 """
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -268,6 +282,27 @@ def device_ms(fn, iters=20):
                if e.device_type == DeviceType.CUDA) / iters / 1e3
 
 
+# the hand-written kernels' device function names (csrc/*.cu)
+KERNEL_FUNCS = ("fbank_kernel", "tc_scan_kernel", "tc_bwd_kernel",
+                "ctc_kernel", "loc_att_kernel", "loc_att_fwd_kernel",
+                "loc_att_bwd_kernel", "loc_att_dv_kernel", "psi_kernel",
+                "beam_step_kernel")
+
+
+def kernel_device_ms(evts, dev):
+    """Device ms and launches of each of this repository's kernels among
+    profiler events ``evts`` (``dev(e)`` their device us), by function name
+    (every instantiation of a template summed)."""
+    import re
+    out = {}
+    for e in evts:
+        m = re.search(r"\b(" + "|".join(KERNEL_FUNCS) + r")\b[<(]", e.key)
+        if m:
+            ms, n = out.get(m.group(1), (0.0, 0))
+            out[m.group(1)] = (ms + dev(e) / 1e3, n + e.count)
+    return {k: {"ms": ms, "launches": n} for k, (ms, n) in out.items()}
+
+
 def bound(bytes_moved, flops, flops_rate=F32_FLOPS):
     t_bytes = bytes_moved / HBM_BPS * 1e3
     t_ops = flops / flops_rate * 1e3
@@ -306,6 +341,8 @@ def scan_calls(batch, H=512):
         "lstm_scan_fused": scan_tc.launches(ll.lstm_tc_f32_max_groups, H, 4,
                                             batch),
         "lstm_scan_bf16": scan_tc.launches(ll.lstm_tc_max_groups, H, 4, batch),
+        "gru_scan_fused": scan_tc.launches(gl.gru_tc_f32_max_groups, H, 3,
+                                           batch),
         "gru_scan_bf16": scan_tc.launches(gl.gru_tc_max_groups, H, 3, batch),
         "lstm_bwd_fused": scan_tc.launches(ll.lstm_tc_bwd_max_groups, H, 4,
                                            batch, **bwd),
@@ -541,38 +578,48 @@ def cudnn_lstm(w_hh):
     return lstm
 
 
-def check_k2(lk, w_hh, xp, mask, designs):
-    """K2 in f32 (the tensor-core scan, f32 W_hh with its remainder passes)
-    against its plain version, both directions, without residuals (ys) and
-    with them (ys, cs, gates), all atol 1e-4: through the wrapper (the
-    picked design) and each of ``designs`` ((mode, rows) forced, launches
-    not counted). Returns the worst ys and residual errors and each
-    design's launches."""
+def check_f32_scan(label, fused, tc, plain, fwd_plain, designs):
+    """An f32 tensor-core scan (K2 or K4; its W_hh unrounded, so the
+    remainder passes run) against its plain version, both directions,
+    without residuals (ys) and with them, all atol 1e-4: through the
+    wrapper ``fused(reverse, residuals)`` (the picked design) and ``tc(
+    reverse, residuals, mode, rows) -> (out, launches)`` for each of
+    ``designs`` (launches not counted); ``plain(reverse)`` gives ys,
+    ``fwd_plain(reverse)`` ys and the residuals. Returns the worst ys and
+    residual errors and each design's launches."""
     import torch
     err = res_err = 0.0
     launches = {}
     for reverse in (False, True):
-        ref = lk.lstm_scan_plain(xp, w_hh, mask, reverse)
-        pres = lk.lstm_scan_fwd_plain(xp, w_hh, mask, reverse)
+        ref, pres = plain(reverse), fwd_plain(reverse)
         for design in (None, *designs):
             for residuals in (False, True):
                 if design is None:
-                    got = lk.lstm_scan_fused(xp, w_hh, mask, reverse,
-                                             residuals=residuals)
+                    got = fused(reverse, residuals)
                 else:
-                    got, n = lk.lstm_fwd_tc(xp, w_hh, mask, reverse,
-                                            residuals, *design)
+                    got, n = tc(reverse, residuals, *design)
                     launches[design, residuals] = n
                 torch.cuda.synchronize()
                 outs = got if residuals else (got,)
                 check(all(bool(torch.isfinite(t).all()) for t in outs),
-                      f"K2 output not finite (design {design})")
+                      f"{label} output not finite (design {design})")
                 if residuals:
                     res_err = max(res_err, *(float((a - b).abs().max())
                                              for a, b in zip(got, pres)))
                 else:
                     err = max(err, float((got - ref).abs().max()))
     return err, res_err, launches
+
+
+def check_k2(lk, w_hh, xp, mask, designs):
+    """K2 in f32 against its plain version (``check_f32_scan``): ys, cs and
+    gates."""
+    return check_f32_scan(
+        "K2", lambda rev, res: lk.lstm_scan_fused(xp, w_hh, mask, rev,
+                                                  residuals=res),
+        lambda rev, res, m, r: lk.lstm_fwd_tc(xp, w_hh, mask, rev, res, m, r),
+        lambda rev: lk.lstm_scan_plain(xp, w_hh, mask, rev),
+        lambda rev: lk.lstm_scan_fwd_plain(xp, w_hh, mask, rev), designs)
 
 
 def k2_bytes(B, T, H, residuals):
@@ -892,11 +939,32 @@ def gru_weights(rng, H):
     return t(H, 3 * H), t(3 * H)
 
 
+def check_k4(gk, w_hh, b_hh, xp, mask, designs):
+    """K4 in f32 against its plain version (``check_f32_scan``): ys, gates
+    and hp_n."""
+    return check_f32_scan(
+        "K4", lambda rev, res: gk.gru_scan_fused(xp, w_hh, b_hh, mask, rev,
+                                                 residuals=res),
+        lambda rev, res, m, r: gk.gru_fwd_tc(xp, w_hh, b_hh, mask, rev, res,
+                                             m, r),
+        lambda rev: gk.gru_scan_plain(xp, w_hh, b_hh, mask, rev),
+        lambda rev: gk.gru_scan_fwd_plain(xp, w_hh, b_hh, mask, rev), designs)
+
+
+def k4_bytes(B, T, H, residuals):
+    """K4's bytes: reads x_proj, W_hh, b_hh and the mask, writes ys (and
+    with residuals gates and hp_n)."""
+    return 4 * (T * B * 3 * H + H * 3 * H + 3 * H + T * B + T * B * H
+                + (T * B * 4 * H if residuals else 0))
+
+
 def phase_k4(seed, slice_batch, T=176, H=512):
-    """K4 (with and without residuals) and its bf16 variant against their
-    plain versions, both directions, ragged masks, at B=128 and at the
-    slice's batch (those records are the kernels' lines); cuDNN nn.GRU in
-    f32 (TF32 off, as resolve_device sets it) and in bf16 as yardsticks."""
+    """K4 (f32, the tensor-core scan; with and without residuals) and its
+    bf16 variant against their plain versions, both directions, ragged
+    masks, at B=128 and at the slice's batch (those records are the
+    kernels' lines), every design of the f32 route checked and timed;
+    cuDNN nn.GRU in f32 (TF32 off, as resolve_device sets it) and in bf16
+    as yardsticks; then the f32 route at H=320 and 1024 (k4_widths)."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build, scan_tc
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
@@ -905,22 +973,14 @@ def phase_k4(seed, slice_batch, T=176, H=512):
     cudnn = cudnn_gru(w_hh, b_hh)
     cudnn_bf16 = cudnn_gru(w_hh, b_hh).to(torch.bfloat16)
     cudnn_bf16.flatten_parameters()
+    lib = build.load("gru_scan", gk._SIGNATURES)
+    query = lib.gru_tc_f32_max_groups
     records, bf16_records = {}, {}
     for B in (128, slice_batch):
         xp, _, mask = scan_case(rng, B, T, H, 3)
-        err = res_err = 0.0
-        for reverse in (False, True):
-            got = gk.gru_scan_fused(xp, w_hh, b_hh, mask, reverse)
-            ref = gk.gru_scan_plain(xp, w_hh, b_hh, mask, reverse)
-            res = gk.gru_scan_fused(xp, w_hh, b_hh, mask, reverse,
-                                    residuals=True)
-            pres = gk.gru_scan_fwd_plain(xp, w_hh, b_hh, mask, reverse)
-            torch.cuda.synchronize()
-            check(all(bool(torch.isfinite(t).all()) for t in (got, *res)),
-                  "K4 output not finite")
-            err = max(err, float((got - ref).abs().max()))
-            res_err = max(res_err, *(float((a - b).abs().max())
-                                     for a, b in zip(res, pres)))
+        designs = [d for d in SCAN_DESIGNS
+                   if scan_tc.max_groups(query, H, 3, d[1], d[0]) >= 1]
+        err, res_err, launches = check_k4(gk, w_hh, b_hh, xp, mask, designs)
         check(err <= 1e-4, f"K4 max abs err {err} > 1e-4 at B={B}")
         check(res_err <= 1e-4, f"K4 residuals max abs err {res_err} at B={B}")
 
@@ -931,9 +991,19 @@ def phase_k4(seed, slice_batch, T=176, H=512):
         full = torch.ones_like(mask)
         lib_err = float((library() - gk.gru_scan_fused(xp, w_hh, b_hh, full)
                          ).abs().max())
-        flops = T * 2 * B * H * 3 * H
-        b_ms, b_by = bound(4 * (T * B * 3 * H + H * 3 * H + 3 * H + T * B
-                                + T * B * H), flops)
+        prod = T * 2 * B * H * 3 * H
+        b_ms, b_by = bound(k4_bytes(B, T, H, False), prod)
+        bt_ms, bt_by = tensor_bound(k4_bytes(B, T, H, False), prod,
+                                    T * 20 * B * H)
+        mode, rows = scan_tc.pick(query, H, 3, B)
+        design_ms = {design_name(d): {
+            "ms": cuda_ms(lambda: gk.gru_fwd_tc(xp, w_hh, b_hh, mask, True,
+                                                False, *d), 10),
+            "ms_residuals": cuda_ms(lambda: gk.gru_fwd_tc(
+                xp, w_hh, b_hh, mask, True, True, *d), 10),
+            "launches": launches[d, False],
+            "groups_resident": scan_tc.max_groups(query, H, 3, d[1], d[0])}
+            for d in designs}
         records[B] = {
             "name": "gru_scan_fused", "route": "cuda",
             "source": "end_to_end_asr_pytorch_tpu_torch/csrc/gru_scan.cu",
@@ -946,9 +1016,15 @@ def phase_k4(seed, slice_batch, T=176, H=512):
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(library, 10)}
         emit({"phase": "k4", "T": T, "B": B, "H": H,
+              "plan": dict(zip(("C", "U", "kw", "kg"), scan_tc.plan(H, 3))),
+              "design": design_name((mode, rows)), "design_ms": design_ms,
               "residual_max_abs_err": res_err,
-              "k4_residuals_ms": cuda_ms(lambda: gk.gru_scan_fused(
+              "ms_residuals": cuda_ms(lambda: gk.gru_scan_fused(
                   xp, w_hh, b_hh, mask, True, residuals=True), 10),
+              "bound_ms_tensor": bt_ms, "bound_by_tensor": bt_by,
+              "bound_rate_tensor": "recurrent product: 6 bf16 passes at 989 "
+                                   "TFLOP/s; epilogue at the f32 rate",
+              "bound_ms_residuals": bound(k4_bytes(B, T, H, True), prod)[0],
               "cudnn_tf32": torch.backends.cudnn.allow_tf32,
               "cudnn_full_length_max_abs_err": lib_err, **records[B]})
         # K4-bf16 (decode amp): bf16 x_proj and ys, f32 carry
@@ -958,7 +1034,6 @@ def phase_k4(seed, slice_batch, T=176, H=512):
             with torch.no_grad():
                 return cudnn_bf16(xb)[0]
 
-        lib = build.load("gru_scan", gk._SIGNATURES)
         bf16_records[B] = check_bf16_scan(
             "k4_bf16", {
                 "name": "gru_scan_bf16", "route": "cuda",
@@ -979,6 +1054,26 @@ def phase_k4(seed, slice_batch, T=176, H=512):
         lib.gru_tc_max_groups, rng,
         lambda H: (torch.from_numpy(rng.uniform(-0.1, 0.1, 3 * H).astype(
             np.float32)).cuda(),))
+    widths = {}
+    for Hw in (320, 1024):
+        w2, b2 = gru_weights(rng, Hw)
+        for B in (32, 128):
+            xp, _, mask = scan_case(rng, B, T, Hw, 3)
+            err, res_err, _ = check_k4(gk, w2, b2, xp, mask, [])
+            check(err <= 1e-4 and res_err <= 1e-4,
+                  f"K4 errors {err} / {res_err} at H={Hw}, B={B}")
+            before = gk.gru_scan_fused.launches
+            gk.gru_scan_fused(xp, w2, b2, mask, True)
+            widths[f"H{Hw}_B{B}"] = {
+                "max_abs_err": err, "residual_max_abs_err": res_err,
+                "launches": gk.gru_scan_fused.launches - before,
+                "plan": scan_tc.plan(Hw, 3),
+                "design": design_name(scan_tc.pick(query, Hw, 3, B)),
+                "ms": cuda_ms(lambda: gk.gru_scan_fused(xp, w2, b2, mask,
+                                                        True), 5),
+                "ms_residuals": cuda_ms(lambda: gk.gru_scan_fused(
+                    xp, w2, b2, mask, True, residuals=True), 5)}
+    emit({"phase": "k4_widths", "T": T, "widths": widths})
     return records[slice_batch], bf16_records[slice_batch]
 
 
@@ -1218,45 +1313,93 @@ def att_frames(lens, T):
     return int(n.sum()), int(np.where(n > 0, n, T).sum())
 
 
-def phase_k5(seed, slice_batch, K=8, T=176, d=300, F=10, vdim=300, tau=0.5):
-    """K5 against its plain version at B=128 and the slice's batch."""
+def k5_case(label, B, K, T, d, F, vdim, tau, seed, lens=None, sizes=False):
+    """K5 against its plain version on one shape (align atol 1e-5, ctx atol
+    1e-4), timed by CUDA events and by the profiler; ``lens`` defaults to
+    att_case's ragged lengths. With ``sizes``, every cluster size up to
+    slices(T) checked the same way and timed beside the one the wrapper
+    picks, with the clusters resident at once. Emits the phase line,
+    returns the record."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_kernel as ak
-    records = {}
-    for B in (128, slice_batch):
-        rng, lens = att_case(B, seed + 7, T)
-        r = lambda *shape, s: torch.from_numpy(
-            (rng.randn(*shape) * s).astype(np.float32)).cuda()
-        args = (r(B, K, d, s=0.3), r(B, T, d, s=0.3), r(B, K, T, F, s=0.05),
-                r(F, d, s=0.3), r(d, s=0.06), r(B, T, vdim, s=0.3),
-                torch.from_numpy(lens).cuda())
-        ctx, align = ak.loc_attention_fused(*args, tau)
-        pctx, palign = ak.loc_attention_plain(*args, tau)
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build
+    rng, ragged = att_case(B, seed, T)
+    lens = ragged if lens is None else np.asarray(lens, np.int32)
+    r = lambda *shape, s: torch.from_numpy(
+        (rng.randn(*shape) * s).astype(np.float32)).cuda()
+    args = (r(B, K, d, s=0.3), r(B, T, d, s=0.3), r(B, K, T, F, s=0.05),
+            r(F, d, s=0.3), r(d, s=0.06), r(B, T, vdim, s=0.3),
+            torch.from_numpy(lens).cuda())
+    ctx, align = ak.loc_attention_fused(*args, tau)
+    pctx, palign = ak.loc_attention_plain(*args, tau)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(ctx).all() and torch.isfinite(align).all()),
+          f"K5 output not finite ({label})")
+    a_err = float((align - palign).abs().max())
+    c_err = float((ctx - pctx).abs().max())
+    check(a_err <= 1e-5, f"K5 align max abs err {a_err} ({label})")
+    check(c_err <= 1e-4, f"K5 ctx max abs err {c_err} ({label})")
+    zero = lens <= 0
+    if zero.any():
+        check(bool(torch.allclose(align[torch.from_numpy(zero).cuda()],
+                                  torch.full((), 1.0 / T, device="cuda"),
+                                  rtol=1e-6, atol=0)),
+              f"K5 zero-length rows not uniform ({label})")
+    valid, weighted = att_frames(lens, T)
+    nbytes = 4 * (B * K * d + valid * d + K * valid * F + F * d + d
+                  + weighted * vdim + B + B * K * vdim + B * K * T)
+    flops = K * (valid * d * (2 * F + 5) + weighted * 2 * vdim)
+    b_ms, b_by = bound(nbytes, flops)
+    rec = {
+        "name": "loc_attention_fused", "route": "cuda",
+        "source": "end_to_end_asr_pytorch_tpu_torch/csrc/loc_att.cu",
+        "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/att_kernel.py:57",
+        "max_abs_err": max(a_err, c_err),
+        "ms": cuda_ms(lambda: ak.loc_attention_fused(*args, tau), 20),
+        "device_ms": device_ms(lambda: ak.loc_attention_fused(*args, tau)),
+        "plain_ms": cuda_ms(lambda: ak.loc_attention_plain(*args, tau), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    lib = build.load("loc_att", ak._SIGNATURES)
+    size_ms = {}
+    for C in (range(1, ak.slices(T) + 1) if sizes else ()):
+        sctx, salign = ak.loc_att_tc(*args, tau, slices=C)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(ctx).all() and torch.isfinite(align).all()),
-              "K5 output not finite")
-        a_err = float((align - palign).abs().max())
-        c_err = float((ctx - pctx).abs().max())
-        check(a_err <= 1e-5, f"K5 align max abs err {a_err} at B={B}")
-        check(c_err <= 1e-4, f"K5 ctx max abs err {c_err} at B={B}")
-        valid, weighted = att_frames(lens, T)
-        nbytes = 4 * (B * K * d + valid * d + K * valid * F + F * d + d
-                      + weighted * vdim + B + B * K * vdim + B * K * T)
-        flops = K * (valid * d * (2 * F + 5) + weighted * 2 * vdim)
-        b_ms, b_by = bound(nbytes, flops)
-        records[B] = {
-            "name": "loc_attention_fused", "route": "cuda",
-            "source": "end_to_end_asr_pytorch_tpu_torch/csrc/loc_att.cu",
-            "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/att_kernel.py:57",
-            "max_abs_err": max(a_err, c_err),
-            "ms": cuda_ms(lambda: ak.loc_attention_fused(*args, tau), 20),
-            "plain_ms": cuda_ms(lambda: ak.loc_attention_plain(*args, tau), 20),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        emit({"phase": "k5", "B": B, "K": K, "T": T, "d": d, "F": F,
-              "vdim": vdim, "align_max_abs_err": a_err,
-              "ctx_max_abs_err": c_err,
-              "device_ms": device_ms(lambda: ak.loc_attention_fused(*args, tau)),
-              **records[B]})
+        err = max(float((salign - palign).abs().max()) / 1e-5,
+                  float((sctx - pctx).abs().max()) / 1e-4)
+        check(err <= 1.0, f"K5 in clusters of {C}: error {err} of its bound "
+              f"({label})")
+        resident = ctypes.c_int(0)
+        build.check(lib.loc_att_max_clusters(K, T, d, F, vdim, C,
+                                             ctypes.byref(resident)),
+                    "K5 occupancy query")
+        size_ms[C] = {"device_ms": device_ms(
+            lambda: ak.loc_att_tc(*args, tau, slices=C)),
+            "clusters_resident": resident.value}
+    emit({"phase": "k5", "shape": label, "B": B, "K": K, "T": T, "d": d,
+          "F": F, "vdim": vdim,
+          "slices": ak.pick_slices(lib.loc_att_max_clusters, B, K, T, d, F,
+                                   vdim), "slices_ms": size_ms,
+          "lens_min": int(lens.min()), "align_max_abs_err": a_err,
+          "ctx_max_abs_err": c_err, **rec})
+    return rec
+
+
+def phase_k5(seed, slice_batch, K=8, T=176, d=300, F=10, vdim=300, tau=0.5):
+    """K5 against its plain version at B=128 and the slice's batch (the
+    main path's shape: that record is the kernel's line), in the cluster
+    size the wrapper picks and in every other, then an odd shape
+    (B=3, K=5, T=37, d=96, F=3, vdim=80: three slices, a row of length 1
+    that ends in the first and a zero-length row), a long one (T=700,
+    tiles that stream) and one with F=20 taps and d=70, vdim=38, under the
+    same tolerances."""
+    records = {B: k5_case(f"B{B}", B, K, T, d, F, vdim, tau, seed + 7,
+                          sizes=True)
+               for B in (128, slice_batch)}
+    k5_case("odd", 3, 5, 37, 96, 3, 80, tau, seed + 17, lens=[37, 1, 0])
+    k5_case("long", slice_batch, K, 700, d, F, vdim, tau, seed + 27)
+    # more location taps than one tensor-core k-step, and rows of d and
+    # vdim that 16-byte copies do not take
+    k5_case("wide_f", 4, 3, 50, 70, 20, 38, tau, seed + 37)
     return records[slice_batch]
 
 
@@ -1330,12 +1473,12 @@ def phase_k7(seed, slice_batch, T=176, d=300, vdim=300, tau=0.5):
                   "plain_ms": cuda_ms(lambda: tk.loc_att_bwd_plain(
                       *ins, el, align, dctx, dalign, tau), 20),
                   "bound_ms": bb_ms, "bound_by": bb_by}
+        fwd[B]["device_ms"] = device_ms(
+            lambda: tk.loc_att_fwd_fused(*ins, el, tau))
+        bwd[B]["device_ms"] = device_ms(lambda: tk.loc_att_bwd_fused(
+            *ins, el, align, dctx, dalign, tau))
         emit({"phase": "k7", "B": B, "T": T, "d": d, "vdim": vdim,
               "fwd": fwd[B], "bwd": bwd[B],
-              "fwd_device_ms": device_ms(
-                  lambda: tk.loc_att_fwd_fused(*ins, el, tau)),
-              "bwd_device_ms": device_ms(lambda: tk.loc_att_bwd_fused(
-                  *ins, el, align, dctx, dalign, tau)),
               "bwd_dv_err_over_max_vs_plain": errs["plain"][1],
               "bwd_max_abs_err_vs_autograd": errs["autograd"][0],
               "bwd_dv_err_over_max_vs_autograd": errs["autograd"][1]})
@@ -1829,7 +1972,8 @@ def slice_breakdown(frontend, model, decoder, wave, wave_len, name):
            "device_idle_share": 1.0 - busy_ms / prof_ms,
            "device_kernel_launches": sum(e.count for e in evts),
            "launches_per_step": sum(e.count for e in evts) / decoder.last_steps}
-    emit({"phase": f"{name}_breakdown", **res, "top_device_ms": top})
+    emit({"phase": f"{name}_breakdown", **res, "top_device_ms": top,
+          "kernel_device_ms": kernel_device_ms(evts, dev)})
     return res
 
 
@@ -2070,7 +2214,8 @@ def train_breakdown(solver, data, name):
           "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / prof_ms,
           "device_kernel_launches": sum(e.count for e in evts),
-          "top_device_ms": top})
+          "top_device_ms": top,
+          "kernel_device_ms": kernel_device_ms(evts, dev)})
 
 
 def train_compare(solver, data, tf_rate, cuda_kernels):
@@ -2461,7 +2606,8 @@ def main():
     if "train_entry" in phases:
         phase_train_entry(args.seed)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
     emit({"kernels": [{k: r.get(k) for k in order} for r in kernels.values()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

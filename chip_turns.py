@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Times K2, K2b, K4b and K8 of one checkout of the PyTorch port on one GPU, so that
-two commits can be compared on the same card in turns.
+"""Times K2, K2b, K4, K4b, K5 and K8 of one checkout of the PyTorch port on
+one GPU, so that two commits can be compared on the same card in turns.
 
-    python3 chip_turns.py [--root DIR] [--seed 0] [--cases k2,k2b,k4b,...]
+    python3 chip_turns.py [--root DIR] [--seed 0] [--cases k2,k2b,k4,...]
 
 ``--root`` is the checkout whose ``end_to_end_asr_pytorch_tpu_torch`` is
 imported (default: this one); run the script once per checkout, in turns
@@ -14,8 +14,14 @@ one JSON line per measurement and last the card's name and power limit:
          cuDNN nn.LSTM's forward (TF32 off)
   k2b  - lstm_bwd_fused (with the dW_hh GEMM) at the same shapes, beside
          cuDNN nn.LSTM fwd+bwd - fwd
+  k4   - gru_scan_fused in f32 (serving, and with its training residuals)
+         at T=176, H=512, B=32 and 128, reversed, ragged masks, beside
+         cuDNN nn.GRU's forward (TF32 off)
   k4b  - gru_bwd_fused (with the dW_hh GEMM) at T=176, H=512, B=32 and 128,
          reversed, ragged masks, beside cuDNN nn.GRU fwd+bwd - fwd (TF32 off)
+  k5   - loc_attention_fused at B=32 and 128, K=8, T=176, d=300, F=10,
+         vdim=300, ragged lengths (ms by CUDA events over 20 calls, device
+         ms by the profiler)
   k8   - beam_step_fused at B=32 (V=31 and V=5120) and B=128 (V=5120), K=8,
          T=176, on beam states made by 40 plain beam steps over random
          logits and CTC log-probs from --seed (ms by CUDA events over 20
@@ -23,8 +29,8 @@ one JSON line per measurement and last the card's name and power limit:
          enqueue is slower than the card, as at V=31, the host's noise
          only ever adds; device ms by the profiler), beside the plain tail
 
-``--cases`` keeps only the named ones (k2, k2b, k4b, k8_31, k8_5120,
-k8_5120_b128; default all). It needs CUDA and exits with an error without it.
+``--cases`` keeps only the named ones (k2, k2b, k4, k4b, k5, k8_31,
+k8_5120, k8_5120_b128; default all). It needs CUDA and exits with an error without it.
 """
 import argparse
 import inspect
@@ -39,7 +45,7 @@ def main():
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cases",
-                    default="k2,k2b,k4b,k8_31,k8_5120,k8_5120_b128")
+                    default="k2,k2b,k4,k4b,k5,k8_31,k8_5120,k8_5120_b128")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -48,6 +54,7 @@ def main():
     import chip_smoke as cs              # this checkout's timing helpers
     sys.path.insert(0, str(Path(args.root).resolve()))
     from end_to_end_asr_pytorch_tpu_torch.ops import ctc_prefix
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_kernel as ak
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import beam_step_kernel as bsk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
@@ -55,7 +62,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     root = str(Path(args.root).resolve())
-    for mod in (bsk, lk):
+    for mod in (ak, bsk, gk, lk):
         assert Path(mod.__file__).resolve().is_relative_to(root), mod.__file__
 
     cases = set(args.cases.split(","))
@@ -82,6 +89,18 @@ def main():
                          gates, c, ys, mask, w_hh, dys, True), 10),
                      "cudnn_ms": cs.cuda_ms(
                          lambda: cudnn(xl)[0].backward(dys), 10) - fwd})
+    for B in ((32, 128) if "k4" in cases else ()):
+        rng = np.random.RandomState(args.seed + B)
+        w_hh, b_hh = cs.gru_weights(rng, H)
+        xp, _, mask = cs.scan_case(rng, B, T, H, 3)
+        cudnn = cs.cudnn_gru(w_hh, b_hh)
+        with torch.no_grad():
+            cs.emit({"turn": "k4", "root": root, "B": B,
+                     "ms": cs.cuda_ms(lambda: gk.gru_scan_fused(
+                         xp, w_hh, b_hh, mask, True), 10),
+                     "ms_residuals": cs.cuda_ms(lambda: gk.gru_scan_fused(
+                         xp, w_hh, b_hh, mask, True, residuals=True), 10),
+                     "cudnn_ms": cs.cuda_ms(lambda: cudnn(xp)[0], 10)})
     for B in ((32, 128) if "k4b" in cases else ()):
         rng = np.random.RandomState(args.seed + B)
         w_hh, b_hh = cs.gru_weights(rng, H)
@@ -96,6 +115,19 @@ def main():
                      gates, hp_n, ys, mask, w_hh, dys, True), 10),
                  "cudnn_ms": cs.cuda_ms(
                      lambda: cudnn(xl)[0].backward(dys), 10) - fwd})
+
+    for B in ((32, 128) if "k5" in cases else ()):
+        rng, lens = cs.att_case(B, args.seed + 7, T)
+        r = lambda *shape, s: torch.from_numpy(
+            (rng.randn(*shape) * s).astype(np.float32)).cuda()
+        K, d, F, vdim, tau = 8, 300, 10, 300, 0.5
+        att = (r(B, K, d, s=0.3), r(B, T, d, s=0.3), r(B, K, T, F, s=0.05),
+               r(F, d, s=0.3), r(d, s=0.06), r(B, T, vdim, s=0.3),
+               torch.from_numpy(lens).cuda(), tau)
+        cs.emit({"turn": "k5", "root": root, "B": B,
+                 "ms": cs.cuda_ms(lambda: ak.loc_attention_fused(*att), 20),
+                 "device_ms": cs.device_ms(
+                     lambda: ak.loc_attention_fused(*att))})
 
     takes_probs = "probs" in inspect.signature(bsk.beam_step_fused).parameters
     for B, V, name in ((32, 31, "k8_31"), (32, 5120, "k8_5120"),

@@ -1,6 +1,7 @@
-// Device helpers shared by the location-attention kernels (K5 in
-// loc_att.cu, K7 in loc_att_train.cu): the energy chain over T, the masked
-// softmax and the context product of one attention row, in full f32.
+// Device helpers of the location-attention kernels: the energy chain over
+// T, the masked softmax and the context product of one attention row, in
+// full f32 (K7, loc_att_train.cu), and the mask constants, length clamps
+// and warp reductions that K5 (loc_att.cu) shares.
 //
 // One row is one query against one utterance's keys (B, T, d) and values
 // (B, T, vdim):

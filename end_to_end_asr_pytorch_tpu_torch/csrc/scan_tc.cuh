@@ -1,7 +1,7 @@
-// The tensor-core time scan shared by K2 (lstm_scan.cu: f32, with optional
-// training residuals, and its bf16 decode variant K2-bf16) and K4-bf16
-// (gru_scan.cu): the split of the f32 carry, the fragment loads, the step
-// exchange and the launch. Each kernel keeps only its gate epilogue (a
+// The tensor-core time scan shared by K2 and K4 (lstm_scan.cu, gru_scan.cu:
+// f32, with optional training residuals, and their bf16 decode variants
+// K2-bf16 and K4-bf16): the split of the f32 carry, the fragment loads, the
+// step exchange and the launch. Each kernel keeps only its gate epilogue (a
 // Cell: the element type X of x_proj and ys, f32 or bf16; NG gates; NS
 // floats of state per unit and row; and step()).
 //
@@ -25,9 +25,10 @@
 // f32 (hi in one accumulator, mid + lo in another). W is split as it is
 // loaded, w = w_hi + w_mid + w_lo; a block whose remainder is zero (W_hh
 // rounded to bf16, decode amp's main path) runs the three w_hi passes only;
-// otherwise (K2 in f32: training and f32-decode W_hh is not bf16-valued) it
-// adds (hi + mid) . w_mid + hi . w_lo, whose fragments it keeps
-// in a global scratch in fragment order (read back from L2 each step).
+// otherwise (K2 and K4 in f32: training and f32-decode W_hh is not
+// bf16-valued) it adds (hi + mid) . w_mid + hi . w_lo, whose fragments it
+// keeps in a global scratch in fragment order (read back from L2 each
+// step).
 //
 // Step exchange: each block writes its U units of the new h (f32, rows x U)
 // to its own double-buffered slot; after one barrier every block copies all

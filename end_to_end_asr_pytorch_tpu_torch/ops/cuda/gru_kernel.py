@@ -6,15 +6,16 @@ Replaces ``end_to_end_asr_pytorch_tpu/ops/pallas/gru_kernel.py``:
 ``_run_fwd`` (forward, with the gate and hp_n residuals) and ``_run_bwd``
 (reverse-time gradients of x_proj and of the hidden projection), tied
 together by the ``jax.custom_vjp`` of ``gru_scan_fused`` (``_g_fwd`` /
-``_g_bwd``), whose counterpart here is ``GRUScan``. The f32 forward is
-one persistent cooperative launch per (layer, direction) that keeps its
-slice of W_hh in shared memory and synchronises the grid once per step.
-The backward runs on the tensor cores (``scan_tc.run_bwd``: a
-cooperative grid, or clusters, of blocks per group of batch rows, W_hh
-fragments in registers, dhp split into bf16 parts so the product equals
-the f32 one, dhp exchanged through L2 or distributed shared memory).
-dW_hh = hs_prev^T dhp and db_hh = sum dhp are one ``torch.matmul`` and one
-sum outside the backward kernel, as the TPU wrapper leaves them to XLA.
+``_g_bwd``), whose counterpart here is ``GRUScan``. On the H100 both
+passes are bound by the latency of their T serial steps, each a (B, H) x
+(H, 3H) product behind one exchange across blocks; both run on the tensor
+cores of ``scan_tc`` (per layer, direction and group of batch rows a
+cluster or a cooperative grid of blocks that hold their W_hh fragments in
+registers and split the f32 carry, or the backward's dhp, into three bf16
+parts, so the product equals the f32 one; h through distributed shared
+memory, dhp through L2 or distributed shared memory). dW_hh = hs_prev^T
+dhp and db_hh = sum dhp are one ``torch.matmul`` and one sum outside the
+backward kernel, as the TPU wrapper leaves them to XLA.
 The TPU kernels' UNROLL / B_TILE are TPU pipeline devices and are not
 carried over; time is walked by index in both directions, with no flipped
 copies.
@@ -24,8 +25,8 @@ multiplies) and are held to the f32 plain versions. The forward also takes
 bf16 x_proj (decode amp): ``gru_scan_bf16`` (K4-bf16) widens x_proj as it
 reads it, keeps W_hh, b_hh, the carry and the gate math in f32 and writes ys
 rounded to bf16, as the TPU kernel does; its plain version is
-``gru_scan_plain`` on bf16 x_proj. On the card it is K2-bf16's tensor-core
-scan (``scan_tc``) with the GRU's gate epilogue.
+``gru_scan_plain`` on bf16 x_proj. K4 in f32, K4-bf16 and K2 share the
+forward scan; only the gate epilogue differs.
 """
 from __future__ import annotations
 
@@ -39,11 +40,10 @@ from .lstm_kernel import _prev_step
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gru_max_coresident": (_I, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
-    "gru_fwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _P]),
     "gru_tc_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
     "gru_tc_launch": (_I, [_P] * 7 + [_I] * 12 + [_P]),
+    "gru_tc_f32_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
+    "gru_tc_f32_launch": (_I, [_P] * 9 + [_I] * 12 + [_P]),
     "gru_tc_bwd_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
     "gru_tc_bwd_launch": (_I, [_P] * 10 + [_I] * 12 + [_P]),
 }
@@ -153,30 +153,6 @@ def gru_scan_bwd_plain(gates: torch.Tensor, hp_n: torch.Tensor,
     return (dxp, *dw_db(ys, dhp, reverse))
 
 
-# kernel kind of gru_max_coresident: the f32 forward
-_FWD = 0
-_NT = 256  # threads per block of the f32 forward
-
-
-def _pick_units(H: int, B: int, max_coresident, kind: int) -> int:
-    """Hidden units per block of the f32 forward: the smallest power of two
-    that divides H and leaves a grid that is co-resident on the card.
-    ``max_coresident`` is the library's occupancy query
-    (``gru_max_coresident``)."""
-    dev = torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    U = 1
-    while U <= _NT // 2:
-        if H % U == 0 and H // U <= sms:
-            out = ctypes.c_int(0)
-            build.check(max_coresident(B, H, U, kind, ctypes.byref(out)),
-                        "scan occupancy query")
-            if H // U <= out.value:
-                return U
-        U *= 2
-    raise ValueError(f"scan kernel: no co-resident grid for H={H}, B={B}")
-
-
 def _check_fwd(what, x_proj, w_hh, b_hh, mask, dtype):
     T, B, G = x_proj.shape
     H = G // 3
@@ -196,39 +172,42 @@ def gru_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
     """K4. x_proj (T, B, 3H) f32, w_hh (H, 3H) f32, b_hh (3H,) f32, mask
     (T, B) bool -> ys (T, B, H), or (ys, gates, hp_n) with ``residuals``.
     bf16 x_proj goes to ``gru_scan_bf16`` (no residuals). CPU tensors take
-    the plain version; CUDA tensors launch the kernel. Either way, inputs of
-    another dtype or layout raise."""
+    the plain version; CUDA tensors launch the tensor-core scan
+    (``gru_fwd_tc``), once, or once per wave where a grid's groups do not
+    all fit. Either way, inputs of another dtype or layout raise."""
     if x_proj.dtype == torch.bfloat16 and not residuals:
         return gru_scan_bf16(x_proj, w_hh, b_hh, mask, reverse)
-    T, B, H = _check_fwd("gru_scan_fused", x_proj, w_hh, b_hh, mask,
-                         torch.float32)
+    _check_fwd("gru_scan_fused", x_proj, w_hh, b_hh, mask, torch.float32)
     if x_proj.device.type == "cpu":
         if residuals:
             return gru_scan_fwd_plain(x_proj, w_hh, b_hh, mask, reverse)
         return gru_scan_plain(x_proj, w_hh, b_hh, mask, reverse)
-    lib = build.load("gru_scan", _SIGNATURES)
-    U = _pick_units(H, B, lib.gru_max_coresident, _FWD)
-    dev = x_proj.device
-    ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    gates = hp_n = None
-    if residuals:
-        gates = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
-        hp_n = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    hbuf = torch.zeros((2, H, B), dtype=torch.float32, device=dev)
-    m = mask.to(torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gru_fwd_launch(x_proj.data_ptr(), w_hh.data_ptr(),
-                            b_hh.data_ptr(), m.data_ptr(), ys.data_ptr(),
-                            hbuf.data_ptr(),
-                            gates.data_ptr() if residuals else None,
-                            hp_n.data_ptr() if residuals else None,
-                            T, B, H, U, int(reverse), stream)
-    build.check(rc, "gru_scan_fused launch")
-    gru_scan_fused.launches += 1
-    return (ys, gates, hp_n) if residuals else ys
+    out, n = gru_fwd_tc(x_proj, w_hh, b_hh, mask, reverse, residuals)
+    gru_scan_fused.launches += n
+    return out
 
 
 gru_scan_fused.launches = 0
+
+
+def gru_fwd_tc(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+               mask: torch.Tensor, reverse: bool = False,
+               residuals: bool = False, mode: Optional[int] = None,
+               rows: Optional[int] = None):
+    """K4's launch on checked f32 CUDA tensors -> (ys or (ys, gates, hp_n),
+    launches): the tensor-core scan (``scan_tc.run``) in the design
+    ``mode`` / ``rows`` (default: ``scan_tc.pick``'s). Counts nothing;
+    ``gru_scan_fused`` does."""
+    T, B, G = x_proj.shape
+    H = G // 3
+    lib = build.load("gru_scan", _SIGNATURES)
+    res = ((torch.empty((T, B, G), dtype=torch.float32, device=x_proj.device),
+            torch.empty((T, B, H), dtype=torch.float32, device=x_proj.device))
+           if residuals else ())
+    ys, n = scan_tc.run(lib.gru_tc_f32_launch, lib.gru_tc_f32_max_groups,
+                        x_proj, w_hh, (b_hh,), mask, reverse, 3, mode, rows,
+                        tuple(t.data_ptr() for t in res) or (None, None))
+    return ((ys, *res) if residuals else ys), n
 
 
 def gru_scan_bf16(x_proj: torch.Tensor, w_hh: torch.Tensor,

@@ -1,7 +1,7 @@
 """The tensor-core time scans of ``csrc/scan_tc.cuh``: the forward shared
-by K2 (f32, with optional training residuals), K2-bf16 and K4-bf16, and the
-backward shared by K2b and K4b. How a scan is split over a cluster of
-blocks, its launch, and plain helpers that spell out the kernel's
+by K2 and K4 (f32, with optional training residuals), K2-bf16 and K4-bf16,
+and the backward shared by K2b and K4b. How a scan is split over a cluster
+of blocks, its launch, and plain helpers that spell out the kernel's
 arithmetic.
 
 Arithmetic: the kernel's step product h @ W_hh runs on bf16 tensor cores
@@ -11,7 +11,7 @@ bf16(W_hh) and a remainder, which is zero when W_hh is bf16-valued (decode
 amp rounds its weights, ``ops/amp.bf16_rounded_copy``). The products of bf16
 values are exact in f32 and are summed in f32 (``split_product``); the
 remainder passes run only where ``has_bf16_remainder`` is true, as for the
-W_hh of training and of the f32 decode (K2 in f32).
+W_hh of training and of the f32 decode (K2 and K4 in f32).
 
 The f32 backward scan (K2b and K4b, ``tc_bwd_kernel``) runs the same
 arithmetic on the carry's product dhp @ W_hh^T (``split_product(dhp,
@@ -208,8 +208,9 @@ def run(launch: Callable, query: Callable, x_proj: torch.Tensor,
     """The scan on CUDA tensors -> (ys (T, B, H) in x_proj's dtype, kernel
     launches). ``launch`` / ``query`` are a scan library's ``*_tc_launch``
     and ``*_tc_max_groups``; ``extra`` the pointers between w_hh and the
-    mask (the GRU's b_hh), ``outs`` those after ys (K2's residual outputs,
-    or nulls). ``mode`` and ``rows`` default to ``pick``'s. One launch
+    mask (the GRU's b_hh), ``outs`` those after ys (the f32 scans'
+    residual outputs, or nulls). ``mode`` and ``rows`` default to
+    ``pick``'s. One launch
     holds every group as clusters (the card runs them in waves) or as a
     grid where they can all be resident; a grid takes as many launches as
     it needs otherwise. A launch the card refuses raises."""
