@@ -1,6 +1,7 @@
 // Masked LSTM time scan for Hopper on the tensor cores: forward (K2, f32
-// with optional training residuals, and its bf16 decode variant K2-bf16)
-// and backward (K2b, f32).
+// with optional training residuals, its bf16 decode variant K2-bf16 and
+// its bf16 training variant with residuals) and backward (K2b, f32 and
+// bf16).
 //
 // Forward: replaces end_to_end_asr_pytorch_tpu/ops/pallas/lstm_kernel.py:
 // _run_fwd (reached through lstm_scan_fused). x_proj (T, B, 4H) = x @ W_ih + b
@@ -16,7 +17,9 @@
 // variant (K2-bf16, decode amp; the same _run_fwd on its bf16 x_proj path,
 // whose outputs take x_proj.dtype) reads bf16 x_proj and writes ys rounded
 // once to bf16; W_hh, the carry, the cell state and the gate math are f32
-// in both.
+// in both. Under amp training the bf16 variant also writes the residuals,
+// rounded once to bf16 as the TPU kernel stores them (lstm_kernel.py:
+// 124-126), while the carry and the gate math stay f32 (:66-84).
 //
 // What bounds it on the H100: the T serial steps, each a (B, H) x (H, 4H)
 // product (at B=32, H=512: 6.7e7 FLOP, ~1 us at the f32 rate, ~0.07 us per
@@ -39,7 +42,9 @@
 // Backward (K2b): replaces lstm_kernel.py:185 _run_bwd (pallas_call at
 // :198). It walks time opposite to the forward and emits dxp (T, B, 4H),
 // the gradient of x_proj; dW_hh = hs_prev^T . dxp is one GEMM outside the
-// kernel, as in the TPU wrapper. Per step, with p = dgates_next . W_hh^T
+// kernel, as in the TPU wrapper. Its bf16 variant (amp training) reads the
+// bf16 residuals and dys, widens them, and writes dxp rounded to bf16 (dys'
+// dtype, :213); the exchanged dgates stay f32. Per step, with p = dgates_next . W_hh^T
 // (the previous walked step's gate gradients; zero on masked rows) and
 // tc = tanh(c_t):
 //   dh = p + dh_carry + dys[t] ; dc = dc_carry + dh o (1 - tc^2) ;
@@ -65,14 +70,14 @@
 
 // K2's gate epilogue: p the product sums h @ W_hh, x the step's x_proj
 // (i, f, g, o), c the cell state of this row and unit (held when masked).
-// X is the element type of x_proj and ys; RES: the f32 forward, which also
-// writes the residuals where cs_out is non-null (training).
+// X is the element type of x_proj, ys and the residuals; RES: a training
+// forward, which also writes the residuals where cs_out is non-null.
 template <class XT, bool RES>
 struct LstmCellT {
   using X = XT;
   static constexpr int NG = 4;  // gates
   static constexpr int NS = 1;  // state floats per row and unit: c
-  float *cs_out, *gates_out;    // (T, B, H), (T, B, 4H); null: serving
+  X *cs_out, *gates_out;        // (T, B, H), (T, B, 4H); null: serving
   int B, H;
   __device__ __forceinline__ float step(const float* p, const float* x,
                                         float, float* c, int, bool m,
@@ -83,15 +88,17 @@ struct LstmCellT {
     if (m) c[0] = c_new;
     if (RES && cs_out != nullptr) {
       const size_t o = (size_t)t * B + b;
-      cs_out[o * H + unit] = c[0];
-      float* gr = gates_out + o * 4 * H + unit;
-      gr[0] = gi; gr[H] = gf; gr[2 * H] = gg; gr[3 * H] = go;
+      tc_store(cs_out + o * H + unit, c[0]);
+      X* gr = gates_out + o * 4 * H + unit;
+      tc_store(gr, gi); tc_store(gr + H, gf);
+      tc_store(gr + 2 * H, gg); tc_store(gr + 3 * H, go);
     }
     return go * tanhf(c_new);
   }
 };
-using LstmCell = LstmCellT<__nv_bfloat16, false>;   // K2-bf16
-using LstmF32Cell = LstmCellT<float, true>;         // K2
+using LstmCell = LstmCellT<__nv_bfloat16, false>;       // K2-bf16
+using LstmF32Cell = LstmCellT<float, true>;             // K2
+using LstmBf16TrainCell = LstmCellT<__nv_bfloat16, true>;  // K2-bf16 + res
 
 // Groups of K2-bf16 (clusters of C blocks; TC_GRID: cooperative groups)
 // that can be resident at once, into *out.
@@ -137,21 +144,49 @@ extern "C" int lstm_tc_f32_launch(const float* xp, const float* whh,
                         mode, stream);
 }
 
+// K2's bf16 training forward: xp (T, B, 4H), ys (T, B, H), cs_out
+// (T, B, H) and gates_out (T, B, 4H), all bf16 and all set; wrem and hbuf
+// as K2-bf16's.
+extern "C" int lstm_tc_bf16_res_max_groups(int H, int U, int C, int kw,
+                                           int kg, int rows, int mode,
+                                           int* out) {
+  return tc_max_groups<LstmBf16TrainCell>(H, U, C, kw, kg, rows, mode, out);
+}
+
+extern "C" int lstm_tc_bf16_res_launch(const void* xp, const float* whh,
+                                       const float* mask, void* ys,
+                                       void* cs_out, void* gates_out,
+                                       void* wrem, float* hbuf, int T, int B,
+                                       int H, int U, int C, int kw, int kg,
+                                       int rows, int g0, int groups, int mode,
+                                       int reverse, void* stream) {
+  if (cs_out == nullptr || gates_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  TcArgs a = {xp, whh, mask, ys, (uint4*)wrem, hbuf, T, B, H, U, C, kw, kg,
+              rows, g0, reverse, 0};
+  return tc_scan_launch(
+      a, LstmBf16TrainCell{(__nv_bfloat16*)cs_out, (__nv_bfloat16*)gates_out,
+                           B, H},
+      groups, mode, stream);
+}
+
 // K2b's epilogue on the backward scan: p the unit's row of the previous
-// walked step's dgates . W_hh^T, x its seven inputs, st its two carries.
-// dxp and the exchanged dgates are the same values.
-struct LstmBwdCell {
+// walked step's dgates . W_hh^T, x its seven inputs (widened from X), st
+// its two carries. dxp is dgates stored in X; the exchanged dgates stay f32.
+template <class XT>
+struct LstmBwdCellT {
+  using X = XT;
   static constexpr int NG = 4;  // gates (i, f, g, o): dgates' 4H columns
   static constexpr int NI = 7;  // inputs per unit: i, f, g, o, c, c_prev, dy
   static constexpr int NS = 2;  // (1 - m) (p + dh_carry), dc_carry
-  const float *gates, *cs, *dys;
-  float* dxp;
+  const X *gates, *cs, *dys;
+  X* dxp;
   int B, H;
-  // U floats of input `i` at time t (tp the forward's previous step) for
+  // U elements of input `i` at time t (tp the forward's previous step) for
   // batch row b from unit u0; null: zeros (no previous step)
-  __device__ __forceinline__ const float* src(int i, int t, int tp,
-                                              bool has_prev, int b,
-                                              int u0) const {
+  __device__ __forceinline__ const X* src(int i, int t, int tp,
+                                          bool has_prev, int b,
+                                          int u0) const {
     const size_t o = (size_t)t * B + b;
     switch (i) {
       case 0: case 1: case 2: case 3: return gates + o * 4 * H + i * H + u0;
@@ -178,10 +213,13 @@ struct LstmBwdCell {
     st[0] = (1.f - m) * dh_carry;
     st[ss] = m * (dc * gf) + (1.f - m) * st[ss];
     const size_t o = ((size_t)t * B + b) * 4 * H + unit;
-    dxp[o] = di; dxp[o + H] = df; dxp[o + 2 * H] = dgg; dxp[o + 3 * H] = dgo;
+    tc_store(dxp + o, di); tc_store(dxp + o + H, df);
+    tc_store(dxp + o + 2 * H, dgg); tc_store(dxp + o + 3 * H, dgo);
     dg[0] = di; dg[1] = df; dg[2] = dgg; dg[3] = dgo;
   }
 };
+using LstmBwdCell = LstmBwdCellT<float>;              // K2b
+using LstmBf16BwdCell = LstmBwdCellT<__nv_bfloat16>;  // K2b-bf16
 
 // Groups of K2b's tensor-core backward that can be resident at once (0
 // where a block's shared memory does not fit, as for 16 rows at H=512).
@@ -205,4 +243,28 @@ extern "C" int lstm_tc_bwd_launch(const float* gates, const float* cs,
                  g0, reverse, 0};
   return tc_bwd_launch(a, LstmBwdCell{gates, cs, dys, dxp, B, H}, groups,
                        mode, stream);
+}
+
+// K2b in bf16 (amp training): gates (T, B, 4H), cs / dys (T, B, H) bf16,
+// mask (T, B) and w_hh (H, 4H) f32; writes dxp (T, B, 4H) bf16; wrem and
+// hbuf as K2b's.
+extern "C" int lstm_tc_bwd_bf16_max_groups(int H, int U, int C, int kw,
+                                           int kg, int rows, int mode,
+                                           int* out) {
+  return tc_bwd_max_groups<LstmBf16BwdCell>(H, U, C, kw, kg, rows, mode, out);
+}
+
+extern "C" int lstm_tc_bwd_bf16_launch(const void* gates, const void* cs,
+                                       const void* dys, const float* mask,
+                                       const float* whh, void* dxp,
+                                       void* wrem, float* hbuf, int T, int B,
+                                       int H, int U, int C, int kw, int kg,
+                                       int rows, int g0, int groups, int mode,
+                                       int reverse, void* stream) {
+  using bf = __nv_bfloat16;
+  TcBwdArgs a = {whh, mask, (uint4*)wrem, hbuf, T, B, H, U, C, kw, kg, rows,
+                 g0, reverse, 0};
+  return tc_bwd_launch(a, LstmBf16BwdCell{(const bf*)gates, (const bf*)cs,
+                                          (const bf*)dys, (bf*)dxp, B, H},
+                       groups, mode, stream);
 }

@@ -1,9 +1,9 @@
 // The tensor-core time scan shared by K2 and K4 (lstm_scan.cu, gru_scan.cu:
-// f32, with optional training residuals, and their bf16 decode variants
-// K2-bf16 and K4-bf16): the split of the f32 carry, the fragment loads, the
-// step exchange and the launch. Each kernel keeps only its gate epilogue (a
-// Cell: the element type X of x_proj and ys, f32 or bf16; NG gates; NS
-// floats of state per unit and row; and step()).
+// f32 with optional training residuals, and bf16 for decode amp and, with
+// residuals, for amp training): the split of the f32 carry, the fragment
+// loads, the step exchange and the launch. Each kernel keeps only its gate
+// epilogue (a Cell: the element type X of x_proj, ys and the residuals, f32
+// or bf16; NG gates; NS floats of state per unit and row; and step()).
 //
 // Per (layer, direction) and per group of 8 or 16 batch rows (picked by
 // ops/cuda/scan_tc.py), C blocks walk all T steps together: one thread
@@ -641,8 +641,10 @@ static int tc_scan_launch(TcArgs a, Cell cell, int groups, int mode,
 }
 
 // ------------------------------------------------------- the backward scan
-// The f32 backward of a recurrent scan on the same tensor cores (K2b in
-// lstm_scan.cu, K4b in gru_scan.cu: each adds its own Cell). Per walked step it
+// The backward of a recurrent scan on the same tensor cores (K2b in
+// lstm_scan.cu, K4b in gru_scan.cu: each adds its own Cell, whose element
+// type X is that of the residuals it reads, f32 or bf16 under amp
+// training). Per walked step it
 // computes the carry's product dhp . W_hh^T, which reduces over the K =
 // NG * H gate columns of the previous walked step's dhp, then the Cell's
 // epilogue. Block `rank` owns U = H / C hidden units (output rows of the
@@ -652,11 +654,13 @@ static int tc_scan_launch(TcArgs a, Cell cell, int groups, int mode,
 // for all T steps (A[m][k] = W_hh[u0 + m][k], contiguous along k).
 //
 // Exact to f32 arithmetic as the forward: dhp is split into three bf16
-// parts each step; training W_hh is not bf16-valued, so W_hh is split too
-// (w_hi in registers; w_mid, w_lo fragments in a global scratch read back
-// from L2) and the six cross terms above f32 rounding are summed:
-// hi.w_hi in one f32 sum, mid.w_hi + lo.w_hi + hi.w_mid + mid.w_mid +
-// hi.w_lo in another (ops/cuda/scan_tc.py split_product).
+// parts each step; an f32 training W_hh is not bf16-valued, so W_hh is
+// split too (w_hi in registers; w_mid, w_lo fragments in a global scratch
+// read back from L2) and the six cross terms above f32 rounding are
+// summed: hi.w_hi in one f32 sum, mid.w_hi + lo.w_hi + hi.w_mid +
+// mid.w_mid + hi.w_lo in another (ops/cuda/scan_tc.py split_product).
+// Under amp training W_hh holds bf16 values: the block-wide remainder test
+// finds none and the three w_hi passes run alone, as in the forward.
 //
 // Exchange: each block writes its slice of the step's dhp (rows x NG U f32)
 // to its own double-buffered slot; after one barrier every block copies all
@@ -664,9 +668,12 @@ static int tc_scan_launch(TcArgs a, Cell cell, int groups, int mode,
 // product: through distributed shared memory behind barrier.cluster
 // (TC_CLUSTER), or through L2 behind grid.sync() (TC_GRID, slots in a
 // global buffer in k order). The Cell's NI per-unit inputs of the next
-// walked step (U contiguous floats per input and row, so the copies are 16
-// bytes and coalesce) and the mask come in with cp.async while the barrier,
-// the exchange and the product of the current step run.
+// walked step (U contiguous elements of X per input and row, so the copies
+// are 16 bytes, or 8 where U bf16 values are not a multiple of 16 bytes,
+// and coalesce) and the mask come in with cp.async while the barrier, the
+// exchange and the product of the current step run. The exchanged carry
+// operand stays f32 whatever X is: the TPU kernel takes the carry product
+// from the f32 gate gradients before it rounds what it stores.
 struct TcBwdArgs {
   const float* whh;   // (H, NG*H)
   const float* mask;  // (T, B), 1 / 0
@@ -678,9 +685,11 @@ struct TcBwdArgs {
 
 __host__ __device__ inline int tc_bwd_mp(int U) { return (U + 15) / 16 * 16; }
 
+// xbytes: bytes of one input element of the Cell (4 for f32, 2 for bf16).
 __host__ __device__ inline TcLayout tc_bwd_layout(int Kk, int U, int NG,
                                                   int NI, int NS, int rows,
-                                                  int kg, int mode) {
+                                                  int kg, int mode,
+                                                  int xbytes = 4) {
   TcLayout L;
   size_t o = 0;
   L.s = o;    // three bf16 planes of dhp, rows x (Kk + 8)
@@ -691,8 +700,8 @@ __host__ __device__ inline TcLayout tc_bwd_layout(int Kk, int U, int NG,
   if (mode == TC_CLUSTER) o = tc_align(o + (size_t)2 * rows * NG * U * 4);
   L.st = o;   // the cell's carry state, NS x rows x U f32
   o = tc_align(o + (size_t)NS * rows * U * 4);
-  L.xs = o;   // two buffers of the step inputs, rows x NI x U f32
-  o = tc_align(o + (size_t)2 * rows * NI * U * 4);
+  L.xs = o;   // two buffers of the step inputs, rows x NI x U elements
+  o = tc_align(o + (size_t)2 * rows * NI * U * xbytes);
   L.ms = o;   // two buffers of mask rows
   o = tc_align(o + (size_t)2 * rows * 4);
   L.total = o;
@@ -707,26 +716,38 @@ __device__ __forceinline__ void tc_bwd_time(const TcBwdArgs& a, int s, int& t,
   tp = a.reverse ? t + 1 : t - 1;
 }
 
-// cp.async of walked step s's inputs (the Cell's NI planes of U floats per
-// row; a null source is zero-filled) and mask rows into one buffer.
+// cp.async of walked step s's inputs (the Cell's NI planes of U elements
+// per row; a null source is zero-filled) and mask rows into one buffer.
 template <class Cell>
 __device__ __forceinline__ void tc_bwd_prefetch(const TcBwdArgs& a,
-                                                const Cell& cell, float* xs,
+                                                const Cell& cell,
+                                                typename Cell::X* xs,
                                                 float* ms, int s, int b0,
                                                 int nb, int u0) {
-  constexpr int NI = Cell::NI;
+  using X = typename Cell::X;
+  constexpr int NI = Cell::NI, E = sizeof(X);
   int t, tp;
   tc_bwd_time(a, s, t, tp);
   const bool has_prev = tp >= 0 && tp < a.T;
-  const int U4 = a.U / 4;
-  const int n = nb * NI * U4;
+  // elements per copy: 16 bytes, or 8 where U is not a multiple of 16 bytes
+  const int vec = a.U % (16 / E) == 0 ? 16 / E : 8 / E;
+  const int nv = a.U / vec;
+  const int n = nb * NI * nv;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = i / (NI * U4), rem = i - r * NI * U4;
-    const int pl = rem / U4, j = rem - pl * U4;
-    const float* src = cell.src(pl, t, tp, has_prev, b0 + r, u0);
-    float* dst = xs + (size_t)(r * NI + pl) * a.U + 4 * j;
-    if (src != nullptr) tc_cp16(dst, src + 4 * j);
-    else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int r = i / (NI * nv), rem = i - r * NI * nv;
+    const int pl = rem / nv, j = rem - pl * nv;
+    const X* src = cell.src(pl, t, tp, has_prev, b0 + r, u0);
+    X* dst = xs + (size_t)(r * NI + pl) * a.U + j * vec;
+    if (src == nullptr) {
+      if (vec * E == 16)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      else
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0, 0);
+    } else if (vec * E == 16) {
+      tc_cp16(dst, src + j * vec);
+    } else {
+      tc_cp8(dst, src + j * vec);
+    }
   }
   for (int r = threadIdx.x; r < nb; r += blockDim.x)
     tc_cp4(ms + r, a.mask + (size_t)t * a.B + b0 + r);
@@ -790,6 +811,7 @@ template <class Cell, int MODE, int NTILE>
 __global__ void __launch_bounds__(TC_MAX_THREADS, 1)
     tc_bwd_kernel(TcBwdArgs a, Cell cell) {
   constexpr int NG = Cell::NG, NI = Cell::NI, NS = Cell::NS;
+  using X = typename Cell::X;
   const int U = a.U, H = a.H, K = NG * H, GU = NG * U;
   const int MP = tc_bwd_mp(U), MT = MP / 16;
   const int rank = blockIdx.x % a.C, group = blockIdx.x / a.C;
@@ -801,12 +823,13 @@ __global__ void __launch_bounds__(TC_MAX_THREADS, 1)
   const size_t plane = (size_t)a.rows * SR;
 
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  const TcLayout L = tc_bwd_layout(a.Kk, U, NG, NI, NS, a.rows, a.kg, MODE);
+  const TcLayout L = tc_bwd_layout(a.Kk, U, NG, NI, NS, a.rows, a.kg, MODE,
+                                   sizeof(X));
   __nv_bfloat16* S = (__nv_bfloat16*)(tc_smem + L.s);
   float* P = (float*)(tc_smem + L.p);
   float* own_s = (float*)(tc_smem + L.own);
   float* st = (float*)(tc_smem + L.st);
-  float* xs = (float*)(tc_smem + L.xs);
+  X* xs = (X*)(tc_smem + L.xs);
   float* ms = (float*)(tc_smem + L.ms);
 
   // zero both slots (slot 0 is the zero dhp before the first walked step;
@@ -946,7 +969,7 @@ __global__ void __launch_bounds__(TC_MAX_THREADS, 1)
     __syncthreads();
 
     // epilogue: one (row, unit) pair per thread and pass
-    const float* x = xs + (size_t)cur * a.rows * NI * U;
+    const X* x = xs + (size_t)cur * a.rows * NI * U;
     const float* mk = ms + cur * a.rows;
     const int nxt = cur ^ 1;
     for (int i = threadIdx.x; i < nb * U; i += blockDim.x) {
@@ -956,7 +979,8 @@ __global__ void __launch_bounds__(TC_MAX_THREADS, 1)
       for (int j = 1; j < a.kg; ++j) p += pc[(size_t)j * MP * RS];
       float xv[NI], dg[NG];
 #pragma unroll
-      for (int q = 0; q < NI; ++q) xv[q] = x[(size_t)(r * NI + q) * U + u];
+      for (int q = 0; q < NI; ++q)
+        xv[q] = tc_f32(x[(size_t)(r * NI + q) * U + u]);
       cell.step(p, xv, mk[r] != 0.f, st + r * U + u, a.rows * U, dg, t,
                 b0 + r, u0 + u);
 #pragma unroll
@@ -1004,7 +1028,7 @@ static int tc_bwd_threads(int H, int U, int C, int kw, int kg, int rows,
 template <class Cell>
 static size_t tc_bwd_smem(int kw, int kg, int U, int rows, int mode) {
   return tc_bwd_layout(16 * kw * kg, U, Cell::NG, Cell::NI, Cell::NS, rows,
-                       kg, mode).total;
+                       kg, mode, sizeof(typename Cell::X)).total;
 }
 
 // Groups of the Cell's backward scan that can be resident at once, into

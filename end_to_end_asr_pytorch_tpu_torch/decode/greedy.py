@@ -15,20 +15,25 @@ def ctc_greedy(ctc_output: torch.Tensor) -> torch.Tensor:
 
 
 def att_greedy(model: ASR, enc: torch.Tensor, enc_len: torch.Tensor,
-               max_step: int) -> torch.Tensor:
+               max_step: int, amp: bool = False) -> torch.Tensor:
     """Self-fed argmax decode for up to ``max_step`` steps -> (B, max_step)
     int32 ids; a row emits <eos> for every step after its first <eos>. The
     loop stops once every row is done: the remaining steps would all write
     <eos>, which the output is pre-filled with, so the output is identical
-    to running all ``max_step`` steps."""
+    to running all ``max_step`` steps. ``amp`` (the training solver's amp
+    flag, as the JAX package's validation passes it) takes the first-layer
+    lookup-table route (``precompute_decode_tables``) in place of the
+    embedding gather."""
     B = enc.shape[0]
     cache, state, align = model.init_decode(enc, enc_len)
+    tables = model.precompute_decode_tables() if amp else None
     ids = torch.full((B, max_step), EOS_IDX, dtype=torch.int32,
                      device=enc.device)
     prev = torch.full((B,), EOS_IDX, dtype=torch.int64, device=enc.device)
     done = torch.zeros((B,), dtype=torch.bool, device=enc.device)
     for t in range(max_step):
-        logits, state, align, _ = model.decode_step(cache, state, align, prev)
+        logits, state, align, _ = model.decode_step(cache, state, align, prev,
+                                                    tables=tables)
         pred = torch.where(done, EOS_IDX, torch.argmax(logits, dim=-1))
         ids[:, t] = pred.to(torch.int32)
         done = done | (pred == EOS_IDX)

@@ -14,9 +14,11 @@ RNN-LM shallow fusion from ``decode.lm_config`` / ``decode.lm_path`` when
 ``<outdir>/<name>_sd<seed>/{dev,test}_{output,beam}.csv``. ``--load`` takes a
 reference-layout torch checkpoint or one the JAX package wrote (training
 resumes the latter's weights and step, not its optax state). Runs on the
-card unless ``--cpu`` is given (no card is an error). ``--cudnn-ctc`` and
-``--no-pin`` are accepted for compatibility and ignored; ``--amp`` (bf16
-training) and ``--lm`` (RNN-LM training) are not ported yet and raise.
+card unless ``--cpu`` is given (no card is an error). ``--amp`` trains in
+bf16 (as ``hparas.amp: True``; ``--test`` ignores it, as the JAX package's
+decode solver does). ``--cudnn-ctc`` and ``--no-pin`` are accepted for
+compatibility and ignored; ``--lm`` (RNN-LM training) is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -49,14 +51,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--test", action="store_true", help="beam-decode mode")
     ap.add_argument("--no-msg", action="store_true", help="quiet console")
     ap.add_argument("--lm", action="store_true", help="(not ported yet)")
-    ap.add_argument("--amp", action="store_true", help="(not ported yet)")
+    ap.add_argument("--amp", action="store_true",
+                    help="bf16 training (hparas.amp); --test ignores it")
     return ap
 
 
 def main(argv=None):
     paras = build_parser().parse_args(argv)
-    if paras.amp:
-        raise NotImplementedError("--amp (bf16 training) is not ported yet")
     if paras.lm:
         raise NotImplementedError("--lm (RNN-LM training) is not ported yet")
     random.seed(paras.seed)

@@ -3,8 +3,10 @@
 the JAX package. ``forward`` is the teacher-forced training pass: a Python
 loop over label steps (the JAX package's ``lax.scan``; its remat and unroll
 are XLA devices that change no number and are not carried over). Under
-decode amp (bf16 activations, weights rounded to bf16) every product
-accumulates in f32, so the CTC and decoder logits are f32."""
+amp (bf16 activations, the weights rounded to bf16, ``ops/amp.py``) every
+product accumulates in f32, so the CTC and decoder logits are f32; a bf16
+encoder output keeps the attention cache and the training label scan's
+lookup table in bf16, as in the JAX package's amp training."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -81,8 +83,10 @@ class ASR(nn.Module):
         return {"emb_proj": round_bf16(t) if amp else t, "w_ctx": c0.w_ih[E:]}
 
     def init_decode(self, enc: torch.Tensor, enc_len: torch.Tensor):
-        """-> (attention cache, zero decoder state, initial alignment)."""
-        cache = self.attention.precompute(enc, enc_len)
+        """-> (attention cache, zero decoder state, initial alignment); a
+        bf16 ``enc`` (amp training) keeps the cache in bf16."""
+        cache = self.attention.precompute(enc, enc_len,
+                                          amp=enc.dtype == torch.bfloat16)
         state = self.decoder.init_state(enc.shape[0], device=enc.device,
                                         dtype=enc.dtype)
         return cache, state, self.attention.init_align(cache)
@@ -160,7 +164,7 @@ class ASR(nn.Module):
         else:
             coins = torch.arange(decode_step, device=dev) == 0
             tf_toks = sos.expand(B, decode_step)
-        tables = (self.precompute_decode_tables()
+        tables = (self.precompute_decode_tables(enc.dtype == torch.bfloat16)
                   if (self.emb_drop == 0.0 or not train) else None)
         pred = sos[:, 0]
         logits_all, aligns = [], []

@@ -26,13 +26,17 @@ symmetric ``padding=`` would drop a frame. The JAX package's lane padding
 of the head dim (``d_pad``, ``pad_lanes``) and Toeplitz band are TPU layout
 devices that change no number and are not carried over.
 
-Decode amp: ``precompute(..., amp=True)`` stores keys and values in bf16,
-and ``step_beam``'s plain chain then runs in the cache dtype (the
-(B, K, H, T, d) tanh argument is bf16) while the energies, the softmax and
-the context accumulate in f32. The location features stay f32 (the JAX
-package's f32 Toeplitz band of the bf16 kernel). K5 is f32 only: under
-``use_pallas`` the keys and values are widened to f32 for it, as the JAX
-package does.
+Amp: ``precompute(..., amp=True)`` stores keys and values in bf16, and
+the plain chain then runs in the cache dtype (the (B, K, H, T, d) tanh
+argument is bf16) while the energies, the softmax and the context
+accumulate in f32. ``step_beam`` computes the location features in f32,
+as the JAX package's f32 Toeplitz band of the beam step does; ``step``
+(the training label scan and greedy decoding) convolves in the cache's
+dtype, as the JAX package's training ``step`` convolves in its bf16
+``loc_conv``'s: under amp training the summed alignment and the features
+are rounded to bf16. K5 is f32 only: under ``use_pallas`` the keys and
+values are widened to f32 for it, as the JAX package does. K7 has no bf16
+variant yet: amp training with ``use_pallas_train`` raises.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import cuda as cuda_kernels
-from ..ops.amp import dot_f32
+from ..ops.amp import dot_f32, tanh as amp_tanh
 from ..ops.cuda.att_kernel import loc_attention_fused, loc_attention_plain
 from ..ops.cuda.att_train_kernel import LocAttTrain
 from ..utils.init import const, uniform
@@ -118,12 +122,14 @@ class Attention(nn.Module):
                           torch.zeros((), device=cache.keys.device))
         return uni.expand(B, H, T)
 
-    def loc_features(self, a: torch.Tensor) -> torch.Tensor:
+    def loc_features(self, a: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """a (N, T) summed alignment -> (N, T, F) location conv features
-        with XLA 'SAME' (low (ks-1)//2, high ks//2) padding."""
+        with XLA 'SAME' (low (ks-1)//2, high ks//2) padding, convolved in
+        ``dtype`` (the alignment and the kernel cast to it)."""
         ks = self.loc_conv.shape[-1]
-        ap = F.pad(a[:, None, :], ((ks - 1) // 2, ks // 2))
-        return F.conv1d(ap, self.loc_conv).transpose(1, 2)
+        ap = F.pad(a.to(dtype)[:, None, :], ((ks - 1) // 2, ks // 2))
+        return F.conv1d(ap, self.loc_conv.to(dtype)).transpose(1, 2)
 
     def step(self, cache: AttCache, query: torch.Tensor,
              prev_align: torch.Tensor):
@@ -135,6 +141,11 @@ class Attention(nn.Module):
         if (self.mode == "loc" and self.use_pallas_train
                 and self.num_head == 1 and self.w_v is not None
                 and self.w_merge is None):
+            if cache.keys.dtype == torch.bfloat16:
+                raise NotImplementedError(
+                    "attention.use_pallas_train under amp: K7's bf16 variant "
+                    "(ops/pallas/att_train_kernel.py in bf16) is not ported "
+                    "yet")
             q = query @ self.w_q + self.bias
             f = self.loc_features(prev_align.sum(dim=1)) @ self.w_f
             enc_len = torch.clamp(cache.mask.sum(dim=1, dtype=torch.int32),
@@ -144,13 +155,16 @@ class Attention(nn.Module):
                 q, cache.keys[:, 0], f, self.v_energy[0], cache.values,
                 enc_len, self.temperature, use_kernel)
             return ctx, align[:, None, :]
-        ctx, align = self.step_beam(cache, query[:, None], prev_align[:, None])
+        ctx, align = self.step_beam(cache, query[:, None], prev_align[:, None],
+                                    loc_dtype=cache.keys.dtype)
         return ctx[:, 0], align[:, 0]
 
     def step_beam(self, cache: AttCache, query: torch.Tensor,
-                  prev_align: torch.Tensor):
+                  prev_align: torch.Tensor,
+                  loc_dtype: torch.dtype = torch.float32):
         """query (B, K, Dq), prev_align (B, K, H, T) ->
-        (context (B, K, context_dim), align (B, K, H, T))."""
+        (context (B, K, context_dim), align (B, K, H, T)); the location
+        features convolved in ``loc_dtype`` (``step`` passes the cache's)."""
         B, H, T, d = cache.keys.shape
         K = query.shape[1]
         cd = cache.keys.dtype      # f32, or bf16 under decode amp
@@ -170,14 +184,15 @@ class Attention(nn.Module):
             return ctx, align[:, :, None, :]
         else:
             a = prev_align.sum(dim=2).reshape(B * K, T)
-            f = dot_f32(self.loc_features(a), self.w_f).reshape(B, K, T, d)
+            f = dot_f32(self.loc_features(a, loc_dtype), self.w_f).reshape(
+                B, K, T, d)
             qb = q + self.bias.reshape(H, d)[None, None]
             # the (B, K, H, T, d) chain runs in the cache dtype; the energy
             # reduction accumulates in f32 (JAX: preferred_element_type=f32)
             tanh_arg = (qb.to(cd)[:, :, :, None, :] + cache.keys[:, None]
                         + f.to(cd)[:, :, None, :, :])        # (B, K, H, T, d)
-            energy = torch.einsum("bkhtd,hd->bkht",
-                                  torch.tanh(tanh_arg).float(), self.v_energy)
+            energy = torch.einsum("bkhtd,hd->bkht", amp_tanh(tanh_arg).float(),
+                                  self.v_energy.float())
         energy = energy / self.temperature
         energy = torch.where(cache.mask[:, None, None, :], energy,
                              torch.full((), -1e30, device=energy.device))

@@ -14,10 +14,11 @@ channel-major.
 The feat_dim split: divisible by 13 => feat_dim/13 channels of 13 bins,
 else divisible by 40 => feat_dim/40 channels of 40 bins.
 
-The forward runs in the dtype of its input: under decode amp (bf16
-features, the weights rounded to bf16) the convolutions, pooling, layer norm
-and the LSTM outputs are bf16, and the projection accumulates in f32, as in
-the JAX package.
+The forward runs in the dtype of its input: under amp (bf16 features, the
+weights rounded to bf16; in decoding and, under autograd, in training) the
+convolutions (each bias added after its conv), pooling, layer norm and the
+LSTM outputs are bf16, and the projection accumulates in f32, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -62,8 +63,10 @@ def same_pad(length: int, kernel: int, stride: int):
 
 
 def _conv2d(h: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """3x3 'SAME' conv in h's dtype."""
-    return F.conv2d(h, k.to(h.dtype), b.to(h.dtype), padding=1)
+    """3x3 'SAME' conv in h's dtype, then the bias added in h's dtype, as
+    the JAX package adds it (under amp: two bf16 roundings)."""
+    return (F.conv2d(h, k.to(h.dtype), padding=1)
+            + b.to(h.dtype)[:, None, None])
 
 
 class VGGExtractor(nn.Module):
@@ -119,7 +122,7 @@ class CNNExtractor(nn.Module):
         h = x.transpose(1, 2)                         # (B, D, T)
         for k, b in ((self.k1, self.b1), (self.k2, self.b2)):
             h = F.conv1d(F.pad(h, same_pad(h.shape[-1], 4, 2)), k.to(h.dtype),
-                         b.to(h.dtype), stride=2)
+                         stride=2) + b.to(h.dtype)[:, None]
             h = F.relu(h)
         return h.transpose(1, 2), x_len // 4
 

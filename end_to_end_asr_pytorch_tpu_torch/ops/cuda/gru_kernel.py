@@ -22,11 +22,16 @@ copies.
 
 Numerics: the kernels compute in f32 throughout (no Precision.DEFAULT bf16
 multiplies) and are held to the f32 plain versions. The forward also takes
-bf16 x_proj (decode amp): ``gru_scan_bf16`` (K4-bf16) widens x_proj as it
+bf16 x_proj: ``gru_scan_bf16`` (K4-bf16, decode amp) widens x_proj as it
 reads it, keeps W_hh, b_hh, the carry and the gate math in f32 and writes ys
-rounded to bf16, as the TPU kernel does; its plain version is
-``gru_scan_plain`` on bf16 x_proj. K4 in f32, K4-bf16 and K2 share the
-forward scan; only the gate epilogue differs.
+rounded to bf16, as the TPU kernel does; ``gru_train_bf16`` (amp training)
+also writes the gates and hp_n rounded to bf16, and ``gru_bwd_bf16`` (K4b's
+bf16 variant) widens them, takes h_prev from the bf16 ys, writes dxp
+rounded to bf16 and keeps dhp f32. Their plain versions are
+``gru_scan_plain``, ``gru_scan_fwd_plain`` and ``gru_scan_bwd_plain`` on bf16
+tensors. K4, its bf16 variants and K2 share the forward scan; only the
+gate epilogue differs. A width H that is not a multiple of 4 is
+zero-padded around the kernels (``scan_tc.pad_units``).
 """
 from __future__ import annotations
 
@@ -46,11 +51,16 @@ _SIGNATURES = {
     "gru_tc_f32_launch": (_I, [_P] * 9 + [_I] * 12 + [_P]),
     "gru_tc_bwd_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
     "gru_tc_bwd_launch": (_I, [_P] * 10 + [_I] * 12 + [_P]),
+    "gru_tc_bf16_res_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
+    "gru_tc_bf16_res_launch": (_I, [_P] * 9 + [_I] * 12 + [_P]),
+    "gru_tc_bwd_bf16_max_groups": (_I, [_I] * 7 + [ctypes.POINTER(_I)]),
+    "gru_tc_bwd_bf16_launch": (_I, [_P] * 10 + [_I] * 12 + [_P]),
 }
 
 
 def _scan(x_proj, w_hh, b_hh, mask, reverse, h, residuals):
-    """The recurrence in the carry's dtype; ys in x_proj's."""
+    """The recurrence in the carry's dtype; ys (and the residuals) in
+    x_proj's."""
     T = x_proj.shape[0]
     H = w_hh.shape[0]
     ys, gs, hps = [None] * T, [None] * T, [None] * T
@@ -70,7 +80,7 @@ def _scan(x_proj, w_hh, b_hh, mask, reverse, h, residuals):
             gs[t] = torch.cat([r, z, n], dim=-1)
             hps[t] = hp_n
     if residuals:
-        return torch.stack(ys), torch.stack(gs), torch.stack(hps)
+        return tuple(torch.stack(a).to(x_proj.dtype) for a in (ys, gs, hps))
     return torch.stack(ys).to(x_proj.dtype)
 
 
@@ -96,10 +106,11 @@ def gru_scan_fwd_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel with residuals: -> ys (T, B, H),
     gates (T, B, 3H) post-activation (r, z, n), hp_n (T, B, H) the n third
-    of h @ W_hh + b_hh, each indexed by real time."""
+    of h @ W_hh + b_hh, each indexed by real time and in x_proj's dtype;
+    the carry and the gate math are f32 (bf16 x_proj widened each step)."""
     B = x_proj.shape[1]
     H = w_hh.shape[0]
-    z = torch.zeros((B, H), dtype=x_proj.dtype, device=x_proj.device)
+    z = torch.zeros((B, H), dtype=torch.float32, device=x_proj.device)
     return _scan(x_proj, w_hh, b_hh, mask, reverse, z, True)
 
 
@@ -109,12 +120,16 @@ def gru_bwd_steps_plain(gates: torch.Tensor, hp_n: torch.Tensor,
                         reverse: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernel's own outputs: the explicit
-    reverse-time recurrence of ``_bwd_kernel``. -> (dxp, dhp), each
-    (T, B, 3H); they differ only in the n third (dan against dan r)."""
+    reverse-time recurrence of ``_bwd_kernel`` in f32 on the widened inputs
+    (h_prev the stored ys of the previous step). -> (dxp in ys' dtype, dhp
+    f32), each (T, B, 3H); they differ only in the n third (dan against
+    dan r)."""
     T, B, G = gates.shape
     H = G // 3
-    hs_prev = _prev_step(ys, reverse)
-    dh_c = torch.zeros((B, H), dtype=gates.dtype, device=gates.device)
+    dt = ys.dtype
+    gates, hp_n, dys = gates.float(), hp_n.float(), dys.float()
+    hs_prev = _prev_step(ys, reverse).float()
+    dh_c = torch.zeros((B, H), dtype=torch.float32, device=gates.device)
     w_t = w_hh.t()
     dxp, dhp = [None] * T, [None] * T
     for t in (range(T) if reverse else range(T - 1, -1, -1)):
@@ -129,14 +144,15 @@ def gru_bwd_steps_plain(gates: torch.Tensor, hp_n: torch.Tensor,
         dxp[t] = m * torch.cat([dar, daz, dan], dim=-1)
         dhp[t] = m * torch.cat([dar, daz, dan * r], dim=-1)
         dh_c = dhp[t] @ w_t + m * (dh * z) + (1.0 - m) * dh_c
-    return torch.stack(dxp), torch.stack(dhp)
+    return torch.stack(dxp).to(dt), torch.stack(dhp)
 
 
 def dw_db(ys: torch.Tensor, dhp: torch.Tensor, reverse: bool
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dW_hh = sum_t hs_prev[t]^T dhp[t] (one GEMM) and db_hh = sum dhp,
-    hs_prev the forward's previous output; outside the kernel."""
-    hs_prev = _prev_step(ys, reverse)
+    hs_prev the forward's previous output (widened from bf16 under amp);
+    outside the kernel."""
+    hs_prev = _prev_step(ys, reverse).float()
     H, G = ys.shape[-1], dhp.shape[-1]
     return (hs_prev.reshape(-1, H).t() @ dhp.reshape(-1, G),
             dhp.sum(dim=(0, 1)))
@@ -163,7 +179,6 @@ def _check_fwd(what, x_proj, w_hh, b_hh, mask, dtype):
                        ("mask", mask, (T, B), torch.bool))
     if x_proj.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {x_proj.device}")
-    return T, B, H
 
 
 def gru_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -171,12 +186,14 @@ def gru_scan_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
                    reverse: bool = False, residuals: bool = False):
     """K4. x_proj (T, B, 3H) f32, w_hh (H, 3H) f32, b_hh (3H,) f32, mask
     (T, B) bool -> ys (T, B, H), or (ys, gates, hp_n) with ``residuals``.
-    bf16 x_proj goes to ``gru_scan_bf16`` (no residuals). CPU tensors take
-    the plain version; CUDA tensors launch the tensor-core scan
-    (``gru_fwd_tc``), once, or once per wave where a grid's groups do not
-    all fit. Either way, inputs of another dtype or layout raise."""
-    if x_proj.dtype == torch.bfloat16 and not residuals:
-        return gru_scan_bf16(x_proj, w_hh, b_hh, mask, reverse)
+    bf16 x_proj goes to ``gru_scan_bf16`` (serving) or, with residuals,
+    ``gru_train_bf16``. CPU tensors take the plain version; CUDA tensors
+    launch the tensor-core scan (``gru_fwd_tc``), once, or once per wave
+    where a grid's groups do not all fit. Either way, inputs of another
+    dtype or layout raise."""
+    if x_proj.dtype == torch.bfloat16:
+        run = gru_train_bf16 if residuals else gru_scan_bf16
+        return run(x_proj, w_hh, b_hh, mask, reverse)
     _check_fwd("gru_scan_fused", x_proj, w_hh, b_hh, mask, torch.float32)
     if x_proj.device.type == "cpu":
         if residuals:
@@ -194,19 +211,42 @@ def gru_fwd_tc(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                mask: torch.Tensor, reverse: bool = False,
                residuals: bool = False, mode: Optional[int] = None,
                rows: Optional[int] = None):
-    """K4's launch on checked f32 CUDA tensors -> (ys or (ys, gates, hp_n),
+    """K4's launch on checked CUDA tensors -> (ys or (ys, gates, hp_n),
     launches): the tensor-core scan (``scan_tc.run``) in the design
-    ``mode`` / ``rows`` (default: ``scan_tc.pick``'s). Counts nothing;
-    ``gru_scan_fused`` does."""
+    ``mode`` / ``rows`` (default: ``scan_tc.pick``'s); f32, bf16 serving
+    or bf16 with residuals by x_proj's dtype, outputs in that dtype. H not
+    a multiple of 4 is zero-padded around it. Counts nothing; the wrappers
+    do."""
     T, B, G = x_proj.shape
     H = G // 3
+    Hp = scan_tc.padded(H)
+    if Hp != H:
+        out, n = gru_fwd_tc(scan_tc.pad_units(x_proj, 3, Hp),
+                            scan_tc.pad_w(w_hh, 3, Hp),
+                            scan_tc.pad_units(b_hh, 3, Hp), mask, reverse,
+                            residuals, mode, rows)
+        if not residuals:
+            return scan_tc.unpad_units(out, 1, H), n
+        ys, gates, hp_n = out
+        return (scan_tc.unpad_units(ys, 1, H),
+                scan_tc.unpad_units(gates, 3, H),
+                scan_tc.unpad_units(hp_n, 1, H)), n
     lib = build.load("gru_scan", _SIGNATURES)
-    res = ((torch.empty((T, B, G), dtype=torch.float32, device=x_proj.device),
-            torch.empty((T, B, H), dtype=torch.float32, device=x_proj.device))
+    dt = x_proj.dtype
+    res = ((torch.empty((T, B, G), dtype=dt, device=x_proj.device),
+            torch.empty((T, B, H), dtype=dt, device=x_proj.device))
            if residuals else ())
-    ys, n = scan_tc.run(lib.gru_tc_f32_launch, lib.gru_tc_f32_max_groups,
-                        x_proj, w_hh, (b_hh,), mask, reverse, 3, mode, rows,
-                        tuple(t.data_ptr() for t in res) or (None, None))
+    if dt == torch.float32:
+        launch, query = lib.gru_tc_f32_launch, lib.gru_tc_f32_max_groups
+        outs = tuple(t.data_ptr() for t in res) or (None, None)
+    elif residuals:
+        launch, query = (lib.gru_tc_bf16_res_launch,
+                         lib.gru_tc_bf16_res_max_groups)
+        outs = tuple(t.data_ptr() for t in res)
+    else:
+        launch, query, outs = lib.gru_tc_launch, lib.gru_tc_max_groups, ()
+    ys, n = scan_tc.run(launch, query, x_proj, w_hh, (b_hh,), mask, reverse,
+                        3, mode, rows, outs)
     return ((ys, *res) if residuals else ys), n
 
 
@@ -218,18 +258,50 @@ def gru_scan_bf16(x_proj: torch.Tensor, w_hh: torch.Tensor,
     f32. CPU tensors take the plain version; CUDA tensors launch the
     tensor-core kernel (``scan_tc``). Either way, inputs of another dtype
     or layout raise."""
-    T, B, H = _check_fwd("gru_scan_bf16", x_proj, w_hh, b_hh, mask,
-                         torch.bfloat16)
+    _check_fwd("gru_scan_bf16", x_proj, w_hh, b_hh, mask, torch.bfloat16)
     if x_proj.device.type == "cpu":
         return gru_scan_plain(x_proj, w_hh, b_hh, mask, reverse)
-    lib = build.load("gru_scan", _SIGNATURES)
-    ys, n = scan_tc.run(lib.gru_tc_launch, lib.gru_tc_max_groups, x_proj,
-                        w_hh, (b_hh,), mask, reverse, 3)
+    ys, n = gru_fwd_tc(x_proj, w_hh, b_hh, mask, reverse)
     gru_scan_bf16.launches += n
     return ys
 
 
 gru_scan_bf16.launches = 0
+
+
+def gru_train_bf16(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                   b_hh: torch.Tensor, mask: torch.Tensor,
+                   reverse: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 with residuals in bf16 (amp training; JAX ``_run_fwd`` on bf16
+    x_proj). x_proj (T, B, 3H) bf16, w_hh (H, 3H) and b_hh (3H,) f32, mask
+    (T, B) bool -> (ys, gates, hp_n), all bf16, each rounded once where the
+    kernel stores it; the carry and the gate math f32. CPU tensors take
+    ``gru_scan_fwd_plain``; CUDA tensors launch the tensor-core scan.
+    Either way, inputs of another dtype or layout raise."""
+    _check_fwd("gru_train_bf16", x_proj, w_hh, b_hh, mask, torch.bfloat16)
+    if x_proj.device.type == "cpu":
+        return gru_scan_fwd_plain(x_proj, w_hh, b_hh, mask, reverse)
+    out, n = gru_fwd_tc(x_proj, w_hh, b_hh, mask, reverse, residuals=True)
+    gru_train_bf16.launches += n
+    return out
+
+
+gru_train_bf16.launches = 0
+
+
+def _check_bwd(what, gates, hp_n, ys, mask, w_hh, dys, dtype):
+    T, B, G = gates.shape
+    H = G // 3
+    build.check_inputs(what, gates,
+                       ("gates", gates, (T, B, 3 * H), dtype),
+                       ("hp_n", hp_n, (T, B, H), dtype),
+                       ("ys", ys, (T, B, H), dtype),
+                       ("dys", dys, (T, B, H), dtype),
+                       ("mask", mask, (T, B), torch.bool),
+                       ("w_hh", w_hh, (H, 3 * H), torch.float32))
+    if gates.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {gates.device}")
 
 
 def gru_bwd_fused(gates: torch.Tensor, hp_n: torch.Tensor, ys: torch.Tensor,
@@ -238,22 +310,16 @@ def gru_bwd_fused(gates: torch.Tensor, hp_n: torch.Tensor, ys: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4b. gates (T, B, 3H), hp_n / ys / dys (T, B, H), mask (T, B) bool,
     w_hh (H, 3H), all f32 -> (dxp (T, B, 3H), dW_hh (H, 3H), db_hh (3H,));
-    dW_hh and db_hh are one GEMM and one sum after the kernel. CPU tensors
-    take the plain version; CUDA tensors launch the kernel. Either way,
-    inputs of another dtype or layout raise."""
-    T, B, G = gates.shape
-    H = G // 3
-    build.check_inputs("gru_bwd_fused", gates,
-                       ("gates", gates, (T, B, 3 * H), torch.float32),
-                       ("hp_n", hp_n, (T, B, H), torch.float32),
-                       ("ys", ys, (T, B, H), torch.float32),
-                       ("dys", dys, (T, B, H), torch.float32),
-                       ("mask", mask, (T, B), torch.bool),
-                       ("w_hh", w_hh, (H, 3 * H), torch.float32))
+    dW_hh and db_hh are one GEMM and one sum after the kernel. bf16
+    residuals go to ``gru_bwd_bf16``. CPU tensors take the plain version;
+    CUDA tensors launch the kernel. Either way, inputs of another dtype or
+    layout raise."""
+    if gates.dtype == torch.bfloat16:
+        return gru_bwd_bf16(gates, hp_n, ys, mask, w_hh, dys, reverse)
+    _check_bwd("gru_bwd_fused", gates, hp_n, ys, mask, w_hh, dys,
+               torch.float32)
     if gates.device.type == "cpu":
         return gru_scan_bwd_plain(gates, hp_n, ys, mask, w_hh, dys, reverse)
-    if gates.device.type != "cuda":
-        raise ValueError(f"gru_bwd_fused: unsupported device {gates.device}")
     dxp, dhp, n = gru_bwd_tc(gates, hp_n, ys, mask, w_hh, dys, reverse)
     gru_bwd_fused.launches += n
     return (dxp, *dw_db(ys, dhp, reverse))
@@ -262,23 +328,63 @@ def gru_bwd_fused(gates: torch.Tensor, hp_n: torch.Tensor, ys: torch.Tensor,
 gru_bwd_fused.launches = 0
 
 
+def gru_bwd_bf16(gates: torch.Tensor, hp_n: torch.Tensor, ys: torch.Tensor,
+                 mask: torch.Tensor, w_hh: torch.Tensor, dys: torch.Tensor,
+                 reverse: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4b in bf16 (amp training; JAX ``_run_bwd`` on bf16 residuals).
+    gates (T, B, 3H), hp_n / ys / dys (T, B, H) bf16, mask (T, B) bool,
+    w_hh (H, 3H) f32 -> (dxp (T, B, 3H) bf16, dW_hh (H, 3H), db_hh (3H,)
+    f32): the math in f32 on the widened inputs, h_prev the bf16 ys of the
+    previous step, dxp rounded where the kernel stores it, dW_hh and db_hh
+    from the f32 dhp. CPU tensors take ``gru_scan_bwd_plain``; CUDA tensors
+    launch the tensor-core backward scan. Either way, inputs of another
+    dtype or layout raise."""
+    _check_bwd("gru_bwd_bf16", gates, hp_n, ys, mask, w_hh, dys,
+               torch.bfloat16)
+    if gates.device.type == "cpu":
+        return gru_scan_bwd_plain(gates, hp_n, ys, mask, w_hh, dys, reverse)
+    dxp, dhp, n = gru_bwd_tc(gates, hp_n, ys, mask, w_hh, dys, reverse)
+    gru_bwd_bf16.launches += n
+    return (dxp, *dw_db(ys, dhp, reverse))
+
+
+gru_bwd_bf16.launches = 0
+
+
 def gru_bwd_tc(gates: torch.Tensor, hp_n: torch.Tensor, ys: torch.Tensor,
                mask: torch.Tensor, w_hh: torch.Tensor, dys: torch.Tensor,
                reverse: bool = False, mode: Optional[int] = None,
                rows: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """K4b's launch on checked CUDA tensors -> (dxp, dhp, launches), each
-    (T, B, 3H): the tensor-core backward scan (``scan_tc.run_bwd``) in the
-    design ``mode`` / ``rows`` (default: ``scan_tc.pick``'s). Counts
-    nothing; ``gru_bwd_fused`` does."""
+    """K4b's launch on checked CUDA tensors -> (dxp in the residuals'
+    dtype, dhp f32, launches), each (T, B, 3H): the tensor-core backward
+    scan (``scan_tc.run_bwd``, f32 or bf16 by the residuals' dtype) in the
+    design ``mode`` / ``rows`` (default: ``scan_tc.pick``'s). H not a
+    multiple of 4 is zero-padded around it. Counts nothing; the wrappers
+    do."""
     T, B, G = gates.shape
+    H = G // 3
+    Hp = scan_tc.padded(H)
+    if Hp != H:
+        pu = scan_tc.pad_units
+        dxp, dhp, n = gru_bwd_tc(pu(gates, 3, Hp), pu(hp_n, 1, Hp),
+                                 pu(ys, 1, Hp), mask,
+                                 scan_tc.pad_w(w_hh, 3, Hp), pu(dys, 1, Hp),
+                                 reverse, mode, rows)
+        return (scan_tc.unpad_units(dxp, 3, H),
+                scan_tc.unpad_units(dhp, 3, H), n)
     lib = build.load("gru_scan", _SIGNATURES)
     dev = gates.device
-    dxp = torch.empty((T, B, G), dtype=torch.float32, device=dev)
+    dxp = torch.empty((T, B, G), dtype=gates.dtype, device=dev)
     dhp = torch.empty((T, B, G), dtype=torch.float32, device=dev)
     m = mask.to(torch.float32)
+    launch, query = ((lib.gru_tc_bwd_launch, lib.gru_tc_bwd_max_groups)
+                     if gates.dtype == torch.float32 else
+                     (lib.gru_tc_bwd_bf16_launch,
+                      lib.gru_tc_bwd_bf16_max_groups))
     n = scan_tc.run_bwd(
-        lib.gru_tc_bwd_launch, lib.gru_tc_bwd_max_groups,
+        launch, query,
         tuple(t.data_ptr() for t in (gates, hp_n, ys, dys, m, w_hh, dxp,
                                      dhp)),
         w_hh, T, B, 3, reverse, mode, rows)
@@ -287,10 +393,13 @@ def gru_bwd_tc(gates: torch.Tensor, hp_n: torch.Tensor, ys: torch.Tensor,
 
 class GRUScan(torch.autograd.Function):
     """ys = scan(x_proj, w_hh, b_hh, mask) with the hand-written backward.
-    ``use_kernel`` picks K4 / K4b (CUDA tensors; bf16 x_proj takes K4's
-    bf16 variant and has no backward) or the plain versions (CPU tensors,
-    or the card with the kernels switched off). The forward keeps residuals
-    only when a gradient is needed, so serving pays nothing extra."""
+    ``use_kernel`` picks K4 / K4b (CUDA tensors; bf16 x_proj takes their
+    bf16 variants: K4-bf16 when serving, ``gru_train_bf16`` and
+    ``gru_bwd_bf16`` under amp training) or the plain versions (CPU
+    tensors, or the card with the kernels switched off). The forward keeps
+    residuals only when a gradient is needed, so serving pays nothing
+    extra. The gradients take the inputs' dtypes: dxp bf16 under amp,
+    dW_hh and db_hh f32."""
 
     @staticmethod
     def forward(ctx, x_proj, w_hh, b_hh, mask, reverse: bool,

@@ -13,11 +13,19 @@ values are exact in f32 and are summed in f32 (``split_product``); the
 remainder passes run only where ``has_bf16_remainder`` is true, as for the
 W_hh of training and of the f32 decode (K2 and K4 in f32).
 
-The f32 backward scan (K2b and K4b, ``tc_bwd_kernel``) runs the same
+The backward scan (K2b and K4b, ``tc_bwd_kernel``) runs the same
 arithmetic on the carry's product dhp @ W_hh^T (``split_product(dhp,
 w_hh.t())``, dhp the previous walked step's gate gradients): dhp is split
-each step, and training W_hh always takes the remainder passes.
-``plan_bwd`` / ``run_bwd`` are its block split and launch.
+each step; an f32 training W_hh takes the remainder passes, a W_hh that
+amp training rounded to bf16 does not. ``plan_bwd`` / ``run_bwd`` are its
+block split and launch.
+
+The kernels take widths that are a multiple of 4 (``plan``). The wrappers
+zero-pad any other H up to one (``padded``, ``pad_units``, ``pad_w``) and
+slice their outputs back (``unpad_units``): a padded unit has zero x_proj
+columns and zero W_hh rows and columns, so it stays exactly 0 (the LSTM's
+c' = c / 2 and h = 0; the GRU's n = 0 and h' = h / 2) and adds nothing to
+the real units' products, in either direction.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import math
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -61,6 +70,36 @@ def split_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if has_bf16_remainder(w):
         small = small + hi @ w_mid + mid @ w_mid + hi @ w_lo
     return hi @ w_hi + small
+
+
+def padded(H: int) -> int:
+    """H rounded up to a multiple of 4, the widths the kernels take."""
+    return -(-H // 4) * 4
+
+
+def pad_units(t: torch.Tensor, n_gates: int, Hp: int) -> torch.Tensor:
+    """(..., n_gates H) -> (..., n_gates Hp): each gate's H units followed
+    by Hp - H zeros."""
+    H = t.shape[-1] // n_gates
+    if H == Hp:
+        return t
+    v = t.reshape(*t.shape[:-1], n_gates, H)
+    return F.pad(v, (0, Hp - H)).reshape(*t.shape[:-1], n_gates * Hp)
+
+
+def unpad_units(t: torch.Tensor, n_gates: int, H: int) -> torch.Tensor:
+    """The inverse of ``pad_units``: (..., n_gates Hp) -> (..., n_gates H)."""
+    Hp = t.shape[-1] // n_gates
+    if H == Hp:
+        return t
+    v = t.reshape(*t.shape[:-1], n_gates, Hp)[..., :H]
+    return v.reshape(*t.shape[:-1], n_gates * H).contiguous()
+
+
+def pad_w(w_hh: torch.Tensor, n_gates: int, Hp: int) -> torch.Tensor:
+    """W_hh (H, n_gates H) -> (Hp, n_gates Hp), zero rows and columns."""
+    w = pad_units(w_hh, n_gates, Hp)
+    return F.pad(w, (0, 0, 0, Hp - w_hh.shape[0])).contiguous()
 
 
 def plan(H: int, n_gates: int) -> Tuple[int, int, int, int]:

@@ -11,12 +11,14 @@ backward is the hand-written reverse-time recurrence: K2 / K2b and K4 / K4b
 for a CUDA input, their plain versions for CPU tensors. With an initial
 state they run the plain scan under autograd, as the JAX package does.
 
-Under decode amp (bf16 inputs, weights rounded to bf16 and kept in f32)
-the rules are the JAX package's: every product accumulates in f32
-(``ops/amp.dot_f32``), a cell casts its new state back to the carry's
-dtype, and both scans stream x_proj = (x @ w_ih + b) rounded to bf16
-through their kernel's bf16 variant with w_hh (and the GRU's b_hh) in f32,
-an f32 carry and bf16 outputs, as the JAX package's TPU kernels do.
+Under amp (bf16 inputs, the weights rounded to bf16 and kept in f32,
+``ops/amp.py``) the rules are the JAX package's: every product accumulates
+in f32 (``ops/amp.dot_f32``), a cell casts its new state back to the
+carry's dtype, and both scans stream x_proj = (x @ w_ih + b) rounded to
+bf16 through their kernels' bf16 variants with w_hh (and the GRU's b_hh)
+in f32, an f32 carry and bf16 outputs, as the JAX package's TPU kernels
+do. In training the scans keep bf16 residuals and return dxp in bf16 and
+dW_hh (and db_hh) in f32.
 """
 from __future__ import annotations
 

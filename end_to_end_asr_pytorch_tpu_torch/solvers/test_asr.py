@@ -39,6 +39,9 @@ class Solver(BaseSolver):
         if plugin and plugin.get("enabled", True):
             raise NotImplementedError("model.plugin (embedding fusion) is not "
                                       "ported yet")
+        if int(config.get("model_parallel", 1)) > 1:
+            raise NotImplementedError("model_parallel > 1 (decoding sharded "
+                                      "over a device mesh) is not ported yet")
 
     def load_data(self):
         (self.dv_set, self.tt_set, self.feat_dim, self.vocab_size,

@@ -9,8 +9,18 @@ adds nothing), curriculum epochs in ascending length order, periodic
 ``best_att.pth`` / ``best_ctc.pth`` / ``latest.pth`` in the reference
 layout. The CTC term goes through K3 on the card (``use_pallas_ctc:
 auto | true``) or the plain autograd CTC (``false``, and ``auto`` on the
-CPU); the encoder's LSTMs through K2 / K2b. The step runs eagerly, one
-batch at a time, with no host synchronisation between progress prints.
+CPU); the encoder's LSTMs through K2 / K2b (GRUs through K4 / K4b). The
+step runs eagerly, one batch at a time, with no host synchronisation
+between progress prints.
+
+``hparas.amp`` or ``--amp`` runs the step's model in bf16, as the JAX
+solver's amp ``loss_fn`` does: the f32 front end (K1) feeds features cast
+to bf16, every floating parameter is cast to bf16 (``ops/amp.bf16_call``),
+the scans take their kernels' bf16 training variants, and the CTC and
+attention outputs go back to f32 for the losses (K3 stays f32). The
+optimizer, its state and the checkpoints keep the f32 parameters;
+validation decodes with the f32 weights, greedily through the lookup
+tables, as the JAX solver passes ``amp`` to its greedy decode.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from .base import BaseSolver
 from ..data.dataset import load_dataset
 from ..decode.greedy import att_greedy, ctc_greedy
 from ..models.asr import ASR
+from ..ops.amp import bf16_call
 from ..ops.audio import create_transform
 from ..ops.ctc import ctc_loss, ctc_loss_k3
 from ..optim import Optimizer
@@ -73,8 +84,6 @@ def check_supported(config) -> None:
     """Raise on the options whose parts are not ported yet."""
     h, model = config.get("hparas", {}), config["model"]
     todo = []
-    if h.get("amp", False):
-        todo.append("hparas.amp (bf16 training)")
     if config["data"].get("audio", {}).get("augment"):
         todo.append("data.audio.augment (SpecAugment)")
     plugin = model.get("plugin")
@@ -103,6 +112,7 @@ class Solver(BaseSolver):
         self.tf_end = float(h.get("tf_end", 1.0))
         self.tf_step = int(h.get("tf_step", 1))
         self.curriculum = int(h.get("curriculum", 0))
+        self.amp = bool(getattr(paras, "amp", False) or h.get("amp", False))
 
     # ----------------------------------------------------------------- data
     def load_data(self):
@@ -134,7 +144,8 @@ class Solver(BaseSolver):
         n_params = sum(p.numel() for p in self.params.values())
         self.verbose(f"ASR model | ctc_weight {self.ctc_weight} | params "
                      f"{n_params / 1e6:.2f}M | device {dev} | CTC "
-                     f"{'K3' if use_k3 else 'plain'}")
+                     f"{'K3' if use_k3 else 'plain'} | "
+                     f"{'amp (bf16)' if self.amp else 'f32'}")
         if self.paras.load:
             ck = load_checkpoint(self.paras.load, self.model)
             if ck["optimizer"] is not None:
@@ -158,13 +169,21 @@ class Solver(BaseSolver):
         joint loss, backward, update. Returns device scalars; ``grad_norm``
         is the raw gradient's global norm, taken before the clip. Its parts
         are profiler ranges: ``train.frontend``, the model's ``asr.*``,
-        ``train.loss``, ``train.backward``, ``train.optimizer``."""
+        ``train.loss``, ``train.backward``, ``train.optimizer``. Under amp
+        the model runs on bf16 features and parameters and its outputs go
+        back to f32."""
         tf_rate = self.tf_rate()
         with record_function("train.frontend"):
             feat, feat_len = self.frontend(wave, wave_len)
-        ctc_out, enc_len, att_out, _, _ = self.model(
-            feat, feat_len, text.shape[1], tf_rate, teacher=text, train=True,
-            generator=self.gen)
+        args = (feat_len, text.shape[1], tf_rate)
+        kw = dict(teacher=text, train=True, generator=self.gen)
+        if self.amp:
+            ctc_out, enc_len, att_out, _, _ = bf16_call(
+                self.model, feat.to(torch.bfloat16), *args, **kw)
+            ctc_out = None if ctc_out is None else ctc_out.float()
+            att_out = None if att_out is None else att_out.float()
+        else:
+            ctc_out, enc_len, att_out, _, _ = self.model(feat, *args, **kw)
         with record_function("train.loss"):
             loss, metrics = asr_loss(ctc_out, enc_len, att_out, text, text_len,
                                      self.ctc_weight, self.ctc_loss_fn)
@@ -233,7 +252,8 @@ class Solver(BaseSolver):
                                / torch.clamp((text_len > 0).sum(), min=1))
         if model.enable_att:
             out["att_pred"] = att_greedy(model, enc, enc_len,
-                                         int(math.ceil(U * DEV_STEP_RATIO)))
+                                         int(math.ceil(U * DEV_STEP_RATIO)),
+                                         amp=self.amp)
             _, _, att_out, _, _ = model(feat, feat_len, U, 1.0, teacher=text)
             out["att_loss"] = masked_ce(att_out, text)
         return out

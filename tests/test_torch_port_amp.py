@@ -266,12 +266,16 @@ def test_k2_bf16_plain_matches_pallas_interpret(reverse):
 
 
 def test_k2_bf16_rejects_residuals_and_f16():
+    """bf16 x_proj with residuals is amp training's route (it once raised
+    here): it returns ys and the residuals in bf16. f16 x_proj and a bf16
+    W_hh still raise."""
     T, B, H = 4, 2, 8
     xp = torch.zeros(T, B, 4 * H, dtype=BF)
     w = torch.zeros(H, 4 * H)
     mask = torch.ones(T, B, dtype=torch.bool)
-    with pytest.raises(ValueError, match="float32"):
-        lstm_kernel.lstm_scan_fused(xp, w, mask, residuals=True)
+    out = lstm_kernel.lstm_scan_fused(xp, w, mask, residuals=True)
+    assert [t.dtype for t in out] == [BF] * 3
+    assert [tuple(t.shape) for t in out] == [(T, B, H)] * 2 + [(T, B, 4 * H)]
     with pytest.raises(ValueError, match="bfloat16"):
         lstm_kernel.lstm_scan_bf16(xp.half(), w, mask)
     with pytest.raises(ValueError, match="float32"):

@@ -376,12 +376,17 @@ def test_transcribe_gru_checkpoint_matches_root_tool(tmp_path, monkeypatch):
 
 # --------------------------------------------------------- inputs, routes
 def test_wrappers_reject_wrong_dtypes_and_shapes():
+    """Wrong dtypes, shapes and layouts raise in the wrappers. bf16 x_proj
+    with residuals (it once raised here) is amp training's route: it
+    returns ys and the residuals in bf16; f16 still raises."""
     T = 4
     xp, w_hh, b_hh, mask, dys = (torch.from_numpy(a)
                                  for a in _scan_inputs(60, T))
     bf = lambda t: t.to(BF)
+    out = gru_kernel.gru_scan_fused(bf(xp), w_hh, b_hh, mask, residuals=True)
+    assert [t.dtype for t in out] == [BF] * 3
     with pytest.raises(ValueError, match="float32"):
-        gru_kernel.gru_scan_fused(bf(xp), w_hh, b_hh, mask, residuals=True)
+        gru_kernel.gru_scan_fused(xp.half(), w_hh, b_hh, mask, residuals=True)
     with pytest.raises(ValueError, match="float32"):
         gru_kernel.gru_scan_fused(xp, w_hh, bf(b_hh), mask)
     with pytest.raises(ValueError, match="bfloat16"):

@@ -243,3 +243,33 @@ def test_msgpack_decoder_matches_the_msgpack_package():
 def test_orbax_directories_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="orbax"):
         jax_ckpt.load_checkpoint(str(tmp_path), RNNLM(5, LM_MODEL))
+
+
+def test_test_mode_ignores_amp(setup, capsys):
+    """``main --test --amp`` decodes as ``main --test`` does: the JAX
+    package's decode solver never reads ``--amp`` (the port's main once
+    raised on it before dispatching ``--test``)."""
+    cfg = _config(setup, "amp")
+    outs = {}
+    for flags in ([], ["--amp"]):
+        out = setup["dir"] / "amp" / ("port_amp" if flags else "port")
+        port_main.main(["--config", str(cfg), "--test", "--cpu", "--load",
+                        _ckpt(setup, "amp"), "--outdir", str(out), *flags])
+        files = sorted((out / f"{NAME}_sd0").glob("*.csv"))
+        outs[bool(flags)] = {f.name: f.read_text() for f in files}
+    capsys.readouterr()
+    assert len(outs[True]) == 4 and outs[True] == outs[False]
+
+
+def test_test_mode_rejects_model_parallel(setup):
+    """``model_parallel > 1`` raises in ``main --test`` (the JAX solver
+    builds a device mesh from it), as it does in training, until
+    multi-device decoding is ported."""
+    path = _config(setup, "mp")
+    cfg = yaml.safe_load(path.read_text())
+    cfg["model_parallel"] = 2
+    path.write_text(yaml.safe_dump(cfg))
+    with pytest.raises(NotImplementedError, match="model_parallel"):
+        port_main.main(["--config", str(path), "--test", "--cpu", "--load",
+                        _ckpt(setup, "mp"), "--outdir",
+                        str(setup["dir"] / "mp" / "out")])

@@ -297,12 +297,9 @@ def test_train_entry_needs_cuda_without_cpu_flag(tmp_path, monkeypatch):
                     str(tmp_path / "log"), "--ckpdir", str(tmp_path / "ckpt")])
 
 
-@pytest.mark.parametrize("where,key,value", [
-    ("hparas", "amp", True), ("audio", "augment", {"time_mask": 2}),
-    ("model", "plugin", {"enabled": True}), ("root", "model_parallel", 2),
-    ("root", "ckpt_format", "orbax"), ("flag", "--amp", None),
-    ("flag", "--lm", None)])
-def test_unported_training_options_raise(tmp_path, where, key, value):
+def _set_option(tmp_path, where, key, value):
+    """The small training config with ``key`` set (``where`` "flag": a
+    command-line flag) -> the entry point's argv."""
     cfg_path = _train_config(tmp_path)
     cfg = yaml.safe_load(cfg_path.read_text())
     target = {"hparas": cfg["hparas"], "audio": cfg["data"]["audio"],
@@ -310,7 +307,33 @@ def test_unported_training_options_raise(tmp_path, where, key, value):
     if target is not None:
         target[key] = value
     cfg_path.write_text(yaml.safe_dump(cfg))
-    argv = ["--config", str(cfg_path), "--cpu", "--no-msg", "--logdir",
-            str(tmp_path / "log"), "--ckpdir", str(tmp_path / "ckpt")]
+    return ["--config", str(cfg_path), "--cpu", "--no-msg", "--logdir",
+            str(tmp_path / "log"), "--ckpdir", str(tmp_path / "ckpt")] + (
+                [key] if where == "flag" else [])
+
+
+@pytest.mark.parametrize("where,key,value", [
+    ("audio", "augment", {"time_mask": 2}),
+    ("model", "plugin", {"enabled": True}), ("root", "model_parallel", 2),
+    ("root", "ckpt_format", "orbax"), ("flag", "--lm", None)])
+def test_unported_training_options_raise(tmp_path, where, key, value):
     with pytest.raises(NotImplementedError, match=key.lstrip("-")):
-        train.main(argv + ([key] if where == "flag" else []))
+        train.main(_set_option(tmp_path, where, key, value))
+
+
+@pytest.mark.parametrize("where,key,value", [
+    ("hparas", "amp", True), ("flag", "--amp", None)])
+def test_amp_training_options_run(tmp_path, where, key, value):
+    """``hparas.amp`` and ``--amp`` (which raised until amp training was
+    ported) train in bf16: two steps with finite losses, the checkpoint
+    keeps f32 weights."""
+    train.main(_set_option(tmp_path, where, key, value))
+    exp = tmp_path / "ckpt" / "cfg_sd0"
+    ck = torch.load(str(exp / "latest.pth"), weights_only=True)
+    assert ck["global_step"] == 2
+    assert all(v.dtype == torch.float32 for v in ck["model"].values()
+               if torch.is_tensor(v) and v.is_floating_point())
+    log = [json.loads(ln) for ln in
+           (tmp_path / "log" / "cfg_sd0" / "log.jsonl").read_text().splitlines()]
+    losses = [v for e in log if e["name"] == "loss" for v in e["value"].values()]
+    assert losses and all(math.isfinite(v) for v in losses)

@@ -184,16 +184,25 @@ def test_cpu_tensors_take_plain_versions():
 
 
 def test_wrappers_reject_non_f32_inputs():
-    """The kernels take f32 only: another dtype raises in the wrapper on
-    any device, rather than pass to a plain version."""
+    """The kernels take f32, or bf16 activations and residuals with an f32
+    W_hh (amp training, which once raised here); another dtype raises in
+    the wrapper on any device, rather than pass to a plain version."""
     xp, w_hh, mask, dys = (torch.from_numpy(a) for a in _lstm_inputs(4))
     bf = lambda t: t.to(torch.bfloat16)
+    ys, cs, gates = lstm_kernel.lstm_scan_fused(bf(xp), w_hh, mask,
+                                                residuals=True)
+    dxp, dw = lstm_kernel.lstm_bwd_fused(gates, cs, ys, mask, w_hh, bf(dys))
+    assert (dxp.dtype, dw.dtype) == (torch.bfloat16, torch.float32)
     with pytest.raises(ValueError, match="float32"):
         lstm_kernel.lstm_scan_fused(bf(xp), bf(w_hh), mask, residuals=True)
+    with pytest.raises(ValueError, match="float32"):
+        lstm_kernel.lstm_bwd_fused(gates, cs, ys, mask, bf(w_hh), bf(dys))
+    with pytest.raises(ValueError, match="float32"):
+        lstm_kernel.lstm_scan_fused(xp.half(), w_hh, mask, residuals=True)
     ys, cs, gates = lstm_kernel.lstm_scan_fwd_plain(xp, w_hh, mask)
     with pytest.raises(ValueError, match="float32"):
-        lstm_kernel.lstm_bwd_fused(bf(gates), bf(cs), bf(ys), mask, bf(w_hh),
-                                   bf(dys))
+        lstm_kernel.lstm_bwd_fused(gates.half(), cs.half(), ys.half(), mask,
+                                   w_hh, dys.half())
     lp, ll, lab, lab_len = _ctc_inputs(4)
     emit, skip, eidx, _ = ctc_kernel.prepare(torch.from_numpy(lp),
                                              torch.from_numpy(lab),
