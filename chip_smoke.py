@@ -105,7 +105,12 @@ Phases, each printing one JSON line:
                 against autograd through the plain forward, at B=128 and
                 the slice's batch, T=176, d=300 (ctx / align atol 1e-4;
                 dq / dtarg / dvals atol 1e-5; dv within 1e-4 of its max
-                magnitude)
+                magnitude); then K7's bf16 variant (k7_bf16 lines, amp
+                training) on the same inputs rounded to bf16 against its
+                plain version (ctx / align within 1e-4 + 2^-7 of their max
+                magnitude; bf16 dq / dtarg / dvals within 1 bf16 ulp +
+                1e-5; dv within 2^-7 of its max magnitude), bound at bf16
+                bytes
   k6          - the CTC prefix psi kernel against its plain version at
                 B=128 and the slice's batch, K=8, T=176, V=5120 with bf16
                 probs (ragged lengths, padded frames blank-only); at V=128
@@ -202,11 +207,15 @@ Phases, each printing one JSON line:
                 plain step at tf 1.0 within loss rel 1e-3 and every
                 gradient within 1e-2 of its max magnitude
   train_gru_amp - the same with the GRU model (K4's and K4b's bf16 variants)
+  train_att_amp - train_amp with attention.use_pallas_train: each step must
+                also launch K7's bf16 forward and backward once per label
+                step (96 each) and the f32 K7 never
   train_entry - python -m end_to_end_asr_pytorch_tpu_torch.train on a
                 generated synthetic corpus (32 train / 8 dev utterances,
                 bench.py's model, 4 steps, validation every 2), then
                 transcribe of two dev WAVs with its latest.pth, then a
-                short run with --amp (2 steps, f32 weights in its
+                short run with --amp and attention.use_pallas_train (2
+                steps through K7's bf16 variant, f32 weights in its
                 latest.pth)
 Then a line with the per-kernel measurements ({"kernels": [...]}: K1 and K2
 launches counted on the slice's run, K8 on slice_fused's (and its V=5120
@@ -215,7 +224,8 @@ slice_att's, K2's bf16 variant
 on slice_amp's, K6 on slice_sub5k's, K2b and K3 on the train run, K7 on
 train_att's, K4 on slice_gru's, K4's bf16 variant on slice_gru_amp's, K4b
 on train_gru's, the bf16 training variants of K2 and K2b on train_amp's and
-of K4 and K4b on train_gru_amp's), the nvidia-smi line, and last
+of K4 and K4b on train_gru_amp's, K7's bf16 variant on train_att_amp's),
+the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase
 ends the run with a non-zero exit code. Needs CUDA: without it the script
 fails before printing a result.
@@ -1671,13 +1681,89 @@ def phase_k5(seed, slice_batch, K=8, T=176, d=300, F=10, vdim=300, tau=0.5):
     return records[slice_batch]
 
 
+def k7_bound(B, T, d, vdim, lens, es, backward):
+    """K7's bound at ``es`` bytes per element of q, keys, f, v, vals and of
+    the gradients (align, ctx, dctx and dalign f32). Forward: reads q, keys
+    and f (valid frames), v, vals (weighted frames), lengths; writes ctx and
+    align. Backward: reads the same (keys and f of the weighted frames),
+    align, dctx and dalign; writes dq, dtarg and dvals (every frame) and
+    dv."""
+    valid, weighted = att_frames(lens, T)
+    if not backward:
+        return bound(es * (B * d + 2 * valid * d + d + weighted * vdim)
+                     + 4 * (B + B * vdim + B * T),
+                     valid * d * 5 + weighted * 2 * vdim)
+    return bound(es * (B * d + 2 * weighted * d + d + weighted * vdim
+                       + B * d + B * T * d + B * T * vdim + d)
+                 + 4 * (B + 2 * B * T + B * vdim),
+                 weighted * (10 * d + 2 * vdim) + B * T * vdim)
+
+
+def k7_bf16_case(tk, B, T, d, vdim, tau, ins, el, dctx, dalign, lens):
+    """K7's bf16 variant on the f32 case's inputs rounded to bf16, against
+    its plain version: ctx and align within 1e-4 + 2^-7 of their largest
+    magnitude; dq, dtarg and dvals within 1 bf16 ulp + 1e-5 (bf16_diff);
+    dv within 2^-7 of its largest magnitude. -> the two kernel records
+    (bound at bf16 bytes) and the errors."""
+    import torch
+    bins = tuple(t.to(torch.bfloat16) for t in ins)
+    ctx, align = tk.loc_att_fwd_bf16(*bins, el, tau)
+    pctx, palign = tk.loc_att_fwd_plain(*bins, el, tau)
+    grads = tk.loc_att_bwd_bf16(*bins, el, align, dctx, dalign, tau)
+    pgrads = tk.loc_att_bwd_plain(*bins, el, align, dctx, dalign, tau)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t.float()).all())
+              for t in (ctx, align, *grads)), "K7 bf16 output not finite")
+    check(ctx.dtype == align.dtype == torch.float32
+          and all(g.dtype == torch.bfloat16 for g in grads),
+          "K7 bf16: ctx / align not f32 or gradients not bf16")
+    f_err = max(float((a - b).abs().max() / (1e-4 + 2.0 ** -7
+                                             * b.abs().max()))
+                for a, b in ((ctx, pctx), (align, palign)))
+    check(f_err <= 1.0, f"K7 bf16 forward: {f_err} of its bound at B={B}")
+    diffs = [bf16_diff(a, b) for a, b in zip(grads[:3], pgrads[:3])]
+    ulps = max(u for _, u, _ in diffs)
+    check(ulps <= 1.0, f"K7 bf16 backward beyond 1 bf16 ulp (+1e-5) of "
+          f"the plain version ({ulps} of the bound) at B={B}")
+    e_dv = float((grads[3].float() - pgrads[3].float()).abs().max()
+                 / pgrads[3].float().abs().max())
+    check(e_dv <= 2.0 ** -7, f"K7 bf16 dv err / max |dv| {e_dv} at B={B}")
+    common = {"route": "cuda", "library_ms": None,
+              "source": "end_to_end_asr_pytorch_tpu_torch/csrc/loc_att_train.cu"}
+    fb_ms, fb_by = k7_bound(B, T, d, vdim, lens, 2, False)
+    bb_ms, bb_by = k7_bound(B, T, d, vdim, lens, 2, True)
+    fwd = lambda: tk.loc_att_fwd_bf16(*bins, el, tau)
+    bwd = lambda: tk.loc_att_bwd_bf16(*bins, el, align, dctx, dalign, tau)
+    fwd_rec = {"name": "loc_att_fwd_bf16", **common,
+               "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/att_train_kernel.py:161",
+               "max_abs_err": max(float((ctx - pctx).abs().max()),
+                                  float((align - palign).abs().max())),
+               "ms": cuda_ms(fwd, 20), "device_ms": device_ms(fwd),
+               "plain_ms": cuda_ms(lambda: tk.loc_att_fwd_plain(
+                   *bins, el, tau), 20),
+               "bound_ms": fb_ms, "bound_by": fb_by}
+    bwd_rec = {"name": "loc_att_bwd_bf16", **common,
+               "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/att_train_kernel.py:215",
+               "max_abs_err": max(e for e, _, _ in diffs),
+               "ms": cuda_ms(bwd, 20), "device_ms": device_ms(bwd),
+               "plain_ms": cuda_ms(lambda: tk.loc_att_bwd_plain(
+                   *bins, el, align, dctx, dalign, tau), 20),
+               "bound_ms": bb_ms, "bound_by": bb_by}
+    return fwd_rec, bwd_rec, {
+        "fwd_err_over_bound": f_err, "bwd_max_err_over_bf16_ulp_bound": ulps,
+        "bwd_differing_share": max(s for _, _, s in diffs),
+        "bwd_dv_err_over_max": e_dv}
+
+
 def phase_k7(seed, slice_batch, T=176, d=300, vdim=300, tau=0.5):
     """The K7 forward and backward against their plain versions, and the
     backward against autograd through the plain forward, at B=128 and the
-    slice's batch."""
+    slice's batch; then K7's bf16 variant on the same inputs rounded to
+    bf16 (k7_bf16 lines). -> the f32 and the bf16 records at the slice's
+    batch."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_train_kernel as tk
-    fwd, bwd = {}, {}
+    fwd, bwd, fwd16, bwd16 = {}, {}, {}, {}
     for B in (128, slice_batch):
         rng, lens = att_case(B, seed + 8, T)
         r = lambda *shape, s: torch.from_numpy(
@@ -1713,18 +1799,8 @@ def phase_k7(seed, slice_batch, T=176, d=300, vdim=300, tau=0.5):
             errs[tag] = (e, e_dv)
         check(bool(torch.equal(df_a, dk_a)),
               "autograd gives keys and f different gradients")
-        valid, weighted = att_frames(lens, T)
-        # forward: reads q, keys and f (valid frames), v, vals (weighted
-        # frames), lengths; writes ctx and align
-        fb_ms, fb_by = bound(
-            4 * (B * d + 2 * valid * d + d + weighted * vdim + B + B * vdim
-                 + B * T), valid * d * 5 + weighted * 2 * vdim)
-        # backward: reads the same, align, dctx and dalign; writes dq,
-        # dtarg and dvals (every frame) and dv
-        bb_ms, bb_by = bound(
-            4 * (B * d + 2 * weighted * d + d + weighted * vdim + B
-                 + 2 * B * T + B * vdim + B * d + B * T * d + B * T * vdim
-                 + d), weighted * (10 * d + 2 * vdim) + B * T * vdim)
+        fb_ms, fb_by = k7_bound(B, T, d, vdim, lens, 4, False)
+        bb_ms, bb_by = k7_bound(B, T, d, vdim, lens, 4, True)
         common = {"route": "cuda", "library_ms": None,
                   "source": "end_to_end_asr_pytorch_tpu_torch/csrc/loc_att_train.cu"}
         fwd[B] = {"name": "loc_att_fwd_fused", **common,
@@ -1750,7 +1826,12 @@ def phase_k7(seed, slice_batch, T=176, d=300, vdim=300, tau=0.5):
               "bwd_dv_err_over_max_vs_plain": errs["plain"][1],
               "bwd_max_abs_err_vs_autograd": errs["autograd"][0],
               "bwd_dv_err_over_max_vs_autograd": errs["autograd"][1]})
-    return fwd[slice_batch], bwd[slice_batch]
+        fwd16[B], bwd16[B], errs16 = k7_bf16_case(
+            tk, B, T, d, vdim, tau, ins, el, dctx, dalign, lens)
+        emit({"phase": "k7_bf16", "B": B, "T": T, "d": d, "vdim": vdim,
+              "fwd": fwd16[B], "bwd": bwd16[B], **errs16})
+    return (fwd[slice_batch], bwd[slice_batch], fwd16[slice_batch],
+            bwd16[slice_batch])
 
 
 def psi_case(B, K, T, V, seed, dtype):
@@ -2368,6 +2449,8 @@ def launch_counters():
             "loc_attention_fused": att_kernel.loc_attention_fused,
             "loc_att_fwd_fused": att_train_kernel.loc_att_fwd_fused,
             "loc_att_bwd_fused": att_train_kernel.loc_att_bwd_fused,
+            "loc_att_fwd_bf16": att_train_kernel.loc_att_fwd_bf16,
+            "loc_att_bwd_bf16": att_train_kernel.loc_att_bwd_bf16,
             "gru_scan_fused": gru_kernel.gru_scan_fused,
             "gru_scan_bf16": gru_kernel.gru_scan_bf16,
             "gru_bwd_fused": gru_kernel.gru_bwd_fused,
@@ -2401,8 +2484,10 @@ def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
     per_step = {k: 0 for k in launch_counters()}
     scans = ((f"{scan}_train_bf16", f"{scan}_bwd_bf16") if amp else
              (f"{scan}_scan_fused", f"{scan}_bwd_fused"))
+    att = ("loc_att_fwd_bf16", "loc_att_bwd_bf16") if amp else (
+        "loc_att_fwd_fused", "loc_att_bwd_fused")
     per_step.update({"fbank_fused": 1, "ctc_loss_fused": 1,
-                     "loc_att_fwd_fused": k7, "loc_att_bwd_fused": k7,
+                     **{k: k7 for k in att},
                      **{k: n_scans * calls[k] for k in scans}})
     solver.train_step(*data)                       # warm-up
     torch.cuda.synchronize()
@@ -2708,8 +2793,11 @@ def phase_train_entry(seed):
         rows = (d / "out.tsv").read_text().strip().split("\n")
         check(len(rows) == 2 and all("\t" in r for r in rows),
               f"transcribe TSV rows: {rows!r}")
-        # a short amp run (--amp): two steps, validation at the second
+        # a short amp run (--amp) with attention.use_pallas_train: two
+        # steps through K7's bf16 variant, validation (f32, as the JAX
+        # solver validates) at the second
         cfg["hparas"].update(max_step=2, valid_step=2)
+        cfg["model"] = with_attention(use_pallas_train=True)
         (d / "amp.yaml").write_text(yaml.safe_dump(cfg))
         t0 = time.perf_counter()
         proc3 = subprocess.run(
@@ -2760,7 +2848,7 @@ def main():
                             "entry,slice_amp,slice_sub5k,entry_sub5k,"
                             "slice_gru,entry_gru,slice_gru_amp,test_entry,"
                             "train,train_att,train_gru,train_amp,"
-                            "train_gru_amp,train_entry",
+                            "train_gru_amp,train_att_amp,train_entry",
                     help="comma list of phases after build (default: all "
                          "but scan_floor)")
     args = ap.parse_args()
@@ -2818,8 +2906,9 @@ def main():
     if "k6" in phases:
         kernels["psi_fused"] = phase_k6(args.seed, args.batch)
     if "k7" in phases:
-        (kernels["loc_att_fwd_fused"],
-         kernels["loc_att_bwd_fused"]) = phase_k7(args.seed, args.batch)
+        (kernels["loc_att_fwd_fused"], kernels["loc_att_bwd_fused"],
+         kernels["loc_att_fwd_bf16"],
+         kernels["loc_att_bwd_bf16"]) = phase_k7(args.seed, args.batch)
     if "k8" in phases:
         (kernels["beam_step_fused"],
          kernels["beam_step_fused_v5120"]) = phase_k8(frontend, args.batch,
@@ -2926,6 +3015,11 @@ def main():
         launches = phase_train(args.batch, args.seed, device, "train_gru_amp",
                                GRU_MODEL_CFG, amp=True)
         record(launches, ("gru_train_bf16", "gru_bwd_bf16"))
+    if "train_att_amp" in phases:
+        launches = phase_train(args.batch, args.seed, device, "train_att_amp",
+                               with_attention(use_pallas_train=True),
+                               amp=True)
+        record(launches, ("loc_att_fwd_bf16", "loc_att_bwd_bf16"))
     if "train_entry" in phases:
         phase_train_entry(args.seed)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times K2, K2b, K4, K4b, K5 and K8 of one checkout of the PyTorch port on
+"""Times K2, K2b, K4, K4b, K5, K7 and K8 of one checkout of the PyTorch port on
 one GPU, so that two commits can be compared on the same card in turns.
 
     python3 chip_turns.py [--root DIR] [--seed 0] [--cases k2,k2b,k4,...]
@@ -22,6 +22,10 @@ one JSON line per measurement and last the card's name and power limit:
   k5   - loc_attention_fused at B=32 and 128, K=8, T=176, d=300, F=10,
          vdim=300, ragged lengths (ms by CUDA events over 20 calls, device
          ms by the profiler)
+  k7   - loc_att_fwd_fused and loc_att_bwd_fused (the f32 training
+         attention step) at B=32 and 128, T=176, d=300, vdim=300, ragged
+         lengths (ms by CUDA events over 20 calls, device ms by the
+         profiler)
   k8   - beam_step_fused at B=32 (V=31 and V=5120) and B=128 (V=5120), K=8,
          T=176, on beam states made by 40 plain beam steps over random
          logits and CTC log-probs from --seed (ms by CUDA events over 20
@@ -29,7 +33,7 @@ one JSON line per measurement and last the card's name and power limit:
          enqueue is slower than the card, as at V=31, the host's noise
          only ever adds; device ms by the profiler), beside the plain tail
 
-``--cases`` keeps only the named ones (k2, k2b, k4, k4b, k5, k8_31,
+``--cases`` keeps only the named ones (k2, k2b, k4, k4b, k5, k7, k8_31,
 k8_5120, k8_5120_b128; default all). It needs CUDA and exits with an error without it.
 """
 import argparse
@@ -45,7 +49,8 @@ def main():
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cases",
-                    default="k2,k2b,k4,k4b,k5,k8_31,k8_5120,k8_5120_b128")
+                    default="k2,k2b,k4,k4b,k5,k7,k8_31,k8_5120,"
+                            "k8_5120_b128")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -55,6 +60,7 @@ def main():
     sys.path.insert(0, str(Path(args.root).resolve()))
     from end_to_end_asr_pytorch_tpu_torch.ops import ctc_prefix
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_kernel as ak
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_train_kernel as tk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import beam_step_kernel as bsk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
@@ -62,7 +68,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     root = str(Path(args.root).resolve())
-    for mod in (ak, bsk, gk, lk):
+    for mod in (ak, bsk, gk, lk, tk):
         assert Path(mod.__file__).resolve().is_relative_to(root), mod.__file__
 
     cases = set(args.cases.split(","))
@@ -128,6 +134,24 @@ def main():
                  "ms": cs.cuda_ms(lambda: ak.loc_attention_fused(*att), 20),
                  "device_ms": cs.device_ms(
                      lambda: ak.loc_attention_fused(*att))})
+
+    for B in ((32, 128) if "k7" in cases else ()):
+        rng, lens = cs.att_case(B, args.seed + 8, T)
+        r = lambda *shape, s: torch.from_numpy(
+            (rng.randn(*shape) * s).astype(np.float32)).cuda()
+        d = vdim = 300
+        ins = (r(B, d, s=0.3), r(B, T, d, s=0.3), r(B, T, d, s=0.1),
+               r(d, s=0.06), r(B, T, vdim, s=0.3),
+               torch.from_numpy(lens).cuda())
+        dctx, dalign = r(B, vdim, s=1.0), r(B, T, s=1.0)
+        _, align = tk.loc_att_fwd_fused(*ins, 0.5)
+        fwd = lambda: tk.loc_att_fwd_fused(*ins, 0.5)
+        bwd = lambda: tk.loc_att_bwd_fused(*ins, align, dctx, dalign, 0.5)
+        cs.emit({"turn": "k7", "root": root, "B": B,
+                 "fwd_ms": cs.cuda_ms(fwd, 20),
+                 "fwd_device_ms": cs.device_ms(fwd),
+                 "bwd_ms": cs.cuda_ms(bwd, 20),
+                 "bwd_device_ms": cs.device_ms(bwd)})
 
     takes_probs = "probs" in inspect.signature(bsk.beam_step_fused).parameters
     for B, V, name in ((32, 31, "k8_31"), (32, 5120, "k8_5120"),

@@ -1,7 +1,7 @@
 // Device helpers of the location-attention kernels: the energy chain over
-// T, the masked softmax and the context product of one attention row, in
-// full f32 (K7, loc_att_train.cu), and the mask constants, length clamps
-// and warp reductions that K5 (loc_att.cu) shares.
+// T, the masked softmax and the context product of one attention row, for
+// K7 (loc_att_train.cu) in f32 and in bf16, and the mask constants, length
+// clamps and warp reductions that K5 (loc_att.cu) shares.
 //
 // One row is one query against one utterance's keys (B, T, d) and values
 // (B, T, vdim):
@@ -13,7 +13,15 @@
 // underflows), so the context skips them. A row with len <= 0 has every
 // energy at -1e30 and a uniform alignment over all T frames, as in the
 // reference.
+//
+// Inputs of type X (float, or __nv_bfloat16 under amp training) are widened
+// exactly; every sum and the softmax run in f32. With bf16 inputs the
+// arithmetic rounds where the TPU kernel on bf16 inputs rounds in interpret
+// mode: q + key and then + f each rounded to bf16, tanh of that kept in f32
+// (XLA carries the bf16 tanh in f32), and the bf16 operand of a product
+// (align in the context, dctx and dener in the backward) rounded to bf16.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define LOC_NEG_INF (-1e30f)
@@ -59,20 +67,52 @@ __device__ __forceinline__ int loc_weighted(int n_valid, int T) {
   return n_valid > 0 ? n_valid : T;
 }
 
+// An input element widened to f32 (exact), and an f32 value stored as X
+// (bf16: rounded to nearest even).
+__device__ __forceinline__ float loc_ld(float x) { return x; }
+__device__ __forceinline__ float loc_ld(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void loc_st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void loc_st(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// a as the bf16 operand of a product over inputs of type X sees it: a
+// itself for f32 inputs, a rounded to bf16 for bf16 inputs.
+template <class X>
+__device__ __forceinline__ float loc_as(float a) { return a; }
+template <>
+__device__ __forceinline__ float loc_as<__nv_bfloat16>(float a) {
+  return __bfloat162float(__float2bfloat16(a));
+}
+
+// tanh(q + key + f) with q already widened (see the header comment for the
+// bf16 rounding).
+__device__ __forceinline__ float loc_tanh(float q, float k, float f) {
+  return tanhf(q + k + f);
+}
+__device__ __forceinline__ float loc_tanh(float q, __nv_bfloat16 k,
+                                          __nv_bfloat16 f) {
+  const float s = loc_as<__nv_bfloat16>(q + __bfloat162float(k));
+  return tanhf(loc_as<__nv_bfloat16>(s + __bfloat162float(f)));
+}
+
 // e_s[t] for every t < T, one warp per frame, lanes over d. feat(t, j) is
-// the location feature f_tj. The caller synchronises before reading e_s.
-template <class Feat>
+// the location feature f_tj (of type X). The caller synchronises before
+// reading e_s.
+template <class X, class Feat>
 __device__ void loc_energies(float* e_s, const float* q_s, const float* v_s,
-                             const float* __restrict__ keys, Feat feat, int T,
+                             const X* __restrict__ keys, Feat feat, int T,
                              int d, int n_valid, float inv_tau) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   for (int t = warp; t < T; t += nw) {
     float acc = 0.f;
     if (t < n_valid) {  // uniform across the warp
-      const float* kt = keys + (size_t)t * d;
+      const X* kt = keys + (size_t)t * d;
       for (int j = lane; j < d; j += 32)
-        acc += tanhf(q_s[j] + kt[j] + feat(t, j)) * v_s[j];
+        acc += loc_tanh(q_s[j], kt[j], feat(t, j)) * v_s[j];
       acc = loc_warp_sum(acc);
     }
     if (lane == 0) e_s[t] = t < n_valid ? acc * inv_tau : LOC_NEG_INF;
@@ -101,12 +141,15 @@ __device__ void loc_softmax(float* e_s, float* __restrict__ align, int T,
   __syncthreads();
 }
 
-// ctx_j = sum_{t < n} a_s[t] * vals[t][j], threads over j.
-__device__ void loc_context(const float* a_s, const float* __restrict__ vals,
+// ctx_j = sum_{t < n} a_s[t] * vals[t][j], threads over j (bf16 values
+// weighted by a_s rounded to bf16).
+template <class X>
+__device__ void loc_context(const float* a_s, const X* __restrict__ vals,
                             float* __restrict__ ctx, int n, int vdim) {
   for (int j = threadIdx.x; j < vdim; j += blockDim.x) {
     float acc = 0.f;
-    for (int t = 0; t < n; ++t) acc += a_s[t] * vals[(size_t)t * vdim + j];
+    for (int t = 0; t < n; ++t)
+      acc += loc_as<X>(a_s[t]) * loc_ld(vals[(size_t)t * vdim + j]);
     ctx[j] = acc;
   }
 }

@@ -1,11 +1,13 @@
 // The training step of single-head location attention (K7) for Hopper,
-// forward and hand-written backward, full f32.
+// forward and hand-written backward, in f32 and with bf16 inputs (amp
+// training).
 //
 // Replaces end_to_end_asr_pytorch_tpu/ops/pallas/att_train_kernel.py:
 // _fwd_call / _fwd_kernel (forward) and _vjp_bwd / _bwd_kernel (backward),
 // the custom VJP of loc_att_train (reached from models/attention.py:step
-// with attention.use_pallas_train). The location conv and its projection
-// stay outside: f = conv_features @ w_f arrives as an input.
+// with attention.use_pallas_train; under --amp with bf16 q, keys, f, v and
+// vals). The location conv and its projection stay outside: f =
+// conv_features @ w_f arrives as an input.
 //
 // Forward, per utterance b (loc_att_common.cuh):
 //   th_t = tanh(q + keys_t + f_t),  energy_t = (th_t . v) / tau masked to
@@ -30,12 +32,22 @@
 // same launch sums them over b in order. dv is therefore reproducible from
 // run to run (no float atomics), where the TPU kernel carried it across its
 // sequential grid.
+//
+// Each kernel is a template on the input type X. X = float is the f32
+// kernel. X = __nv_bfloat16 reads bf16 q, keys, f, v and vals and the f32
+// align, dctx and dalign, and rounds where the TPU kernel does on bf16
+// inputs (loc_att_common.cuh): ctx and align stay f32; dq, dtarg, dvals and
+// dv are written in bf16, each rounded once from its f32 value (dq from the
+// f32 sum of the unrounded dtarg, dvals from align * dctx in f32, dv from
+// the ordered f32 sum). It moves half the bytes (the forward ~10 MB, the
+// backward ~17 MB at B=32: ~3 and ~5 us) in the same design.
 #include "loc_att_common.cuh"
 
+template <class X>
 __global__ void __launch_bounds__(1024) loc_att_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ keys,
-    const float* __restrict__ f, const float* __restrict__ v,
-    const float* __restrict__ vals, const int* __restrict__ lens,
+    const X* __restrict__ q, const X* __restrict__ keys,
+    const X* __restrict__ f, const X* __restrict__ v,
+    const X* __restrict__ vals, const int* __restrict__ lens,
     float* __restrict__ ctx, float* __restrict__ align, int T, int d,
     int vdim, float inv_tau) {
   extern __shared__ float sm[];
@@ -45,12 +57,12 @@ __global__ void __launch_bounds__(1024) loc_att_fwd_kernel(
   float* e_s = v_s + d;   // T
   const int b = blockIdx.x;
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    q_s[j] = q[(size_t)b * d + j];
-    v_s[j] = v[j];
+    q_s[j] = loc_ld(q[(size_t)b * d + j]);
+    v_s[j] = loc_ld(v[j]);
   }
   __syncthreads();
   const int n = loc_valid(lens[b], T);
-  const float* fb = f + (size_t)b * T * d;
+  const X* fb = f + (size_t)b * T * d;
   auto feat = [&](int t, int j) { return fb[(size_t)t * d + j]; };
   loc_energies(e_s, q_s, v_s, keys + (size_t)b * T * d, feat, T, d, n,
                inv_tau);
@@ -60,13 +72,14 @@ __global__ void __launch_bounds__(1024) loc_att_fwd_kernel(
               loc_weighted(n, T), vdim);
 }
 
+template <class X>
 __global__ void __launch_bounds__(1024) loc_att_bwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ keys,
-    const float* __restrict__ f, const float* __restrict__ v,
-    const float* __restrict__ vals, const int* __restrict__ lens,
+    const X* __restrict__ q, const X* __restrict__ keys,
+    const X* __restrict__ f, const X* __restrict__ v,
+    const X* __restrict__ vals, const int* __restrict__ lens,
     const float* __restrict__ align, const float* __restrict__ dctx,
-    const float* __restrict__ dalign, float* __restrict__ dq,
-    float* __restrict__ dtarg, float* __restrict__ dvals,
+    const float* __restrict__ dalign, X* __restrict__ dq,
+    X* __restrict__ dtarg, X* __restrict__ dvals,
     float* __restrict__ dv_part, int T, int d, int vdim, float inv_tau) {
   extern __shared__ float sm[];
   __shared__ float red[32];
@@ -83,13 +96,14 @@ __global__ void __launch_bounds__(1024) loc_att_bwd_kernel(
   __syncthreads();
   // frames at or past nt carry align == 0, hence dener == 0
   const int nt = loc_weighted(loc_valid(lens[b], T), T);
-  const float* vb = vals + (size_t)b * T * vdim;
+  const X* vb = vals + (size_t)b * T * vdim;
 
-  // dal_t = dalign_t + dctx . vals_t, one warp per frame
+  // dal_t = dalign_t + dctx . vals_t, one warp per frame (bf16: dctx
+  // rounded)
   for (int t = warp; t < nt; t += nw) {
     float acc = 0.f;
     for (int j = lane; j < vdim; j += 32)
-      acc += dctx_s[j] * vb[(size_t)t * vdim + j];
+      acc += loc_as<X>(dctx_s[j]) * loc_ld(vb[(size_t)t * vdim + j]);
     acc = loc_warp_sum(acc);
     if (lane == 0) den_s[t] = dalign[(size_t)b * T + t] + acc;
   }
@@ -103,64 +117,106 @@ __global__ void __launch_bounds__(1024) loc_att_bwd_kernel(
   __syncthreads();
 
   // dtarg, dq and this utterance's dv share: one thread per column j
+  // (bf16: dq from the unrounded dtarg, dv's dener rounded)
   const size_t base = (size_t)b * T * d;
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    const float qj = q[(size_t)b * d + j], vj = v[j];
+    const float qj = loc_ld(q[(size_t)b * d + j]), vj = loc_ld(v[j]);
     float dqj = 0.f, dvj = 0.f;
     for (int t = 0; t < T; ++t) {
       const size_t o = base + (size_t)t * d + j;
       float g = 0.f;
       if (t < nt) {
-        const float th = tanhf(qj + keys[o] + f[o]);
+        const float th = loc_tanh(qj, keys[o], f[o]);
         g = den_s[t] * vj * (1.f - th * th);
         dqj += g;
-        dvj += den_s[t] * th;
+        dvj += loc_as<X>(den_s[t]) * th;
       }
-      dtarg[o] = g;
+      loc_st(dtarg + o, g);
     }
-    dq[(size_t)b * d + j] = dqj;
+    loc_st(dq + (size_t)b * d + j, dqj);
     dv_part[(size_t)b * d + j] = dvj;
   }
 
   // dvals_t = align_t * dctx
-  float* dvb = dvals + (size_t)b * T * vdim;
+  X* dvb = dvals + (size_t)b * T * vdim;
   for (int i = threadIdx.x; i < T * vdim; i += blockDim.x)
-    dvb[i] = a_s[i / vdim] * dctx_s[i % vdim];
+    loc_st(dvb + i, a_s[i / vdim] * dctx_s[i % vdim]);
 }
 
 // dv_j = sum_b dv_part[b][j], summed in order of b.
+template <class X>
 __global__ void loc_att_dv_kernel(const float* __restrict__ dv_part,
-                                  float* __restrict__ dv, int B, int d) {
+                                  X* __restrict__ dv, int B, int d) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
   float acc = 0.f;
   for (int b = 0; b < B; ++b) acc += dv_part[(size_t)b * d + j];
-  dv[j] = acc;
+  loc_st(dv + j, acc);
 }
 
-// q (B,d), keys / f (B,T,d), v (d), vals (B,T,vdim), lens (B) int32 ->
-// ctx (B,vdim), align (B,T).
+// q (B,d), keys / f (B,T,d), v (d), vals (B,T,vdim) of type X, lens (B)
+// int32 -> ctx (B,vdim), align (B,T) in f32.
+template <class X>
+static int fwd_launch(const X* q, const X* keys, const X* f, const X* v,
+                      const X* vals, const int* lens, float* ctx,
+                      float* align, int B, int T, int d, int vdim,
+                      float inv_tau, void* stream) {
+  if (B < 1 || T < 1 || d < 1 || vdim < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(2 * d + T) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      loc_att_fwd_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  loc_att_fwd_kernel<X><<<B, loc_threads(d), smem, (cudaStream_t)stream>>>(
+      q, keys, f, v, vals, lens, ctx, align, T, d, vdim, inv_tau);
+  return (int)cudaGetLastError();
+}
+
+// The forward's inputs and align (B,T), dctx (B,vdim), dalign (B,T) in f32
+// -> dq (B,d), dtarg (B,T,d), dvals (B,T,vdim), dv (d) of type X; dv_part is
+// B*d floats of scratch. Two kernels on the stream: the per-utterance
+// backward, then the ordered dv sum.
+template <class X>
+static int bwd_launch(const X* q, const X* keys, const X* f, const X* v,
+                      const X* vals, const int* lens, const float* align,
+                      const float* dctx, const float* dalign, X* dq,
+                      X* dtarg, X* dvals, float* dv_part, X* dv, int B,
+                      int T, int d, int vdim, float inv_tau, void* stream) {
+  if (B < 1 || T < 1 || d < 1 || vdim < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(vdim + 2 * T) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      loc_att_bwd_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  loc_att_bwd_kernel<X><<<B, loc_threads(d), smem, st>>>(
+      q, keys, f, v, vals, lens, align, dctx, dalign, dq, dtarg, dvals,
+      dv_part, T, d, vdim, inv_tau);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  loc_att_dv_kernel<X><<<(d + 255) / 256, 256, 0, st>>>(dv_part, dv, B, d);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int loc_att_fwd_launch(const float* q, const float* keys,
                                   const float* f, const float* v,
                                   const float* vals, const int* lens,
                                   float* ctx, float* align, int B, int T,
                                   int d, int vdim, float inv_tau,
                                   void* stream) {
-  if (B < 1 || T < 1 || d < 1 || vdim < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * d + T) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      loc_att_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  loc_att_fwd_kernel<<<B, loc_threads(d), smem, (cudaStream_t)stream>>>(
-      q, keys, f, v, vals, lens, ctx, align, T, d, vdim, inv_tau);
-  return (int)cudaGetLastError();
+  return fwd_launch(q, keys, f, v, vals, lens, ctx, align, B, T, d, vdim,
+                    inv_tau, stream);
 }
 
-// The forward's inputs and align (B,T), dctx (B,vdim), dalign (B,T) ->
-// dq (B,d), dtarg (B,T,d), dvals (B,T,vdim), dv (d); dv_part is B*d floats
-// of scratch. Two kernels on the stream: the per-utterance backward, then
-// the ordered dv sum.
+extern "C" int loc_att_fwd_bf16_launch(
+    const __nv_bfloat16* q, const __nv_bfloat16* keys,
+    const __nv_bfloat16* f, const __nv_bfloat16* v,
+    const __nv_bfloat16* vals, const int* lens, float* ctx, float* align,
+    int B, int T, int d, int vdim, float inv_tau, void* stream) {
+  return fwd_launch(q, keys, f, v, vals, lens, ctx, align, B, T, d, vdim,
+                    inv_tau, stream);
+}
+
 extern "C" int loc_att_bwd_launch(const float* q, const float* keys,
                                   const float* f, const float* v,
                                   const float* vals, const int* lens,
@@ -169,18 +225,20 @@ extern "C" int loc_att_bwd_launch(const float* q, const float* keys,
                                   float* dtarg, float* dvals, float* dv_part,
                                   float* dv, int B, int T, int d, int vdim,
                                   float inv_tau, void* stream) {
-  if (B < 1 || T < 1 || d < 1 || vdim < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(vdim + 2 * T) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      loc_att_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  loc_att_bwd_kernel<<<B, loc_threads(d), smem, st>>>(
-      q, keys, f, v, vals, lens, align, dctx, dalign, dq, dtarg, dvals,
-      dv_part, T, d, vdim, inv_tau);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  loc_att_dv_kernel<<<(d + 255) / 256, 256, 0, st>>>(dv_part, dv, B, d);
-  return (int)cudaGetLastError();
+  return bwd_launch(q, keys, f, v, vals, lens, align, dctx, dalign, dq,
+                    dtarg, dvals, dv_part, dv, B, T, d, vdim, inv_tau,
+                    stream);
+}
+
+extern "C" int loc_att_bwd_bf16_launch(
+    const __nv_bfloat16* q, const __nv_bfloat16* keys,
+    const __nv_bfloat16* f, const __nv_bfloat16* v,
+    const __nv_bfloat16* vals, const int* lens, const float* align,
+    const float* dctx, const float* dalign, __nv_bfloat16* dq,
+    __nv_bfloat16* dtarg, __nv_bfloat16* dvals, float* dv_part,
+    __nv_bfloat16* dv, int B, int T, int d, int vdim, float inv_tau,
+    void* stream) {
+  return bwd_launch(q, keys, f, v, vals, lens, align, dctx, dalign, dq,
+                    dtarg, dvals, dv_part, dv, B, T, d, vdim, inv_tau,
+                    stream);
 }

@@ -35,8 +35,13 @@ as the JAX package's f32 Toeplitz band of the beam step does; ``step``
 dtype, as the JAX package's training ``step`` convolves in its bf16
 ``loc_conv``'s: under amp training the summed alignment and the features
 are rounded to bf16. K5 is f32 only: under ``use_pallas`` the keys and
-values are widened to f32 for it, as the JAX package does. K7 has no bf16
-variant yet: amp training with ``use_pallas_train`` raises.
+values are widened to f32 for it, as the JAX package does. Under
+``use_pallas_train`` with a bf16 cache (amp training) ``step`` hands
+``LocAttTrain`` bf16 inputs, as the JAX package hands its kernel: the query
+projection plus bias and the projected location features (convolved in
+bf16) each summed in f32 and rounded to bf16, and ``v_energy`` rounded; on
+the card they run K7's bf16 variant. Gradients reach the f32 parameters
+through those roundings (``ops/amp.bf16_call``).
 """
 from __future__ import annotations
 
@@ -141,18 +146,17 @@ class Attention(nn.Module):
         if (self.mode == "loc" and self.use_pallas_train
                 and self.num_head == 1 and self.w_v is not None
                 and self.w_merge is None):
-            if cache.keys.dtype == torch.bfloat16:
-                raise NotImplementedError(
-                    "attention.use_pallas_train under amp: K7's bf16 variant "
-                    "(ops/pallas/att_train_kernel.py in bf16) is not ported "
-                    "yet")
-            q = query @ self.w_q + self.bias
-            f = self.loc_features(prev_align.sum(dim=1)) @ self.w_f
+            # the kernel's inputs in the cache dtype (bf16 under amp), each
+            # product summed in f32 first, as the JAX package builds them
+            cd = cache.keys.dtype
+            q = (dot_f32(query, self.w_q) + self.bias).to(cd)
+            f = dot_f32(self.loc_features(prev_align.sum(dim=1), cd),
+                        self.w_f).to(cd)
             enc_len = torch.clamp(cache.mask.sum(dim=1, dtype=torch.int32),
                                   min=1)
             use_kernel = query.is_cuda and cuda_kernels.USE_KERNELS
             ctx, align = LocAttTrain.apply(
-                q, cache.keys[:, 0], f, self.v_energy[0], cache.values,
+                q, cache.keys[:, 0], f, self.v_energy[0].to(cd), cache.values,
                 enc_len, self.temperature, use_kernel)
             return ctx, align[:, None, :]
         ctx, align = self.step_beam(cache, query[:, None], prev_align[:, None],

@@ -52,6 +52,7 @@ Tolerances, with their reasons:
 """
 import copy
 import json
+from collections import Counter
 import math
 import sys
 from pathlib import Path
@@ -77,7 +78,9 @@ from end_to_end_asr_pytorch_tpu.solvers.train_asr import masked_ce as jax_masked
 from end_to_end_asr_pytorch_tpu.utils.checkpoint import load_checkpoint
 from end_to_end_asr_pytorch_tpu.utils.text import load_text_encoder
 from end_to_end_asr_pytorch_tpu_torch import main as port_main
+from end_to_end_asr_pytorch_tpu_torch.models import attention as port_attention
 from end_to_end_asr_pytorch_tpu_torch.ops import rnn
+from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_train_kernel as tk
 from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
 from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
 from end_to_end_asr_pytorch_tpu_torch.ops.cuda import scan_tc
@@ -428,17 +431,31 @@ def test_amp_train_step_matches_the_jax_solver(family, tmp_path, jax_kernels):
                for d in solver.optimizer.slots.values() for v in d.values())
 
 
-def test_amp_with_use_pallas_train_raises_naming_k7(tmp_path):
-    """K7 has no bf16 variant yet: amp with attention.use_pallas_train
-    raises rather than widen the attention step to f32."""
+def test_amp_with_use_pallas_train_raises_naming_k7(tmp_path, monkeypatch):
+    """Amp with attention.use_pallas_train raised while K7 had no bf16
+    variant; it now trains through it. On the route the card takes (the
+    wrappers, which here run their plain versions) every label step calls
+    K7's bf16 forward and backward once each and the f32 ones never."""
     cfg = copy.deepcopy(ASR_CFG)
     cfg["attention"]["use_pallas_train"] = True
     solver = _solver(tmp_path, cfg, amp_flag=True, hparas_amp=False)
+    calls = Counter()
+    for name in ("_fwd", "_bwd"):
+        run = getattr(tk, name)
+        monkeypatch.setattr(tk, name, lambda wrapper, *a, _run=run: (
+            calls.update([wrapper.__name__]) or _run(wrapper, *a)))
+    apply = tk.LocAttTrain.apply
+    monkeypatch.setattr(port_attention, "LocAttTrain", type(
+        "CardRoute", (), {"apply": staticmethod(
+            lambda *a: apply(*a[:-1], True))}))
     w, wl = waves(1)
-    with pytest.raises(NotImplementedError, match="K7's bf16 variant"):
-        solver.train_step(torch.from_numpy(w), torch.from_numpy(wl),
+    m = solver.train_step(torch.from_numpy(w), torch.from_numpy(wl),
                           torch.from_numpy(TEXT).long(),
                           torch.from_numpy(TEXT_LEN).long())
+    U = TEXT.shape[1]
+    assert calls == {"loc_att_fwd_bf16": U, "loc_att_bwd_bf16": U}
+    assert math.isfinite(float(m["loss"]))
+    assert tk.loc_att_fwd_bf16.launches == tk.loc_att_bwd_bf16.launches == 0
 
 
 # ------------------------------------------------------ the entry point
