@@ -6,8 +6,13 @@
 Phases, each printing one JSON line:
   device      - the card (nvidia-smi name and power limit), torch / CUDA
   build       - nvcc builds every kernel (csrc/*.cu), all started together
-  k1          - the fbank kernel against its plain PyTorch version at
-                B utterances of 7 s with ragged lengths (log-mel atol 1e-3)
+  k1          - the fbank kernel (the DFT on the tensor cores, six passes
+                of a three-part bf16 split) against its plain PyTorch
+                version at the slice's batch and at B=128 of 7 s waves with
+                ragged lengths (log-mel atol 1e-3), CUDA-event and device
+                ms beside torch.stft + mel; its bound at the f32 rate and
+                at the tensor rate (bound_ms_tensor); the HMMA lines of
+                its library's SASS (cuobjdump), which must not be 0
   k2          - K2, the LSTM scan (the tensor-core scan of csrc/scan_tc.cuh
                 in f32: the unrounded W_hh takes the remainder passes),
                 against its plain version at H=512, T=176, both directions,
@@ -43,6 +48,11 @@ Phases, each printing one JSON line:
                 exchange of h alone, for a cooperative grid (grid.sync, h
                 through L2, 16 or 32 blocks) and a cluster of 16 blocks
                 (barrier.cluster, h through distributed shared memory)
+  mma_floor   - (only when named in --phases) the ceiling of mma.sync
+                m16n8k16 in bf16, the instruction K1 and the scans run on:
+                one block per SM of 4, 8 and 16 warps issuing 28
+                independent products each on register operands (TFLOP/s
+                and share of the dense bf16 peak)
   k2b         - K2's residual outputs (cell states, gates) and K2b, the LSTM
                 backward (the tensor-core backward scan), against their
                 plain versions and against autograd through the plain scan,
@@ -116,8 +126,10 @@ Phases, each printing one JSON line:
                 probs (ragged lengths, padded frames blank-only); at V=128
                 with the last token on blank and on every block edge and an
                 all-zero probs column (md - 87.4982, finite); and with f32
-                probs at the slice's batch, V=5120 (rtol / atol 2e-5 on
-                finite entries, blank and last-token columns bit-equal)
+                probs at the slice's batch, V=5120; then bf16 at
+                V=16384, at K=12, and at B=2, T=8000 (rtol / atol 2e-5 on
+                finite entries, blank and last-token columns bit-equal);
+                CUDA-event and device ms beside torch.bmm
   k8          - the fused beam-step tail kernel against its plain version
                 on real beam states: the slice's model, LM, batch and
                 config recorded at steps 0, 1, 40 and the last (B=32, K=8,
@@ -235,6 +247,7 @@ import ctypes
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -305,27 +318,37 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, by_kernel=False):
     """Device time per call of ``fn``: the profiler's kernel times over
-    ``iters`` calls. Where the host enqueues a call more slowly than the
-    card runs it, ``cuda_ms`` times the host instead."""
+    ``iters`` calls (with ``by_kernel``, a dict by kernel name). Where the
+    host enqueues a call more slowly than the card runs it, ``cuda_ms``
+    times the host instead. A trace whose launch count is not a whole
+    multiple of ``iters`` lost events: it is taken again (three tries),
+    then None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms, n = {}, 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                n += e.count
+                ms[e.key[:60]] = ms.get(e.key[:60], 0.0) + getattr(
+                    e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0)) / iters / 1e3
+        if n and n % iters == 0:
+            return ms if by_kernel else sum(ms.values())
+    return None
 
 
 # the hand-written kernels' device function names (csrc/*.cu)
-KERNEL_FUNCS = ("fbank_kernel", "tc_scan_kernel", "tc_bwd_kernel",
+KERNEL_FUNCS = ("fbank_kernel", "fbank_split_kernel", "tc_scan_kernel", "tc_bwd_kernel",
                 "ctc_kernel", "loc_att_kernel", "loc_att_fwd_kernel",
                 "loc_att_bwd_kernel", "loc_att_dv_kernel", "psi_kernel",
                 "beam_step_kernel")
@@ -429,45 +452,83 @@ def make_waves(n, seed, secs=SECS, sr=16000):
     return waves, lens
 
 
-def phase_k1(frontend, batch, seed):
+def stft_mel(frontend, wave):
+    """K1's library yardstick: ``torch.stft`` (center reflect pad) of the
+    same frames with the Hann window, power, mel product and log."""
     import torch
-    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import fbank_kernel as fk
-    w, _ = make_waves(batch, seed)
-    wave = torch.from_numpy(w).cuda()
-    kw = dict(n_fft=frontend.n_fft, hop=frontend.hop, log_eps=1e-10)
-    args = (wave, frontend.cosw, frontend.msinw, frontend.mel_fb)
-    got = fk.fbank_fused(*args, **kw)
-    ref = fk.fbank_plain(*args, **kw)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    check(bool(torch.isfinite(got).all()), "K1 output not finite")
-    check(err <= 1e-3, f"K1 log-mel max abs err {err} > 1e-3")
-    window = torch.hann_window(frontend.n_fft, device="cuda")
+    window = torch.hann_window(frontend.n_fft, device=wave.device)
 
     def library():
         spec = torch.stft(wave, frontend.n_fft, frontend.hop, window=window,
                           center=True, pad_mode="reflect", return_complex=True)
         power = spec.real ** 2 + spec.imag ** 2
         return torch.log(power.transpose(1, 2) @ frontend.mel_fb + 1e-10)
+    return library
 
-    lib_err = float((library() - ref).abs().max())
-    B, S = wave.shape
-    T, n_mels = got.shape[1], got.shape[2]
-    n_fft, n_bins = frontend.n_fft, frontend.n_bins
-    nbytes = 4 * (B * S + 2 * n_fft * n_bins + n_bins * n_mels + B * T * n_mels)
-    flops = B * T * (4 * n_fft * n_bins + 3 * n_bins + 2 * n_bins * n_mels)
-    b_ms, b_by = bound(nbytes, flops)
-    res = {"name": "fbank_fused", "route": "cuda",
-           "source": "end_to_end_asr_pytorch_tpu_torch/csrc/fbank.cu",
-           "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/fbank_kernel.py:75",
-           "max_abs_err": err,
-           "ms": cuda_ms(lambda: fk.fbank_fused(*args, **kw), 20),
-           "plain_ms": cuda_ms(lambda: fk.fbank_plain(*args, **kw), 20),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": cuda_ms(library, 20)}
-    emit({"phase": "k1", "shape": [B, S], "frames": T,
-          "library_max_abs_err_vs_plain": lib_err, **res})
-    return res
+
+def sass_count(name, op):
+    """Lines of ``cuobjdump -sass`` of the built ``csrc/<name>.cu`` library
+    that hold instruction ``op``; None where cuobjdump is missing."""
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(build._target(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum(op in ln for ln in sass.splitlines())
+
+
+def phase_k1(frontend, batch, seed):
+    """K1 against its plain version at the slice's batch and at B=128 of
+    7 s waves (log-mel atol 1e-3), timed beside ``torch.stft`` + mel; its
+    bound at the f32 rate and, as the design runs it, with the DFT product
+    as six bf16 passes at the tensor rate (bound_ms_tensor). The built
+    library must hold HMMA instructions (the tensor cores)."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import fbank_kernel as fk
+    hmma = sass_count("fbank", "HMMA")
+    check(hmma is None or hmma > 0, "K1's SASS holds no HMMA")
+    records = {}
+    for B in dict.fromkeys((batch, 128)):
+        w, _ = make_waves(B, seed + (B != batch))
+        wave = torch.from_numpy(w).cuda()
+        kw = dict(n_fft=frontend.n_fft, hop=frontend.hop, log_eps=1e-10)
+        args = (wave, frontend.cosw, frontend.msinw, frontend.mel_fb)
+        got = fk.fbank_fused(*args, **kw)
+        ref = fk.fbank_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        check(bool(torch.isfinite(got).all()), "K1 output not finite")
+        check(err <= 1e-3, f"K1 B={B} log-mel max abs err {err} > 1e-3")
+        library = stft_mel(frontend, wave)
+        lib_err = float((library() - ref).abs().max())
+        S = wave.shape[1]
+        T, n_mels = got.shape[1], got.shape[2]
+        n_fft, n_bins = frontend.n_fft, frontend.n_bins
+        nbytes = 4 * (B * S + 2 * n_fft * n_bins + n_bins * n_mels
+                      + B * T * n_mels)
+        prod = B * T * 4 * n_fft * n_bins
+        rest = B * T * (3 * n_bins + 2 * n_bins * n_mels)
+        b_ms, b_by = bound(nbytes, prod + rest)
+        t_ms, t_by = tensor_bound(nbytes, prod, rest)
+        fused = lambda: fk.fbank_fused(*args, **kw)
+        res = {"name": "fbank_fused", "route": "cuda",
+               "source": "end_to_end_asr_pytorch_tpu_torch/csrc/fbank.cu",
+               "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/fbank_kernel.py:75",
+               "max_abs_err": err,
+               "ms": cuda_ms(fused, 20), "device_ms": device_ms(fused),
+               "plain_ms": cuda_ms(lambda: fk.fbank_plain(*args, **kw), 20),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_ms(library, 20)}
+        emit({"phase": "k1", "shape": [B, S], "frames": T,
+              "library_max_abs_err_vs_plain": lib_err,
+              "library_device_ms": device_ms(library),
+              "device_ms_by_kernel": device_ms(fused, by_kernel=True),
+              "bound_ms_tensor": t_ms, "bound_tensor_by": t_by,
+              "sass_hmma_lines": hmma, **res})
+        records[B] = res
+    return records[batch]
 
 
 def check_bf16_scan(label, rec, B, T, H, n_gates, scan, plain, run, query,
@@ -913,6 +974,31 @@ def phase_scan_floor(T=176, H=512):
                 "ms": ms, "us_per_round": ms * 1e3 / T}
     torch.cuda.synchronize()
     emit({"phase": "scan_floor", "T": T, "H": H, "floors": out})
+
+
+def phase_mma_floor(iters=4000):
+    """The ceiling of mma.sync m16n8k16 in bf16 (csrc/mma_floor.cu): one
+    block per SM of 4, 8 and 16 warps, each issuing 28 independent products
+    per round on register operands, against the dense bf16 tensor peak."""
+    import ctypes
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build
+    lib = build.load("mma_floor", {"mma_floor_launch": (
+        ctypes.c_int, [ctypes.c_void_p] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sink = torch.empty(sms * 32 * 16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for warps in (4, 8, 16):
+        run = lambda: build.check(lib.mma_floor_launch(
+            sink.data_ptr(), sms, warps, iters, stream), "mma_floor launch")
+        ms = cuda_ms(run, 5)
+        n = sms * warps * iters * 28
+        out[f"warps{warps}"] = {"ms": ms, "tflops": n * 4096 / ms / 1e9,
+                                "share_of_dense_peak":
+                                    n * 4096 / ms / 1e-3 / BF16_TC_FLOPS}
+    emit({"phase": "mma_floor", "sms": sms, "iters": iters, "floors": out})
 
 
 def k2b_bound(B, T, H):
@@ -1874,24 +1960,42 @@ def psi_errors(got, ref, last, blank=0):
     return float((got - ref)[fin].abs().max()), excess, exact
 
 
+def psi_library(wd_r, probs):
+    """K6's library yardstick: ``torch.bmm`` of the rounded weights and the
+    probs (the product K6 fuses), with an f32 output where this torch has
+    it; and the call's name."""
+    import torch
+    try:
+        torch.bmm(wd_r, probs, out_dtype=torch.float32)
+        return (lambda: torch.bmm(wd_r, probs, out_dtype=torch.float32),
+                "torch.bmm(out_dtype=float32)")
+    except (TypeError, RuntimeError):
+        return lambda: torch.bmm(wd_r, probs), f"torch.bmm ({probs.dtype} out)"
+
+
 def phase_k6(seed, slice_batch, K=8, T=176, V=V_SUB):
     """K6 against its plain version: bf16 probs at B=128 and the slice's
     batch, the V=128 edge case, and f32 probs at the slice's batch (the
-    non-amp psi_kernel route). ``torch.bmm`` of the bf16-rounded weights and
-    the probs (the product K6 fuses) is the library yardstick, alone and
-    with the epilogue."""
+    non-amp psi_kernel route); then bf16 at V=16384 (las_sub16k's
+    vocabulary), K=12 hypotheses (two n8 tiles of one walk) and a long
+    input, B=2, T=8000 (more frames than one block could stage whole).
+    ``torch.bmm`` of the bf16-rounded weights and the probs (the product K6
+    fuses) is the library yardstick, alone and with the epilogue."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import psi_kernel as pk
     records = {}
-    cases = [("bf16", 128, V), ("bf16", slice_batch, V),
-             ("edge", slice_batch, 128), ("f32", slice_batch, V)]
-    for tag, B, Vc in cases:
+    cases = [("bf16", 128, V, K, T), ("bf16", slice_batch, V, K, T),
+             ("edge", slice_batch, 128, K, T), ("f32", slice_batch, V, K, T),
+             ("bf16_v16384", slice_batch, 16384, K, T),
+             ("bf16_k12", slice_batch, V, 12, T),
+             ("bf16_long", 2, V, K, 8000)]
+    for tag, B, Vc, Kc, Tc in cases:
         dtype = torch.float32 if tag == "f32" else torch.bfloat16
-        args = list(psi_case(B, K, T, Vc, seed + 9 + B + Vc, dtype))
+        args = list(psi_case(B, Kc, Tc, Vc, seed + 9 + B + Vc, dtype))
         if tag == "edge":
             args[1][:, :, 77] = 0.0                    # an all-zero column
-            # blank, the zero column, the kernel's 4-column thread edge, the
-            # TPU kernel's 128-column block edge
+            # blank, the zero column, 4- and 8-column edges, the 128-column
+            # block edge of both kernels
             args[4][0] = torch.tensor([0, 77, 3, 4, 127, 126, 1, 64],
                                       dtype=torch.int32)
         got = pk.psi_fused(*args)
@@ -1902,7 +2006,7 @@ def phase_k6(seed, slice_batch, K=8, T=176, V=V_SUB):
               f"2e-5 by {excess}")
         check(exact, f"K6 {tag} B={B} V={Vc}: blank / last-token columns "
               "not bit-equal to the plain version")
-        res = {"phase": "k6", "case": tag, "B": B, "K": K, "T": T, "V": Vc,
+        res = {"phase": "k6", "case": tag, "B": B, "K": Kc, "T": Tc, "V": Vc,
                "probs": str(dtype).split(".")[-1], "max_abs_err": err}
         if tag == "edge":
             zero = got[:, :, 77][args[4] != 77]
@@ -1913,14 +2017,7 @@ def phase_k6(seed, slice_batch, K=8, T=176, V=V_SUB):
             emit({**res, "zero_column_max_abs_err_vs_md_minus_87_4982": zerr})
             continue
         wd, probs = args[0], args[1]
-        wd_r = wd.to(dtype)
-        try:
-            torch.bmm(wd_r, probs, out_dtype=torch.float32)
-            lib = lambda: torch.bmm(wd_r, probs, out_dtype=torch.float32)
-            lib_call = "torch.bmm(out_dtype=float32)"
-        except (TypeError, RuntimeError):
-            lib = lambda: torch.bmm(wd_r, probs)
-            lib_call = f"torch.bmm ({dtype} out)"
+        lib, lib_call = psi_library(wd.to(dtype), probs)
         col = torch.arange(Vc, device="cuda")
         md, ps, last = args[2], args[3], args[4]
 
@@ -1930,21 +2027,23 @@ def phase_k6(seed, slice_batch, K=8, T=176, V=V_SUB):
             psi = torch.where(col == last[..., None], ps[..., None], psi)
             return torch.where(col == 0, -1e30, psi)
 
-        nbytes = (probs.element_size() * B * T * Vc + 4 * B * K * T
-                  + 12 * B * K + 4 * B * K * Vc)
-        b_ms, b_by = bound(nbytes, 2 * B * K * T * Vc + B * K * Vc)
+        nbytes = (probs.element_size() * B * Tc * Vc + 4 * B * Kc * Tc
+                  + 12 * B * Kc + 4 * B * Kc * Vc)
+        b_ms, b_by = bound(nbytes, 2 * B * Kc * Tc * Vc + B * Kc * Vc)
+        fused = lambda: pk.psi_fused(*args)
         rec = {"name": "psi_fused", "route": "cuda",
                "source": "end_to_end_asr_pytorch_tpu_torch/csrc/psi.cu",
                "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/psi_kernel.py:75",
-               "max_abs_err": err,
-               "ms": cuda_ms(lambda: pk.psi_fused(*args), 20),
+               "max_abs_err": err, "ms": cuda_ms(fused, 20),
+               "device_ms": device_ms(fused),
                "plain_ms": cuda_ms(lambda: pk.psi_plain(*args), 20),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": cuda_ms(lib, 20)}
         emit({**res, **rec, "library_call": lib_call,
+              "library_device_ms": device_ms(lib),
               "library_with_epilogue_ms": cuda_ms(lib_epilogue, 20),
-              "device_ms": device_ms(lambda: pk.psi_fused(*args)),
-              "gb_per_s": nbytes / rec["ms"] / 1e6})
+              "gb_per_s": (nbytes / rec["device_ms"] / 1e6
+                           if rec["device_ms"] else None)})
         if tag == "bf16":
             records[B] = rec
     return records[slice_batch]
@@ -2850,7 +2949,7 @@ def main():
                             "train,train_att,train_gru,train_amp,"
                             "train_gru_amp,train_att_amp,train_entry",
                     help="comma list of phases after build (default: all "
-                         "but scan_floor)")
+                         "but scan_floor and mma_floor)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2874,7 +2973,8 @@ def main():
 
     secs = build.build(["fbank", "lstm_scan", "ctc_loss", "loc_att",
                         "loc_att_train", "psi", "gru_scan", "beam_step"]
-                       + (["scan_floor"] if "scan_floor" in phases else []))
+                       + [f for f in ("scan_floor", "mma_floor")
+                          if f in phases])
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln
                  or "Function properties" in ln]
@@ -2890,6 +2990,8 @@ def main():
          kernels["lstm_train_bf16"]) = phase_k2(args.seed, args.batch)
     if "scan_floor" in phases:
         phase_scan_floor()
+    if "mma_floor" in phases:
+        phase_mma_floor()
     if "k2b" in phases:
         (kernels["lstm_bwd_fused"],
          kernels["lstm_bwd_bf16"]) = phase_k2b(args.seed, args.batch)

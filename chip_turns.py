@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Times K2, K2b, K4, K4b, K5, K7 and K8 of one checkout of the PyTorch port on
-one GPU, so that two commits can be compared on the same card in turns.
+"""Times K1, K2, K2b, K4, K4b, K5, K6, K7 and K8 of one checkout of the
+PyTorch port on one GPU, so that two commits can be compared on the same
+card in turns.
 
-    python3 chip_turns.py [--root DIR] [--seed 0] [--cases k2,k2b,k4,...]
+    python3 chip_turns.py [--root DIR] [--seed 0] [--cases k1,k2,k2b,...]
 
 ``--root`` is the checkout whose ``end_to_end_asr_pytorch_tpu_torch`` is
 imported (default: this one); run the script once per checkout, in turns
 (parent, change, change, parent), inside one call on the card. It prints
 one JSON line per measurement and last the card's name and power limit:
 
+  k1   - fbank_fused on 7 s waves (chip_smoke's) at B=32 and 128, beside
+         torch.stft + mel (ms by CUDA events over 20 calls, device ms by
+         the profiler, for both)
   k2   - lstm_scan_fused in f32 (serving, and with its training residuals)
          at T=176, H=512, B=32 and 128, reversed, ragged masks, beside
          cuDNN nn.LSTM's forward (TF32 off)
@@ -22,6 +26,9 @@ one JSON line per measurement and last the card's name and power limit:
   k5   - loc_attention_fused at B=32 and 128, K=8, T=176, d=300, F=10,
          vdim=300, ragged lengths (ms by CUDA events over 20 calls, device
          ms by the profiler)
+  k6   - psi_fused at B=32 and 128, K=8, T=176, V=5120, bf16 probs
+         (chip_smoke's psi_case), beside torch.bmm of the rounded weights
+         and the probs (ms and device ms, for both)
   k7   - loc_att_fwd_fused and loc_att_bwd_fused (the f32 training
          attention step) at B=32 and 128, T=176, d=300, vdim=300, ragged
          lengths (ms by CUDA events over 20 calls, device ms by the
@@ -33,8 +40,8 @@ one JSON line per measurement and last the card's name and power limit:
          enqueue is slower than the card, as at V=31, the host's noise
          only ever adds; device ms by the profiler), beside the plain tail
 
-``--cases`` keeps only the named ones (k2, k2b, k4, k4b, k5, k7, k8_31,
-k8_5120, k8_5120_b128; default all). It needs CUDA and exits with an error without it.
+``--cases`` keeps only the named ones (k1, k2, k2b, k4, k4b, k5, k6, k7,
+k8_31, k8_5120, k8_5120_b128; default all). It needs CUDA and exits with an error without it.
 """
 import argparse
 import inspect
@@ -59,20 +66,45 @@ def main():
     import chip_smoke as cs              # this checkout's timing helpers
     sys.path.insert(0, str(Path(args.root).resolve()))
     from end_to_end_asr_pytorch_tpu_torch.ops import ctc_prefix
+    from end_to_end_asr_pytorch_tpu_torch.ops.audio import create_transform
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_kernel as ak
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_train_kernel as tk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import beam_step_kernel as bsk
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import fbank_kernel as fk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import psi_kernel as pk
     import numpy as np
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     root = str(Path(args.root).resolve())
-    for mod in (ak, bsk, gk, lk, tk):
+    for mod in (ak, bsk, fk, gk, lk, pk, tk):
         assert Path(mod.__file__).resolve().is_relative_to(root), mod.__file__
 
     cases = set(args.cases.split(","))
     T, H = 176, 512
+    frontend, _ = create_transform(cs.AUDIO_CFG, device="cuda")
+    for B in ((32, 128) if "k1" in cases else ()):
+        wave = torch.from_numpy(cs.make_waves(B, args.seed)[0]).cuda()
+        fused = lambda: fk.fbank_fused(
+            wave, frontend.cosw, frontend.msinw, frontend.mel_fb,
+            n_fft=frontend.n_fft, hop=frontend.hop, log_eps=1e-10)
+        library = cs.stft_mel(frontend, wave)
+        cs.emit({"turn": "k1", "root": root, "B": B,
+                 "ms": cs.cuda_ms(fused, 20),
+                 "device_ms": cs.device_ms(fused),
+                 "library_ms": cs.cuda_ms(library, 20),
+                 "library_device_ms": cs.device_ms(library)})
+    for B in ((32, 128) if "k6" in cases else ()):
+        psi = cs.psi_case(B, 8, T, cs.V_SUB, args.seed + 9 + B + cs.V_SUB,
+                          torch.bfloat16)
+        fused = lambda: pk.psi_fused(*psi)
+        library, _ = cs.psi_library(psi[0].to(torch.bfloat16), psi[1])
+        cs.emit({"turn": "k6", "root": root, "B": B,
+                 "ms": cs.cuda_ms(fused, 20),
+                 "device_ms": cs.device_ms(fused),
+                 "library_ms": cs.cuda_ms(library, 20),
+                 "library_device_ms": cs.device_ms(library)})
     for B in ((32, 128) if cases & {"k2", "k2b"} else ()):
         rng = np.random.RandomState(args.seed + B)
         w_hh = cs.lstm_weights(rng, H)
