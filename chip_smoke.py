@@ -120,8 +120,17 @@ Phases, each printing one JSON line:
                 plain version (ctx / align within 1e-4 + 2^-7 of their max
                 magnitude; bf16 dq / dtarg / dvals within 1 bf16 ulp +
                 1e-5; dv within 2^-7 of its max magnitude), bound at bf16
-                bytes
-  k6          - the CTC prefix psi kernel against its plain version at
+                bytes. Both run as one cluster of blocks per utterance:
+                each line holds the cluster sizes picked, the SMs one
+                launch's blocks ran on, every cluster
+                size checked the same way and timed with the clusters of
+                each resident at once, a bit-identity check of every
+                output (dv included) over two calls, and the device ms
+                with L2 flushed before each call. Then k7_case lines in
+                f32 and bf16: d=38, vdim=70 (the scalar variant), rows
+                shorter than the cluster and a zero-length row, B=4 at
+                T=900. The library's SASS must hold no MUFU.TANH
+  k6        - the CTC prefix psi kernel against its plain version at
                 B=128 and the slice's batch, K=8, T=176, V=5120 with bf16
                 probs (ragged lengths, padded frames blank-only); at V=128
                 with the last token on blank and on every block edge and an
@@ -323,8 +332,10 @@ def device_ms(fn, iters=20, by_kernel=False):
     ``iters`` calls (with ``by_kernel``, a dict by kernel name). Where the
     host enqueues a call more slowly than the card runs it, ``cuda_ms``
     times the host instead. A trace whose launch count is not a whole
-    multiple of ``iters`` lost events: it is taken again (three tries),
-    then None."""
+    multiple of ``iters`` lost events: it is taken again (three tries);
+    then each kernel's mean time per recorded launch is taken times its
+    launches per call (recorded launches / iters, rounded, at least 1),
+    which the lost events do not bias. None where no kernel was recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -335,22 +346,28 @@ def device_ms(fn, iters=20, by_kernel=False):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ms, n = {}, 0
+        ms, count = {}, {}
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
-                n += e.count
-                ms[e.key[:60]] = ms.get(e.key[:60], 0.0) + getattr(
+                k = e.key[:60]
+                count[k] = count.get(k, 0) + e.count
+                ms[k] = ms.get(k, 0.0) + getattr(
                     e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0)) / iters / 1e3
+                    getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        n = sum(count.values())
         if n and n % iters == 0:
-            return ms if by_kernel else sum(ms.values())
-    return None
+            out = {k: v / iters for k, v in ms.items()}
+            return out if by_kernel else sum(out.values())
+    if not n:
+        return None
+    out = {k: ms[k] / count[k] * max(1, round(count[k] / iters)) for k in ms}
+    return out if by_kernel else sum(out.values())
 
 
 # the hand-written kernels' device function names (csrc/*.cu)
 KERNEL_FUNCS = ("fbank_kernel", "fbank_split_kernel", "tc_scan_kernel", "tc_bwd_kernel",
                 "ctc_kernel", "loc_att_kernel", "loc_att_fwd_kernel",
-                "loc_att_bwd_kernel", "loc_att_dv_kernel", "psi_kernel",
+                "loc_att_bwd_kernel", "psi_kernel",
                 "beam_step_kernel")
 
 
@@ -1785,12 +1802,116 @@ def k7_bound(B, T, d, vdim, lens, es, backward):
                  weighted * (10 * d + 2 * vdim) + B * T * vdim)
 
 
+def k7_inputs(B, T, d, vdim, seed, lens=None):
+    """K7's f32 inputs at the scale of bench.py's model: q, keys, f, v,
+    vals, the lengths on the card (att_case's ragged ones unless ``lens``),
+    the cotangents dctx and dalign, and the lengths as numpy."""
+    import torch
+    rng, ragged = att_case(B, seed, T)
+    lens = ragged if lens is None else np.asarray(lens, np.int32)
+    r = lambda *shape, s: torch.from_numpy(
+        (rng.randn(*shape) * s).astype(np.float32)).cuda()
+    ins = (r(B, d, s=0.3), r(B, T, d, s=0.3), r(B, T, d, s=0.1),
+           r(d, s=0.06), r(B, T, vdim, s=0.3))
+    el = torch.from_numpy(lens).cuda()
+    return ins, el, r(B, vdim, s=1.0), r(B, T, s=1.0), lens
+
+
+def k7_over_bound(tk, x, el, tau, dctx, dalign, align_in, fwd, bwd):
+    """The largest error of a K7 forward ``fwd`` (ctx, align) and backward
+    ``bwd`` (dq, dtarg, dvals, dv, from ``align_in``) against the plain
+    versions on the same inputs ``x``, over the phase's bounds (<= 1
+    passes): f32 ctx / align atol 1e-4, dq / dtarg / dvals atol 1e-5, dv
+    1e-4 of its max magnitude; bf16 ctx / align 1e-4 + 2^-7 of their max,
+    dq / dtarg / dvals 1 bf16 ulp + 1e-5 (bf16_diff), dv 2^-7 of its max."""
+    import torch
+    pf = tk.loc_att_fwd_plain(*x, el, tau)
+    pb = tk.loc_att_bwd_plain(*x, el, align_in, dctx, dalign, tau)
+    check(all(bool(torch.isfinite(t.float()).all()) for t in (*fwd, *bwd)),
+          "K7 output not finite")
+    dv_rel = float((bwd[3].float() - pb[3].float()).abs().max()
+                   / pb[3].float().abs().max())
+    if x[0].dtype == torch.bfloat16:
+        f_err = max(float((a - b).abs().max() / (1e-4 + 2.0 ** -7
+                                                 * b.abs().max()))
+                    for a, b in zip(fwd, pf))
+        b_err = max(bf16_diff(a, b)[1] for a, b in zip(bwd[:3], pb[:3]))
+        return max(f_err, b_err, dv_rel / 2.0 ** -7)
+    f_err = max(float((a - b).abs().max()) for a, b in zip(fwd, pf)) / 1e-4
+    b_err = max(float((a - b).abs().max())
+                for a, b in zip(bwd[:3], pb[:3])) / 1e-5
+    return max(f_err, b_err, dv_rel / 1e-4)
+
+
+def k7_identical(tk, x, el, tau, dctx, dalign):
+    """Whether two calls of K7's forward and backward give bit-identical
+    outputs, dv included."""
+    import torch
+    f1, f2 = (tk.loc_att_fwd_tc(*x, el, tau) for _ in range(2))
+    b1, b2 = (tk.loc_att_bwd_tc(*x, el, f1[1], dctx, dalign, tau)
+              for _ in range(2))
+    return all(bool(torch.equal(a, b)) for a, b in zip((*f1, *b1),
+                                                       (*f2, *b2)))
+
+
+def k7_cold_ms(fn, flush):
+    """Device ms of K7's kernel per call of ``fn`` with L2 flushed before
+    each (``flush`` zeroed: a buffer larger than L2), as the training step
+    finds it after the work between two label steps."""
+    ms = device_ms(lambda: (flush.zero_(), fn()), by_kernel=True)
+    return None if ms is None else sum(v for k, v in ms.items()
+                                       if "loc_att_" in k)
+
+
+def k7_sizes(tk, lib, x, el, tau, dctx, dalign):
+    """Every cluster size up to clusters(T) for K7's forward and backward
+    on inputs ``x`` (f32 or bf16): checked under the phase's bounds
+    (k7_over_bound), device ms of each, and the clusters of each resident
+    at once."""
+    import torch
+    B, T, d = x[1].shape
+    vdim = x[4].shape[-1]
+    out = {}
+    for C in range(1, tk.clusters(T) + 1):
+        fwd = lambda: tk.loc_att_fwd_tc(*x, el, tau, clusters=C)
+        f = fwd()
+        bwd = lambda: tk.loc_att_bwd_tc(*x, el, f[1], dctx, dalign, tau,
+                                        clusters=C)
+        g = bwd()
+        torch.cuda.synchronize()
+        err = k7_over_bound(tk, x, el, tau, dctx, dalign, f[1], f, g)
+        check(err <= 1.0, f"K7 ({x[0].dtype}) in clusters of {C}: error "
+              f"{err} of its bound at B={B}, T={T}")
+        resident = {}
+        for name, bw in (("fwd", False), ("bwd", True)):
+            n = ctypes.c_int(0)
+            rc = lib.loc_att_train_max_clusters(
+                tk._kind(bw, x[0].dtype, d, vdim, *x), T, d, vdim, C,
+                ctypes.byref(n))
+            check(rc == 0, f"K7 occupancy query: CUDA error {rc}")
+            resident[name] = n.value
+        out[C] = {"fwd_device_ms": device_ms(fwd),
+                  "bwd_device_ms": device_ms(bwd), "err_over_bound": err,
+                  "clusters_resident": resident}
+    return out
+
+
+def k7_picked(tk, lib, x):
+    """The cluster sizes the wrappers pick for inputs ``x``."""
+    B, T, d = x[1].shape
+    vdim = x[4].shape[-1]
+    return {name: tk.pick_clusters(lib.loc_att_train_max_clusters,
+                                   tk._kind(bw, x[0].dtype, d, vdim, *x), B,
+                                   T, d, vdim)
+            for name, bw in (("fwd", False), ("bwd", True))}
+
+
 def k7_bf16_case(tk, B, T, d, vdim, tau, ins, el, dctx, dalign, lens):
     """K7's bf16 variant on the f32 case's inputs rounded to bf16, against
     its plain version: ctx and align within 1e-4 + 2^-7 of their largest
     magnitude; dq, dtarg and dvals within 1 bf16 ulp + 1e-5 (bf16_diff);
     dv within 2^-7 of its largest magnitude. -> the two kernel records
-    (bound at bf16 bytes) and the errors."""
+    (bound at bf16 bytes), the errors and the bf16 inputs."""
     import torch
     bins = tuple(t.to(torch.bfloat16) for t in ins)
     ctx, align = tk.loc_att_fwd_bf16(*bins, el, tau)
@@ -1838,26 +1959,101 @@ def k7_bf16_case(tk, B, T, d, vdim, tau, ins, el, dctx, dalign, lens):
     return fwd_rec, bwd_rec, {
         "fwd_err_over_bound": f_err, "bwd_max_err_over_bf16_ulp_bound": ulps,
         "bwd_differing_share": max(s for _, _, s in diffs),
-        "bwd_dv_err_over_max": e_dv}
+        "bwd_dv_err_over_max": e_dv}, bins
+
+
+def k7_sms(tk, x, el, tau, dctx, dalign, picked):
+    """The SMs that the blocks of one launch of K7's forward and backward
+    ran on, counted (each block records its %smid)."""
+    import torch
+    B = x[1].shape[0]
+    ids = {k: torch.full((B * C,), -1, dtype=torch.int32, device="cuda")
+           for k, C in picked.items()}
+    align = tk.loc_att_fwd_tc(*x, el, tau, sm_ids=ids["fwd"])[1]
+    tk.loc_att_bwd_tc(*x, el, align, dctx, dalign, tau, sm_ids=ids["bwd"])
+    torch.cuda.synchronize()
+    check(all(bool((t >= 0).all()) for t in ids.values()),
+          "K7: a block did not record its SM")
+    return {k: int(torch.unique(t).numel()) for k, t in ids.items()}
+
+
+def k7_timings(tk, lib, x, el, tau, dctx, dalign, flush, sizes):
+    """The picked cluster sizes, the SMs a launch spans, the bit-identity
+    of two calls, the device ms with L2 flushed before each call, and
+    (with ``sizes``) every cluster size checked and timed, for inputs
+    ``x``."""
+    align = tk.loc_att_fwd_tc(*x, el, tau)[1]
+    same = k7_identical(tk, x, el, tau, dctx, dalign)
+    check(same, f"K7 ({x[0].dtype}) outputs differ between two calls")
+    picked = k7_picked(tk, lib, x)
+    return {"clusters": picked,
+            "sms_spanned": k7_sms(tk, x, el, tau, dctx, dalign, picked),
+            "bit_identical": same,
+            "fwd_device_ms_cold_l2": k7_cold_ms(
+                lambda: tk.loc_att_fwd_tc(*x, el, tau), flush),
+            "bwd_device_ms_cold_l2": k7_cold_ms(
+                lambda: tk.loc_att_bwd_tc(*x, el, align, dctx, dalign, tau),
+                flush),
+            "clusters_ms": (k7_sizes(tk, lib, x, el, tau, dctx, dalign)
+                            if sizes else None)}
+
+
+def k7_case(tk, lib, label, B, T, d, vdim, tau, seed, flush, lens=None):
+    """K7 in f32 and bf16 at the cluster size the wrappers pick, on one
+    shape off the main path: checked under the phase's bounds, bit-
+    identical over two calls, device ms warm and with L2 flushed. Emits
+    one k7_case line per dtype."""
+    import torch
+    ins, el, dctx, dalign, lens = k7_inputs(B, T, d, vdim, seed, lens)
+    for x in (ins, tuple(t.to(torch.bfloat16) for t in ins)):
+        fwd = lambda: tk.loc_att_fwd_tc(*x, el, tau)
+        f = fwd()
+        bwd = lambda: tk.loc_att_bwd_tc(*x, el, f[1], dctx, dalign, tau)
+        g = bwd()
+        torch.cuda.synchronize()
+        err = k7_over_bound(tk, x, el, tau, dctx, dalign, f[1], f, g)
+        check(err <= 1.0, f"K7 {label} ({x[0].dtype}): error {err} of its "
+              f"bound")
+        zero = torch.from_numpy(lens <= 0).cuda()
+        if bool(zero.any()):
+            check(bool(torch.allclose(f[1][zero], torch.full(
+                (), 1.0 / T, device="cuda"), rtol=1e-6, atol=0)),
+                f"K7 {label}: zero-length rows not uniform")
+        emit({"phase": "k7_case", "shape": label, "dtype": str(x[0].dtype),
+              "B": B, "T": T, "d": d, "vdim": vdim,
+              "lens": lens.tolist() if B <= 8 else None,
+              "scalar_variant": bool(tk._kind(False, x[0].dtype, d, vdim, *x)
+                                     & tk.SCALAR),
+              "err_over_bound": err,
+              "fwd_device_ms": device_ms(fwd), "bwd_device_ms": device_ms(bwd),
+              **k7_timings(tk, lib, x, el, tau, dctx, dalign, flush, False)})
 
 
 def phase_k7(seed, slice_batch, T=176, d=300, vdim=300, tau=0.5):
     """The K7 forward and backward against their plain versions, and the
     backward against autograd through the plain forward, at B=128 and the
     slice's batch; then K7's bf16 variant on the same inputs rounded to
-    bf16 (k7_bf16 lines). -> the f32 and the bf16 records at the slice's
-    batch."""
+    bf16 (k7_bf16 lines). Each line also holds the cluster sizes the
+    wrappers pick, the bit-identity of two calls, the device ms with L2
+    flushed before each call, and every cluster size checked and timed.
+    Then shapes off the main path (k7_case lines): d=38, vdim=70 (the
+    scalar variant), rows shorter than the cluster (blocks without a
+    frame) and a zero-length row, and a long utterance (B=4, T=900). The
+    library's SASS must hold no MUFU.TANH (accurate tanhf). -> the f32 and
+    the bf16 records at the slice's batch."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_train_kernel as tk
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build
+    lib = build.load("loc_att_train", tk._SIGNATURES)
+    sass = {op: sass_count("loc_att_train", op)
+            for op in ("MUFU.TANH", "MUFU.EX2")}
+    check(sass["MUFU.TANH"] in (None, 0) and sass["MUFU.EX2"] != 0,
+          f"K7's SASS holds MUFU.TANH, or no MUFU.EX2 (accurate tanhf's): "
+          f"{sass}")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     fwd, bwd, fwd16, bwd16 = {}, {}, {}, {}
     for B in (128, slice_batch):
-        rng, lens = att_case(B, seed + 8, T)
-        r = lambda *shape, s: torch.from_numpy(
-            (rng.randn(*shape) * s).astype(np.float32)).cuda()
-        ins = (r(B, d, s=0.3), r(B, T, d, s=0.3), r(B, T, d, s=0.1),
-               r(d, s=0.06), r(B, T, vdim, s=0.3))
-        el = torch.from_numpy(lens).cuda()
-        dctx, dalign = r(B, vdim, s=1.0), r(B, T, s=1.0)
+        ins, el, dctx, dalign, lens = k7_inputs(B, T, d, vdim, seed + 8)
         ctx, align = tk.loc_att_fwd_fused(*ins, el, tau)
         pctx, palign = tk.loc_att_fwd_plain(*ins, el, tau)
         grads = tk.loc_att_bwd_fused(*ins, el, align, dctx, dalign, tau)
@@ -1911,11 +2107,22 @@ def phase_k7(seed, slice_batch, T=176, d=300, vdim=300, tau=0.5):
               "fwd": fwd[B], "bwd": bwd[B],
               "bwd_dv_err_over_max_vs_plain": errs["plain"][1],
               "bwd_max_abs_err_vs_autograd": errs["autograd"][0],
-              "bwd_dv_err_over_max_vs_autograd": errs["autograd"][1]})
-        fwd16[B], bwd16[B], errs16 = k7_bf16_case(
+              "bwd_dv_err_over_max_vs_autograd": errs["autograd"][1],
+              "sass_lines": sass,
+              **k7_timings(tk, lib, ins, el, tau, dctx, dalign, flush, True)})
+        fwd16[B], bwd16[B], errs16, bins = k7_bf16_case(
             tk, B, T, d, vdim, tau, ins, el, dctx, dalign, lens)
         emit({"phase": "k7_bf16", "B": B, "T": T, "d": d, "vdim": vdim,
-              "fwd": fwd16[B], "bwd": bwd16[B], **errs16})
+              "fwd": fwd16[B], "bwd": bwd16[B], **errs16,
+              **k7_timings(tk, lib, bins, el, tau, dctx, dalign, flush,
+                           True)})
+    # off the main path: the scalar variant, blocks without a frame (and a
+    # zero-length row), a ~36 s utterance
+    k7_case(tk, lib, "scalar", 8, 50, 38, 70, tau, seed + 18, flush)
+    k7_case(tk, lib, "short_rows", 5, T, d, vdim, tau, seed + 28, flush,
+            lens=[T, 1, 3, 5, 0])
+    k7_case(tk, lib, "long", 4, 900, d, vdim, tau, seed + 38, flush)
+    del flush
     return (fwd[slice_batch], bwd[slice_batch], fwd16[slice_batch],
             bwd16[slice_batch])
 

@@ -30,9 +30,10 @@ one JSON line per measurement and last the card's name and power limit:
          (chip_smoke's psi_case), beside torch.bmm of the rounded weights
          and the probs (ms and device ms, for both)
   k7   - loc_att_fwd_fused and loc_att_bwd_fused (the f32 training
-         attention step) at B=32 and 128, T=176, d=300, vdim=300, ragged
-         lengths (ms by CUDA events over 20 calls, device ms by the
-         profiler)
+         attention step), and loc_att_fwd_bf16 and loc_att_bwd_bf16 on the
+         same inputs rounded to bf16 (amp training), at B=32 and 128,
+         T=176, d=300, vdim=300, ragged lengths (ms by CUDA events over 20
+         calls, device ms by the profiler)
   k8   - beam_step_fused at B=32 (V=31 and V=5120) and B=128 (V=5120), K=8,
          T=176, on beam states made by 40 plain beam steps over random
          logits and CTC log-probs from --seed (ms by CUDA events over 20
@@ -176,14 +177,19 @@ def main():
                r(d, s=0.06), r(B, T, vdim, s=0.3),
                torch.from_numpy(lens).cuda())
         dctx, dalign = r(B, vdim, s=1.0), r(B, T, s=1.0)
-        _, align = tk.loc_att_fwd_fused(*ins, 0.5)
-        fwd = lambda: tk.loc_att_fwd_fused(*ins, 0.5)
-        bwd = lambda: tk.loc_att_bwd_fused(*ins, align, dctx, dalign, 0.5)
-        cs.emit({"turn": "k7", "root": root, "B": B,
-                 "fwd_ms": cs.cuda_ms(fwd, 20),
-                 "fwd_device_ms": cs.device_ms(fwd),
-                 "bwd_ms": cs.cuda_ms(bwd, 20),
-                 "bwd_device_ms": cs.device_ms(bwd)})
+        bins = tuple(t.to(torch.bfloat16) for t in ins[:5]) + ins[5:]
+        rec = {}
+        for tag, x, f_fn, b_fn in (
+                ("", ins, tk.loc_att_fwd_fused, tk.loc_att_bwd_fused),
+                ("bf16_", bins, tk.loc_att_fwd_bf16, tk.loc_att_bwd_bf16)):
+            _, align = f_fn(*x, 0.5)
+            fwd = lambda: f_fn(*x, 0.5)
+            bwd = lambda: b_fn(*x, align, dctx, dalign, 0.5)
+            rec.update({f"{tag}fwd_ms": cs.cuda_ms(fwd, 20),
+                        f"{tag}fwd_device_ms": cs.device_ms(fwd),
+                        f"{tag}bwd_ms": cs.cuda_ms(bwd, 20),
+                        f"{tag}bwd_device_ms": cs.device_ms(bwd)})
+        cs.emit({"turn": "k7", "root": root, "B": B, **rec})
 
     takes_probs = "probs" in inspect.signature(bsk.beam_step_fused).parameters
     for B, V, name in ((32, 31, "k8_31"), (32, 5120, "k8_5120"),
