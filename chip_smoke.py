@@ -69,10 +69,24 @@ Phases, each printing one JSON line:
                 dW_hh within 1e-3 of its max magnitude; bound at the bf16
                 tensor rate (3 passes and the dW_hh GEMM); cuDNN nn.LSTM in
                 bf16 fwd+bwd - fwd as the yardstick
-  k3          - the CTC forward-backward kernel against its plain version
-                at B=128 and the slice's batch, T=176, U=96, V=31, ragged
-                lengths, repeated labels, one infeasible row (NLL rtol 1e-5,
-                gradient atol 1e-5)
+  k3          - the CTC forward-backward kernel (from the log-probs)
+                against its plain version at B=128 and the slice's batch
+                (T=176, U=96), "long" (B=32, T=307, U=200), "very_long"
+                (B=8, T=875, U=600) and "chunked" (B=4, T=1400, U=1100,
+                walked in chunks), V=31, ragged lengths, repeated labels,
+                an infeasible row (NLL rtol 1e-5, gradient atol 1e-5, zero
+                gradient on infeasible rows and past each length, the
+                extended labels equal, every output bit-identical over two
+                calls; the elements that differ from the plain version
+                counted), for the picked design and every other (R states
+                a thread, NW warps a group: the sweep), with the bytes the
+                function must move (bound_ms), the bytes the kernel moves
+                (moved_bound_ms) and the chain floor (frames less one times
+                ctc_floor_kernel's step, k3_floor, which also holds the
+                kernel's written-out expf / logf to the library's over
+                every input they take); then k3_route: the card
+                route's CTCLoss.forward must launch K3 alone (and how many
+                kernels prepare, the old route's lattice gather, launches)
   k4          - K4, the GRU scan (the tensor-core scan of csrc/scan_tc.cuh
                 in f32, as K2), against its plain version at H=512,
                 T=176, both directions, ragged masks, at B=128 and at the
@@ -146,13 +160,15 @@ Phases, each printing one JSON line:
                 V=5120 (a cluster of 16 blocks) at steps 1, 40 and the
                 last, both also without the LM at step 40, at V=999 (4
                 uneven slices) at steps 1 and 40, a batch of 128 at
-                V=5120, step 1, and beams of 16 and 4 at V=31 (16 also at
-                V=5120)
+                V=5120, step 1, V=16384 (16 slices of 1024 columns,
+                config/synthetic/las_sub16k.yaml's width) at steps 1 and
+                40, and beams of 16 and 4 at V=31 (16 also at V=5120)
                 (winners equal on every slot, dead ones included, unless
                 the plain scores are a near tie within 1e-5; scores and
                 psi rtol / atol 1e-5; r rtol / atol 1e-4; max_abs_err over
                 base, psi, finished scores and r); times at step 40 of
-                V=31 and V=5120 and at step 1 of the batch of 128, and the
+                V=31, V=5120 and V=16384 and at step 1 of the batch of
+                128, and the
                 device time of the kernel and of the plain tail per step
   slice       - serving main path: bench.py's model at full width (VGG +
                 3x BiLSTM-512, loc attention 300 / kernel 100, LSTM-512
@@ -1613,8 +1629,9 @@ def phase_k4b(seed, slice_batch, T=176, H=512):
 
 
 def ctc_case(B, seed, T=176, U=96, V=31):
-    """Log-probs (B, T, V) and labels in [3, V) for K3: ragged logit and
-    label lengths, repeated labels, and one infeasible row (the last)."""
+    """Log-probs (B, T, V) and int32 labels in [3, V) and lengths for K3:
+    ragged logit and label lengths, repeated labels, and one infeasible row
+    (the last)."""
     import torch
     rng = np.random.RandomState(seed)
     logits = torch.from_numpy(rng.randn(B, T, V).astype(np.float32) * 2.0)
@@ -1632,50 +1649,201 @@ def ctc_case(B, seed, T=176, U=96, V=31):
         torch.from_numpy(lab_len)
 
 
+# K3's shapes: (label, B, T, U); V=31. "long": an average LibriSpeech
+# utterance (~12 s: T=307 encoder frames after the VGG's 4x, ~200
+# characters); "very_long": ~35 s of speech with 600 characters (S=1201);
+# "chunked": S=2201, wider than one group, so the kernel walks it in chunks
+K3_SHAPES = (("B128", 128, 176, 96), ("slice", None, 176, 96),
+             ("long", 32, 307, 200), ("very_long", 8, 875, 600),
+             ("chunked", 4, 1400, 1100))
+
+
+def k3_bytes(lp, ll, lab, lab_len, Sp, in_smem):
+    """K3's bytes at these inputs: ``need``, what the function must move
+    (each 32-byte sector of log-probs a live state's emission lies in, over
+    the frames the walks read; the live labels, the lengths, the (B, T, S)
+    gradient, the NLL and the extended labels written), and ``moved``,
+    what the kernel moves besides: its gradient rows are Sp wide, the beta
+    history is written to and read back from the gradient buffer, and the
+    alpha history goes to device memory too where it does not fit in shared
+    memory."""
+    import torch
+    B, T, V = lp.shape
+    U = lab.shape[1]
+    S = 2 * U + 1
+    rows = torch.clamp(ll.long(), 1, T)                       # frames walked
+    ext = torch.zeros((B, S), dtype=torch.long, device=lp.device)
+    ext[:, 1::2] = lab.long()
+    live = torch.arange(S, device=lp.device)[None] < (2 * lab_len.long() + 1)[:, None]
+    t = torch.arange(T, device=lp.device)
+    elem = ((torch.arange(B, device=lp.device)[:, None, None] * T
+             + t[None, :, None]) * V + ext[:, None, :])          # (B, T, S)
+    ok = live[:, None, :] & (t[None, :, None] < rows[:, None, None])
+    sectors = int(torch.unique((elem * 4 // 32)[ok]).numel())
+    idx = lab.element_size()
+    need = (32 * sectors + idx * int(lab_len.long().clamp(0, U).sum())
+            + 2 * idx * B + 4 * B * T * S + 4 * B + 8 * B * S)
+    hist = 4 * Sp * int(rows.sum())                 # one history's rows
+    moved = need + 4 * B * T * (Sp - S) + 2 * hist + (0 if in_smem else 2 * hist)
+    return need, moved
+
+
 def phase_k3(seed, slice_batch):
-    """K3 against its plain version at B=128 and the slice's batch, T=176,
-    U=96, V=31; F.ctc_loss forward+backward as the library yardstick."""
+    """K3 against its plain version at B=128 and the slice's batch (T=176,
+    U=96), and at "long" (B=32, T=307, U=200) and "very_long" (B=8, T=875,
+    U=600), V=31, int32 labels and lengths, ragged lengths, repeated labels,
+    one infeasible row (NLL rtol 1e-5, gradient atol 1e-5; exactly zero
+    gradient on the infeasible row and at frames at or past each length;
+    every output bit-identical over two calls), for the picked design and
+    every other one (R states a thread, NW warps a group); CUDA-event and
+    device ms, the plain version's and F.ctc_loss forward + backward's (the
+    library yardstick); the bound (bytes the function must move, or its
+    operations) beside the bytes the kernel moves and the chain floor, the
+    shape's frames less one times one step's latency (shuffles, one lse3,
+    and across warps the exchange and the group's barrier: ctc_floor_kernel).
+    Then the card route's launches: ``CTCLoss.forward`` must launch K3
+    alone, against ``prepare``'s launches on the parent's route."""
     import torch
     import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from end_to_end_asr_pytorch_tpu_torch.ops import ctc
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import ctc_kernel as ck
+    lib = build.load("ctc_loss", ck._SIGNATURES)
+    regs = {}
+    for R in ck.STATES:
+        out = ctypes.c_int(0)
+        build.check(lib.ctc_regs(R, ctypes.byref(out)), "ctc_regs")
+        regs[R] = out.value
+    floor = {nw: ck.chain_floor_ms(20000, nw) for nw in ck.WARPS}
+    mismatches = ck.math_mismatches()
+    emit({"phase": "k3_floor", "us_per_step": {nw: 1e3 * v for nw, v in
+                                               floor.items()},
+          "registers": regs, "exp_log_mismatches": mismatches})
+    check(mismatches == (0, 0), f"K3's written-out expf / logf differ from "
+          f"the library's on {mismatches} inputs")
     records = {}
-    for B in (128, slice_batch):
-        lp, ll, lab, lab_len = (t.cuda() for t in ctc_case(B, seed + 5))
-        emit_, skip, eidx, _ = ck.prepare(lp, lab, lab_len)
-        nll, grad = ck.ctc_loss_fused(emit_, skip, ll, eidx)
-        pnll, pgrad = ck.ctc_loss_plain(emit_, skip, ll, eidx)
+    for label, B, T, U in K3_SHAPES:
+        B = B or slice_batch
+        lp, ll, lab, lab_len = (x.cuda() for x in ctc_case(B, seed + 5, T, U))
+        S = 2 * U + 1
+        Sp = ck.padded(S)
+        nll, grad, ext = ck.ctc_loss_fused(lp, ll, lab, lab_len)
+        pnll, pgrad, pext = ck.ctc_loss_plain(lp, ll, lab, lab_len)
         torch.cuda.synchronize()
-        feas = pnll < 1e29
-        check(int((~feas).sum()) == 1 and bool(nll[-1] > 1e29),
-              "K3 infeasible row not reported as such")
-        check(bool(torch.isfinite(grad).all()) and bool((grad[-1] == 0).all()),
-              "K3 gradient not finite, or non-zero on the infeasible row")
-        nll_rel = float(((nll - pnll).abs() / pnll.abs())[feas].max())
-        g_err = float((grad - pgrad).abs().max())
-        check(nll_rel <= 1e-5, f"K3 NLL max rel err {nll_rel} at B={B}")
-        check(g_err <= 1e-5, f"K3 gradient max abs err {g_err} at B={B}")
+        check(torch.equal(ext, pext), f"K3 extended labels differ at {label}")
+        frame = torch.arange(T, device=lp.device)[None, :, None]
+        past = frame >= ll.long()[:, None, None]
+
+        def checked(n, g, what):
+            feas = pnll < 1e29
+            check(not bool(feas[-1]) and torch.equal(n < 1e29, feas),
+                  f"K3 infeasible rows not reported as such ({what})")
+            check(bool(torch.isfinite(g).all())
+                  and bool((g[~feas] == 0).all()),
+                  f"K3 gradient not finite, or non-zero on an infeasible "
+                  f"row ({what})")
+            check(bool((g.masked_fill(~past, 0) == 0).all()),
+                  f"K3 gradient non-zero at frames past a length ({what})")
+            rel = float(((n - pnll).abs() / pnll.abs())[feas].max())
+            err = float((g - pgrad).abs().max())
+            check(rel <= 1e-5, f"K3 NLL max rel err {rel} ({what})")
+            check(err <= 1e-5, f"K3 gradient max abs err {err} ({what})")
+            return rel, err
+
+        nll_rel, g_err = checked(nll, grad, f"{label}, picked")
+        n2, g2, _ = ck.ctc_loss_fused(lp, ll, lab, lab_len)
+        check(torch.equal(n2, nll) and torch.equal(g2, grad),
+              f"K3 outputs differ between two calls at {label}")
+        exact = {"nll": int((nll != pnll).sum()),
+                 "grad": int((grad != pgrad).sum())}
+        picked = ck.pick(S)
+        sweep = {}
+        for d in ck.designs(S):
+            n, g, _ = ck.ctc_loss_fused(lp, ll, lab, lab_len, design=d)
+            rel, err = checked(n, g, f"{label}, R={d[0]} NW={d[1]}")
+            sweep[f"R{d[0]}_NW{d[1]}"] = {
+                "max_abs_err": err, "nll_max_rel_err": rel,
+                "chunks": ck.chunks(S, *d),
+                "device_ms": device_ms(lambda: ck.ctc_loss_fused(
+                    lp, ll, lab, lab_len, design=d))}
         lpl = lp.transpose(0, 1).contiguous().requires_grad_(True)
 
         def library():
             F.ctc_loss(lpl, lab, ll, lab_len, reduction="sum",
                        zero_infinity=True).backward()
 
-        T, S = emit_.shape[1], emit_.shape[2]
-        cells = int((ll.long() * (2 * lab_len.long() + 1)).sum())
-        nbytes = 4 * (2 * B * T * S + B * S + 4 * B)
-        b_ms, b_by = bound(nbytes, 40 * cells)
-        records[B] = {
+        in_smem = T * Sp * 4 <= ck._smem_limit(lib, picked[0])
+        need, moved = k3_bytes(lp, ll, lab, lab_len, Sp, in_smem)
+        cells = int((ll.long().clamp(0, T) * (2 * lab_len.long() + 1)).sum())
+        b_ms, b_by = bound(need, 40 * cells)
+        fused = lambda: ck.ctc_loss_fused(lp, ll, lab, lab_len)
+        records[label] = {
             "name": "ctc_loss_fused", "route": "cuda",
             "source": "end_to_end_asr_pytorch_tpu_torch/csrc/ctc_loss.cu",
             "replaces": "end_to_end_asr_pytorch_tpu/ops/pallas/ctc_kernel.py:149",
             "max_abs_err": g_err,
-            "ms": cuda_ms(lambda: ck.ctc_loss_fused(emit_, skip, ll, eidx), 20),
-            "plain_ms": cuda_ms(lambda: ck.ctc_loss_plain(emit_, skip, ll, eidx), 3),
+            "ms": cuda_ms(fused, 20), "device_ms": device_ms(fused),
+            "plain_ms": cuda_ms(lambda: ck.ctc_loss_plain(
+                lp, ll, lab, lab_len), 1 if T > 400 else 3),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(library, 20)}
-        emit({"phase": "k3", "B": B, "T": T, "S": S, "V": lp.shape[-1],
-              "nll_max_rel_err": nll_rel, "infeasible_rows": 1, **records[B]})
-    return records[slice_batch]
+        emit({"phase": "k3", "shape": label, "B": B, "T": T, "S": S,
+              "V": lp.shape[-1], "design": {"R": picked[0], "NW": picked[1]},
+              "chunks": ck.chunks(S, *picked), "alpha_in_smem": in_smem,
+              "nll_max_rel_err": nll_rel,
+              "infeasible_rows": int((pnll >= 1e29).sum()),
+              "bit_identical_over_two_calls": True,
+              "differing_from_plain": exact,
+              "moved_bytes": moved, "moved_bound_ms": moved / HBM_BPS * 1e3,
+              "chain_floor_ms": (T - 1) * floor[1],
+              "chain_floor_ms_picked_nw": (T - 1) * floor[picked[1]],
+              "library_device_ms": device_ms(library),
+              "sweep": sweep, **records[label]})
+
+    # the card route: CTCLoss.forward launches K3 and nothing else
+    lp, ll, lab, lab_len = (x.cuda() for x in ctc_case(slice_batch, seed + 5))
+    x = lp.clone().requires_grad_(True)
+
+    def kernels_launched(fn, iters=5):
+        """Device kernels by name over ``iters`` calls of ``fn`` (the
+        profiler's counts; a late trace may add a cycle's events, so the
+        names are what is held, and the launches per call come from the
+        wrappers' counters)."""
+        fn()
+        torch.cuda.synchronize()
+        counts = {}
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA:
+                    counts[e.key[:60]] = counts.get(e.key[:60], 0) + e.count
+            if counts:
+                break
+        return counts
+
+    calls = []
+
+    def forward():
+        calls.append(1)
+        ctc.ctc_loss_k3(x, ll, lab, lab_len)
+
+    before = ck.ctc_loss_fused.launches
+    fwd = kernels_launched(forward)
+    k3_per_call = (ck.ctc_loss_fused.launches - before) / len(calls)
+    prep = kernels_launched(lambda: ck.prepare(lp, lab, lab_len), iters=1)
+    check(len(fwd) > 0 and all("ctc_kernel" in k for k in fwd)
+          and k3_per_call == 1,
+          f"the card route's CTCLoss.forward launched {fwd} "
+          f"({k3_per_call} K3 launches a call), not K3 alone")
+    emit({"phase": "k3_route", "forward_kernels": fwd,
+          "k3_launches_per_forward": k3_per_call,
+          "prepare_launches": sum(prep.values()), "prepare": prep})
+    return records["slice"]
 
 
 def att_case(B, seed, T=176):
@@ -2348,6 +2516,7 @@ def k8_bound(B, K, T, V):
 
 
 V_ODD = 999           # a vocabulary K8's cluster slices unevenly
+V_16K = 16384         # config/synthetic/las_sub16k.yaml, bench_vocab.py's widest
 
 
 def phase_k8(frontend, batch, seed):
@@ -2355,8 +2524,9 @@ def phase_k8(frontend, batch, seed):
     model, LM and config (amp off): at V=31 (one block per utterance)
     recorded at steps 0, 1, 40 and the last, at V=5120 (a cluster of 16
     blocks) at steps 1, 40 and the last, both also without the LM at step
-    40; at V=999 (a cluster of 4 uneven slices) at steps 1 and 40; and a
-    batch of 128 at V=5120, step 1; beams of 16 (two psi passes: V=31 at
+    40; at V=999 (a cluster of 4 uneven slices) at steps 1 and 40; a batch
+    of 128 at V=5120, step 1; V=16384 (a cluster of 16 slices of 1024
+    columns) at steps 1 and 40, timed at step 40; beams of 16 (two psi passes: V=31 at
     steps 1 and 40, V=5120 at step 1) and of 4 (V=31, steps 1 and 40).
     Times per launch (CUDA events over 20 calls) at step 40 of both widths and step 1 of the batch of 128, the
     plain tail's, and the device time of both per step. Returns the kernels
@@ -2369,6 +2539,7 @@ def phase_k8(frontend, batch, seed):
             (V_SUB, batch, 8, (1, 40, "last"), 40),
             (V_ODD, batch, 8, (1, 40), None),
             (V_SUB, 128, 8, (1,), 1),
+            (V_16K, batch, 8, (1, 40), 40),
             (V_CHAR, batch, 16, (1, 40), None),   # two psi passes
             (V_SUB, batch, 16, (1,), None),
             (V_CHAR, batch, 4, (1, 40), None)):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times K1, K2, K2b, K4, K4b, K5, K6, K7 and K8 of one checkout of the
+"""Times K1, K2, K2b, K3, K4, K4b, K5, K6, K7 and K8 of one checkout of the
 PyTorch port on one GPU, so that two commits can be compared on the same
 card in turns.
 
@@ -18,6 +18,13 @@ one JSON line per measurement and last the card's name and power limit:
          cuDNN nn.LSTM's forward (TF32 off)
   k2b  - lstm_bwd_fused (with the dW_hh GEMM) at the same shapes, beside
          cuDNN nn.LSTM fwd+bwd - fwd
+  k3   - ctc_loss_fused (chip_smoke's ctc_case: V=31, ragged lengths, one
+         infeasible row) at B=32 and 128 (T=176, U=96) and "long" (B=32,
+         T=307, U=200): device ms of the kernel alone (kernel_device_ms)
+         and of the whole function from the log-probs (function_device_ms,
+         which for a checkout whose K3 takes the emission lattice adds its
+         prepare), ms by CUDA events over 20 calls of the function, and the
+         kernel's launches per call
   k4   - gru_scan_fused in f32 (serving, and with its training residuals)
          at T=176, H=512, B=32 and 128, reversed, ragged masks, beside
          cuDNN nn.GRU's forward (TF32 off)
@@ -34,15 +41,17 @@ one JSON line per measurement and last the card's name and power limit:
          same inputs rounded to bf16 (amp training), at B=32 and 128,
          T=176, d=300, vdim=300, ragged lengths (ms by CUDA events over 20
          calls, device ms by the profiler)
-  k8   - beam_step_fused at B=32 (V=31 and V=5120) and B=128 (V=5120), K=8,
+  k8   - beam_step_fused at B=32 (V=31, V=5120 and V=16384) and B=128
+         (V=5120), K=8,
          T=176, on beam states made by 40 plain beam steps over random
          logits and CTC log-probs from --seed (ms by CUDA events over 20
          calls, and the least of 9 more such trials: where the host's
          enqueue is slower than the card, as at V=31, the host's noise
          only ever adds; device ms by the profiler), beside the plain tail
 
-``--cases`` keeps only the named ones (k1, k2, k2b, k4, k4b, k5, k6, k7,
-k8_31, k8_5120, k8_5120_b128; default all). It needs CUDA and exits with an error without it.
+``--cases`` keeps only the named ones (k1, k2, k2b, k3, k4, k4b, k5, k6,
+k7, k8_31, k8_5120, k8_5120_b128, k8_16384; default all but k1 and k6).
+It needs CUDA and exits with an error without it.
 """
 import argparse
 import inspect
@@ -57,8 +66,8 @@ def main():
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cases",
-                    default="k2,k2b,k4,k4b,k5,k7,k8_31,k8_5120,"
-                            "k8_5120_b128")
+                    default="k2,k2b,k3,k4,k4b,k5,k7,k8_31,k8_5120,"
+                            "k8_5120_b128,k8_16384")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -71,6 +80,7 @@ def main():
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_kernel as ak
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import att_train_kernel as tk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import beam_step_kernel as bsk
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import ctc_kernel as ck
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import fbank_kernel as fk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
     from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
@@ -79,7 +89,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     root = str(Path(args.root).resolve())
-    for mod in (ak, bsk, fk, gk, lk, pk, tk):
+    for mod in (ak, bsk, ck, fk, gk, lk, pk, tk):
         assert Path(mod.__file__).resolve().is_relative_to(root), mod.__file__
 
     cases = set(args.cases.split(","))
@@ -128,6 +138,24 @@ def main():
                          gates, c, ys, mask, w_hh, dys, True), 10),
                      "cudnn_ms": cs.cuda_ms(
                          lambda: cudnn(xl)[0].backward(dys), 10) - fwd})
+    for label, B, T3, U in ((("B32", 32, 176, 96), ("B128", 128, 176, 96),
+                             ("long", 32, 307, 200)) if "k3" in cases else ()):
+        lp, ll, lab, lab_len = (x.cuda() for x in cs.ctc_case(
+            B, args.seed + 5, T3, U))
+        if "emit" in inspect.signature(ck.ctc_loss_fused).parameters:
+            emit, skip, eidx, _ = ck.prepare(lp, lab, lab_len)
+            kernel = lambda: ck.ctc_loss_fused(emit, skip, ll, eidx)
+            function = lambda: (lambda e, s, i, _: ck.ctc_loss_fused(
+                e, s, ll, i))(*ck.prepare(lp, lab, lab_len))
+        else:
+            kernel = function = lambda: ck.ctc_loss_fused(lp, ll, lab, lab_len)
+        before = ck.ctc_loss_fused.launches
+        kernel()
+        cs.emit({"turn": "k3", "root": root, "shape": label, "B": B, "T": T3,
+                 "S": 2 * U + 1, "launches": ck.ctc_loss_fused.launches - before,
+                 "kernel_device_ms": cs.device_ms(kernel),
+                 "function_device_ms": cs.device_ms(function),
+                 "ms": cs.cuda_ms(function, 20)})
     for B in ((32, 128) if "k4" in cases else ()):
         rng = np.random.RandomState(args.seed + B)
         w_hh, b_hh = cs.gru_weights(rng, H)
@@ -193,7 +221,7 @@ def main():
 
     takes_probs = "probs" in inspect.signature(bsk.beam_step_fused).parameters
     for B, V, name in ((32, 31, "k8_31"), (32, 5120, "k8_5120"),
-                       (128, 5120, "k8_5120_b128")):
+                       (128, 5120, "k8_5120_b128"), (32, 16384, "k8_16384")):
         if name not in cases:
             continue
         g = torch.Generator(device="cuda").manual_seed(args.seed + V)

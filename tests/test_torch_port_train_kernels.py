@@ -171,12 +171,9 @@ def test_cpu_tensors_take_plain_versions():
     ref = lstm_kernel.lstm_scan_bwd_plain(res[2], res[1], res[0], tm, tw, td, True)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    lp, ll, lab, lab_len = _ctc_inputs(3)
-    emit, skip, eidx, _ = ctc_kernel.prepare(torch.from_numpy(lp),
-                                             torch.from_numpy(lab),
-                                             torch.from_numpy(lab_len))
-    a = ctc_kernel.ctc_loss_fused(emit, skip, torch.from_numpy(ll), eidx)
-    b = ctc_kernel.ctc_loss_plain(emit, skip, torch.from_numpy(ll), eidx)
+    ctc_args = [torch.from_numpy(a) for a in _ctc_inputs(3)]
+    a = ctc_kernel.ctc_loss_fused(*ctc_args)
+    b = ctc_kernel.ctc_loss_plain(*ctc_args)
     for u, v in zip(a, b):
         torch.testing.assert_close(u, v, rtol=0, atol=0)
     assert (lstm_kernel.lstm_scan_fused.launches, lstm_kernel.lstm_bwd_fused.launches,
@@ -203,12 +200,9 @@ def test_wrappers_reject_non_f32_inputs():
     with pytest.raises(ValueError, match="float32"):
         lstm_kernel.lstm_bwd_fused(gates.half(), cs.half(), ys.half(), mask,
                                    w_hh, dys.half())
-    lp, ll, lab, lab_len = _ctc_inputs(4)
-    emit, skip, eidx, _ = ctc_kernel.prepare(torch.from_numpy(lp),
-                                             torch.from_numpy(lab),
-                                             torch.from_numpy(lab_len))
+    lp, ll, lab, lab_len = (torch.from_numpy(a) for a in _ctc_inputs(4))
     with pytest.raises(ValueError, match="float32"):
-        ctc_kernel.ctc_loss_fused(bf(emit), skip, torch.from_numpy(ll), eidx)
+        ctc_kernel.ctc_loss_fused(bf(lp), ll, lab, lab_len)
 
 
 class _OnCard(torch.Tensor):
