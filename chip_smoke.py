@@ -170,6 +170,25 @@ Phases, each printing one JSON line:
                 V=31, V=5120 and V=16384 and at step 1 of the batch of
                 128, and the
                 device time of the kernel and of the plain tail per step
+  lm_scan     - K2 (without and with residuals), K2b, K4 (without and
+                with residuals) and K4b at the RNN-LM's shapes, one
+                direction, H=512: B=64 at T=400 and T=592 and a ragged
+                last batch, B=13 at T=112, against their plain versions at
+                the k2 / k2b / k4 / k4b tolerances; CUDA-event and device
+                ms beside the bounds (f32 rate, and the six bf16 passes at
+                the tensor rate) and cuDNN nn.LSTM / nn.GRU
+  lm_train    - LM training main path: the port's LM solver with
+                config/libri/lm_example.yaml's model at full width (2 x
+                LSTM-512, emb 512, dropout 0.2, Adam lr 1e-3) on B=64
+                generated sentences of 96-400 characters, V=31: one step
+                with the kernels against one with the plain versions at
+                dropout 0 (loss rtol 1e-5, every gradient within rtol 1e-4
+                / atol 1e-6), 5 timed steps (ms and tokens per second),
+                one profiled step (host split, device busy and idle,
+                launches, kernel_device_ms; taken again, up to 3 times,
+                when its trace lost kernels); every step must launch K2
+                twice and K2b twice and no other kernel
+  lm_train_gru - the same with module GRU: K4 twice and K4b twice a step
   slice       - serving main path: bench.py's model at full width (VGG +
                 3x BiLSTM-512, loc attention 300 / kernel 100, LSTM-512
                 decoder and LM, beam 8, V=31, CTC 0.3 + LM 0.3, decode.amp
@@ -254,6 +273,17 @@ Phases, each printing one JSON line:
                 short run with --amp and attention.use_pallas_train (2
                 steps through K7's bf16 variant, f32 weights in its
                 latest.pth)
+  flac_entry  - a generated corpus (32 train, dev and test utterances)
+                converted to FLAC by tests/flac_encoder.py (a test
+                helper): every decode equal to its WAV sample for sample,
+                the loader's batches int16, then python -m
+                end_to_end_asr_pytorch_tpu_torch.main (bench.py's model, 2
+                steps) on the FLAC tree
+  lm_entry    - ... .main --lm (lm_example.yaml's LM, 20 steps on the
+                corpus's lm_text.txt): best_ppx.pth and latest.pth with a
+                finite dev perplexity; then ... .main --test on the FLAC
+                tree with test_entry's settings and decode.lm_path on that
+                best_ppx.pth (the LibriSpeech recipe's chain)
 Then a line with the per-kernel measurements ({"kernels": [...]}: K1 and K2
 launches counted on the slice's run, K8 on slice_fused's (and its V=5120
 row on slice_sub5k_f32's), K5 on
@@ -794,9 +824,11 @@ def cudnn_lstm(w_hh):
     return lstm
 
 
-def check_f32_scan(label, fused, tc, plain, fwd_plain, designs):
+def check_f32_scan(label, fused, tc, plain, fwd_plain, designs,
+                   directions=(False, True)):
     """An f32 tensor-core scan (K2 or K4; its W_hh unrounded, so the
-    remainder passes run) against its plain version, both directions,
+    remainder passes run) against its plain version, in ``directions``
+    (reversed or not; default both),
     without residuals (ys) and with them, all atol 1e-4: through the
     wrapper ``fused(reverse, residuals)`` (the picked design) and ``tc(
     reverse, residuals, mode, rows) -> (out, launches)`` for each of
@@ -806,7 +838,7 @@ def check_f32_scan(label, fused, tc, plain, fwd_plain, designs):
     import torch
     err = res_err = 0.0
     launches = {}
-    for reverse in (False, True):
+    for reverse in directions:
         ref, pres = plain(reverse), fwd_plain(reverse)
         for design in (None, *designs):
             for residuals in (False, True):
@@ -827,7 +859,7 @@ def check_f32_scan(label, fused, tc, plain, fwd_plain, designs):
     return err, res_err, launches
 
 
-def check_k2(lk, w_hh, xp, mask, designs):
+def check_k2(lk, w_hh, xp, mask, designs, directions=(False, True)):
     """K2 in f32 against its plain version (``check_f32_scan``): ys, cs and
     gates."""
     return check_f32_scan(
@@ -835,7 +867,8 @@ def check_k2(lk, w_hh, xp, mask, designs):
                                                   residuals=res),
         lambda rev, res, m, r: lk.lstm_fwd_tc(xp, w_hh, mask, rev, res, m, r),
         lambda rev: lk.lstm_scan_plain(xp, w_hh, mask, rev),
-        lambda rev: lk.lstm_scan_fwd_plain(xp, w_hh, mask, rev), designs)
+        lambda rev: lk.lstm_scan_fwd_plain(xp, w_hh, mask, rev), designs,
+        directions)
 
 
 def k2_bytes(B, T, H, residuals):
@@ -1046,9 +1079,10 @@ def k2b_bound(B, T, H):
             tensor_bound(nbytes, prod, prod + T * 20 * B * H))
 
 
-def check_k2b(lk, w_hh, xp, dys, mask, designs):
+def check_k2b(lk, w_hh, xp, dys, mask, designs, directions=(False, True)):
     """K2's residuals against the plain forward, and K2b against the plain
-    backward and against autograd through the plain scan, both directions:
+    backward and against autograd through the plain scan, in ``directions``
+    (default both):
     residuals and dxp atol 1e-4, dW_hh within 1e-3 of its max magnitude;
     for the picked design and each of ``designs`` ((mode, rows) forced,
     launches not counted). Returns the worst errors and each design's
@@ -1058,7 +1092,7 @@ def check_k2b(lk, w_hh, xp, dys, mask, designs):
             "ag_dw": 0.0}
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
     launches = {}
-    for reverse in (False, True):
+    for reverse in directions:
         ys, cs, gates = lk.lstm_scan_fused(xp, w_hh, mask, reverse,
                                            residuals=True)
         ref = pys, pcs, pgates = lk.lstm_scan_fwd_plain(xp, w_hh, mask,
@@ -1257,7 +1291,7 @@ def gru_weights(rng, H):
     return t(H, 3 * H), t(3 * H)
 
 
-def check_k4(gk, w_hh, b_hh, xp, mask, designs):
+def check_k4(gk, w_hh, b_hh, xp, mask, designs, directions=(False, True)):
     """K4 in f32 against its plain version (``check_f32_scan``): ys, gates
     and hp_n."""
     return check_f32_scan(
@@ -1266,7 +1300,8 @@ def check_k4(gk, w_hh, b_hh, xp, mask, designs):
         lambda rev, res, m, r: gk.gru_fwd_tc(xp, w_hh, b_hh, mask, rev, res,
                                              m, r),
         lambda rev: gk.gru_scan_plain(xp, w_hh, b_hh, mask, rev),
-        lambda rev: gk.gru_scan_fwd_plain(xp, w_hh, b_hh, mask, rev), designs)
+        lambda rev: gk.gru_scan_fwd_plain(xp, w_hh, b_hh, mask, rev), designs,
+        directions)
 
 
 def k4_bytes(B, T, H, residuals):
@@ -1439,9 +1474,10 @@ def k4b_bound(B, T, H):
             tensor_bound(nbytes, prod, prod + T * 20 * B * H))
 
 
-def check_k4b(gk, w_hh, b_hh, xp, dys, mask, designs):
+def check_k4b(gk, w_hh, b_hh, xp, dys, mask, designs,
+              directions=(False, True)):
     """K4b against the plain backward and against autograd through the
-    plain scan, both directions: dxp atol 1e-4, dW_hh and db_hh within 1e-3
+    plain scan, in ``directions`` (default both): dxp atol 1e-4, dW_hh and db_hh within 1e-3
     of their max magnitude; for the picked design and each of ``designs``
     ((mode, rows) forced, launches not counted). Returns the worst errors
     and each design's launches."""
@@ -1450,7 +1486,7 @@ def check_k4b(gk, w_hh, b_hh, xp, dys, mask, designs):
             "ag_db": 0.0}
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
     launches = {}
-    for reverse in (False, True):
+    for reverse in directions:
         ys, gates, hp_n = gk.gru_scan_fused(xp, w_hh, b_hh, mask, reverse,
                                             residuals=True)
         pys, pg, ph = gk.gru_scan_fwd_plain(xp, w_hh, b_hh, mask, reverse)
@@ -3013,34 +3049,40 @@ TRAIN_RANGES = ("train.frontend", "asr.encode", "asr.ctc_head",
                 "train.optimizer")
 
 
-def train_breakdown(solver, data, name):
+def train_breakdown(solver, data, name, ranges=TRAIN_RANGES, **fields):
     """One profiled kernel-path step: the host-clock span of each profiler
-    range of ``Solver.train_step`` / ``ASR.forward`` (the step enqueues
-    work without synchronising, so a span is host time), the device busy /
-    idle share, device launches and the largest device ops."""
+    range of ``Solver.train_step`` (``ranges``: the ASR step's and
+    ``ASR.forward``'s, or the LM step's; the step enqueues work without
+    synchronising, so a span is host time), the device busy / idle share,
+    device launches and the largest device ops. Returns the step's
+    ``kernel_device_ms``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # idle margins around the step: a device-bound step's first
+        # kernels went missing from traces taken late in a whole run
         torch.cuda.synchronize()
+        time.sleep(0.1)
         t0 = time.perf_counter()
         solver.train_step(*data)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.1)
     dev = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0.0))
     avgs = prof.key_averages()
     host = {e.key: e.cpu_time_total / 1e3 for e in avgs
-            if e.key in TRAIN_RANGES and e.device_type == DeviceType.CPU}
-    check(set(host) == set(TRAIN_RANGES),
-          f"profiled step lacks ranges {set(TRAIN_RANGES) - set(host)}")
+            if e.key in ranges and e.device_type == DeviceType.CPU}
+    check(set(host) == set(ranges),
+          f"profiled step lacks ranges {set(ranges) - set(host)}")
     # device-side events only (kernels, copies): an operator's own row
     # repeats the time of the kernels it launched, and a range's device
     # annotation spans the kernels inside it
     evts = [e for e in avgs
             if e.device_type == DeviceType.CUDA and dev(e) > 0
-            and e.key not in TRAIN_RANGES
+            and e.key not in ranges
             and not getattr(e, "is_user_annotation", False)]
     check(len(evts) > 0, "the profiler recorded no device time")
     busy_ms = sum(dev(e) for e in evts) / 1e3
@@ -3048,14 +3090,15 @@ def train_breakdown(solver, data, name):
     for e in evts:
         top[e.key[:90]] = top.get(e.key[:90], 0.0) + dev(e) / 1e3
     top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:10])
-    emit({"phase": f"{name}_breakdown",
-          "host_ms": {k: host[k] for k in TRAIN_RANGES},
+    kdm = kernel_device_ms(evts, dev)
+    emit({"phase": f"{name}_breakdown", **fields,
+          "host_ms": {k: host[k] for k in ranges},
           "host_ranges_sum_ms": sum(host.values()),
           "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / prof_ms,
           "device_kernel_launches": sum(e.count for e in evts),
-          "top_device_ms": top,
-          "kernel_device_ms": kernel_device_ms(evts, dev)})
+          "top_device_ms": top, "kernel_device_ms": kdm})
+    return kdm
 
 
 def train_compare(solver, data, tf_rate, cuda_kernels):
@@ -3313,6 +3356,434 @@ def phase_train_entry(seed):
               "rows": len(rows)})
 
 
+# the RNN-LM's scan shapes: config/libri/lm_example.yaml's batch of 64 at two
+# padded text lengths, and a ragged last batch of an epoch
+LM_SCAN_SHAPES = ((64, 400), (64, 592), (13, 112))
+# config/libri/lm_example.yaml's model and optimizer at full width
+LM_TRAIN_CFG = {"module": "LSTM", "dim": 512, "emb_dim": 512, "layer": 2,
+                "dropout": 0.2, "emb_tying": False}
+LM_HPARAS = {"optimizer": "Adam", "lr": 1e-3, "eps": 1e-8,
+             "lr_scheduler": "fixed", "GRAD_CLIP": 5.0}
+LM_B = 64
+
+
+def lm_scan_rows(name, run, plain, nbytes, prod, f32_ops, library, launches,
+                 design, err):
+    """One lm_scan line's timing fields: CUDA-event and device ms of the
+    wrapper ``run``, its plain version's ms, the bound at the f32 rate and
+    with the recurrent product as six bf16 passes at the tensor rate
+    (``prod``: operations of one f32 product; ``f32_ops``: the rest), and
+    cuDNN's ms (``library``)."""
+    b_ms, b_by = bound(nbytes, prod + f32_ops)
+    bt_ms, bt_by = tensor_bound(nbytes, prod, f32_ops)
+    return {"kernel": name, "design": design, "launches": launches,
+            "max_abs_err": err, "ms": cuda_ms(run, 10),
+            "device_ms": device_ms(run, 10),
+            "plain_ms": cuda_ms(plain, 2, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_tensor": bt_ms,
+            "bound_by_tensor": bt_by, "library_ms": library}
+
+
+def phase_lm_scan(seed, H=512):
+    """K2 (without and with residuals), K2b, K4 (without and with
+    residuals) and K4b at the RNN-LM's shapes (LM_SCAN_SHAPES: one
+    direction, H=512, ragged masks) against their plain versions at the
+    k2 / k2b / k4 / k4b phases' tolerances, each timed beside its bounds and
+    cuDNN nn.LSTM / nn.GRU (the forward under no_grad; the backward as
+    fwd+bwd - fwd)."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build, scan_tc
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import gru_kernel as gk
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import lstm_kernel as lk
+    rng = np.random.RandomState(seed + 20)
+    w_l = lstm_weights(rng, H)
+    w_g, b_g = gru_weights(rng, H)
+    cud_l, cud_g = cudnn_lstm(w_l), cudnn_gru(w_g, b_g)
+    ll = build.load("lstm_scan", lk._SIGNATURES)
+    gl = build.load("gru_scan", gk._SIGNATURES)
+    fwd = (False,)
+
+    def design(query, n_gates, B, bwd=False):
+        kw = dict(planner=scan_tc.plan_bwd, grid_first=True) if bwd else {}
+        return (design_name(scan_tc.pick(query, H, n_gates, B, **kw)),
+                scan_tc.launches(query, H, n_gates, B, **kw))
+
+    def library(cudnn, x, dys):
+        xl = x.clone().requires_grad_(True)
+        with torch.no_grad():
+            f_ms = cuda_ms(lambda: cudnn(x)[0], 10)
+        fg_ms = cuda_ms(lambda: cudnn(xl)[0], 10)
+        return f_ms, cuda_ms(lambda: cudnn(xl)[0].backward(dys), 10) - fg_ms
+
+    rows = []
+    for B, T in LM_SCAN_SHAPES:
+        shape = {"phase": "lm_scan", "B": B, "T": T, "H": H}
+        # LSTM: K2, K2 with residuals, K2b
+        xp, dys, mask = scan_case(rng, B, T, H, 4)
+        err, res_err, _ = check_k2(lk, w_l, xp, mask, [], fwd)
+        errs, _ = check_k2b(lk, w_l, xp, dys, mask, [], fwd)
+        check(err <= 1e-4 and res_err <= 1e-4 and k2b_ok(errs),
+              f"lm_scan K2 / K2b errors {err}, {res_err}, {errs} at B={B}, "
+              f"T={T}")
+        ys, cs, gates = lk.lstm_scan_fused(xp, w_l, mask, residuals=True)
+        lib_f, lib_b = library(cud_l, xp, dys)
+        prod = T * 2 * B * H * 4 * H
+        d, n = design(ll.lstm_tc_f32_max_groups, 4, B)
+        rows.append({**shape, **lm_scan_rows(
+            "lstm_scan_fused", lambda: lk.lstm_scan_fused(xp, w_l, mask),
+            lambda: lk.lstm_scan_plain(xp, w_l, mask),
+            k2_bytes(B, T, H, False), prod, T * 30 * B * H, lib_f, n, d,
+            err)})
+        rows.append({**shape, **lm_scan_rows(
+            "lstm_scan_fused+residuals",
+            lambda: lk.lstm_scan_fused(xp, w_l, mask, residuals=True),
+            lambda: lk.lstm_scan_fwd_plain(xp, w_l, mask),
+            k2_bytes(B, T, H, True), prod, T * 30 * B * H, lib_f, n, d,
+            res_err)})
+        (b_ms, _), _ = k2b_bound(B, T, H)
+        d, n = design(ll.lstm_tc_bwd_max_groups, 4, B, bwd=True)
+        rows.append({**shape, **lm_scan_rows(
+            "lstm_bwd_fused",
+            lambda: lk.lstm_bwd_fused(gates, cs, ys, mask, w_l, dys),
+            lambda: lk.lstm_scan_bwd_plain(gates, cs, ys, mask, w_l, dys),
+            4 * (T * B * 11 * H + T * B + 2 * H * 4 * H), prod,
+            prod + T * 20 * B * H, lib_b, n, d, errs["dxp"]),
+            "dw_err_over_max": errs["dw"]})
+        # GRU: K4, K4 with residuals, K4b
+        xp, dys, mask = scan_case(rng, B, T, H, 3)
+        err, res_err, _ = check_k4(gk, w_g, b_g, xp, mask, [], fwd)
+        errs, _ = check_k4b(gk, w_g, b_g, xp, dys, mask, [], fwd)
+        check(err <= 1e-4 and res_err <= 1e-4 and errs["dxp"] <= 1e-4
+              and errs["ag_dxp"] <= 1e-4
+              and max(errs["dw"], errs["db"], errs["ag_dw"],
+                      errs["ag_db"]) <= 1e-3,
+              f"lm_scan K4 / K4b errors {err}, {res_err}, {errs} at B={B}, "
+              f"T={T}")
+        ys, gates, hp_n = gk.gru_scan_fused(xp, w_g, b_g, mask,
+                                            residuals=True)
+        lib_f, lib_b = library(cud_g, xp, dys)
+        prod = T * 2 * B * H * 3 * H
+        d, n = design(gl.gru_tc_f32_max_groups, 3, B)
+        rows.append({**shape, **lm_scan_rows(
+            "gru_scan_fused", lambda: gk.gru_scan_fused(xp, w_g, b_g, mask),
+            lambda: gk.gru_scan_plain(xp, w_g, b_g, mask),
+            k4_bytes(B, T, H, False), prod, T * 30 * B * H, lib_f, n, d,
+            err)})
+        rows.append({**shape, **lm_scan_rows(
+            "gru_scan_fused+residuals",
+            lambda: gk.gru_scan_fused(xp, w_g, b_g, mask, residuals=True),
+            lambda: gk.gru_scan_fwd_plain(xp, w_g, b_g, mask),
+            k4_bytes(B, T, H, True), prod, T * 30 * B * H, lib_f, n, d,
+            res_err)})
+        d, n = design(gl.gru_tc_bwd_max_groups, 3, B, bwd=True)
+        rows.append({**shape, **lm_scan_rows(
+            "gru_bwd_fused",
+            lambda: gk.gru_bwd_fused(gates, hp_n, ys, mask, w_g, dys),
+            lambda: gk.gru_scan_bwd_plain(gates, hp_n, ys, mask, w_g, dys),
+            4 * (T * B * 9 * H + T * B + 2 * H * 3 * H + 3 * H), prod,
+            prod + T * 20 * B * H, lib_b, n, d, errs["dxp"]),
+            "dw_err_over_max": errs["dw"], "db_err_over_max": errs["db"]})
+        for r in rows[-6:]:
+            emit(r)
+    return rows
+
+
+def lm_batch(seed, device, B=LM_B, lo=96, hi=400, V=V_CHAR):
+    """B sentences of lo..hi characters (the longest hi) in [3, V), each
+    ending in <eos>, padded to a multiple of 16."""
+    import torch
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(lo, hi + 1, size=B)
+    lens[0] = hi
+    U = -(-hi // 16) * 16
+    text = rng.randint(3, V, size=(B, U))
+    text[np.arange(U)[None, :] >= lens[:, None]] = 0
+    text[np.arange(B), lens - 1] = 1
+    return (torch.from_numpy(text).to(device),
+            torch.from_numpy(lens.astype(np.int64)).to(device))
+
+
+def make_lm_solver(device, seed, workdir, module):
+    """The port's LM training solver with lm_example.yaml's model at full
+    width (``module`` LSTM or GRU; random weights from ``seed``) and Adam,
+    set up as ``main --lm`` sets it up but without a corpus."""
+    from types import SimpleNamespace
+    from end_to_end_asr_pytorch_tpu_torch.solvers.train_lm import Solver
+    cfg = {"data": {"corpus": {"name": "none"},
+                    "text": {"mode": "character"}},
+           "model": {**LM_TRAIN_CFG, "module": module},
+           "hparas": dict(LM_HPARAS)}
+    paras = SimpleNamespace(config="smoke_lm.yaml", name=None, seed=seed,
+                            logdir=str(workdir / "log"),
+                            ckpdir=str(workdir / "ckpt"), load=None,
+                            njobs=0, no_msg=True, cpu=device.type == "cpu",
+                            amp=False)
+    solver = Solver(cfg, paras)
+    solver.vocab_size = V_CHAR
+    solver.set_model()
+    return solver
+
+
+def lm_compare(solver, data, cuda_kernels):
+    """One step's loss and gradients at dropout 0 with the kernels and with
+    their plain versions, from the same weights (no update)."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.solvers.train_lm import lm_nll
+    rate, out = solver.lm.dropout, []
+    solver.lm.dropout = 0.0
+    try:
+        for use in (True, False):
+            cuda_kernels.USE_KERNELS = use
+            for p in solver.params.values():
+                p.grad = None
+            total, count = lm_nll(solver.lm, *data, train=True,
+                                  generator=solver.gen)
+            loss = total / torch.clamp(count, min=1.0)
+            loss.backward()
+            out.append((float(loss.detach()),
+                        {k: p.grad.detach().clone()
+                         for k, p in solver.params.items()}))
+    finally:
+        cuda_kernels.USE_KERNELS = True
+        solver.lm.dropout = rate
+    (lk, gk), (lp, gp) = out
+    # the worst element against rtol 1e-4 / atol 1e-6: |a - b| / (atol +
+    # rtol |b|), at most 1 where allclose holds
+    excess = {k: float(((gk[k] - gp[k]).abs()
+                        / (1e-6 + 1e-4 * gp[k].abs())).max()) for k in gk}
+    worst = max(excess, key=excess.get)
+    bad = [k for k, g in gk.items()
+           if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    check(not bad, f"LM kernel-path gradients not finite or all zero: {bad}")
+    return {"loss_kernel": lk, "loss_plain": lp,
+            "loss_rel_diff": abs(lk - lp) / abs(lp), "worst_grad": worst,
+            "worst_grad_allclose_ratio": excess[worst],
+            "grads_err_over_max": {k: float((gk[k] - gp[k]).abs().max()
+                                            / gp[k].abs().max()) for k in gk}}
+
+
+LM_RANGES = ("lm.forward", "lm.backward", "lm.optimizer")
+
+
+def phase_lm_train(seed, device, name="lm_train", module="LSTM", n_steps=5):
+    """LM training steps of lm_example.yaml's model at full width (2 layers
+    of 512, emb 512, dropout 0.2, Adam lr 1e-3) on B=64 generated sentences
+    of 96-400 characters, V=31: one step with the kernels against one with
+    the plain versions at dropout 0 (loss rtol 1e-5, every gradient within
+    rtol 1e-4 / atol 1e-6), then ``n_steps`` timed steps, then one
+    profiled step; each step must launch the forward scan (K2, or K4 for
+    ``module`` GRU) twice and its backward (K2b / K4b) twice, and no other
+    kernel of this repository."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        solver = make_lm_solver(device, seed, Path(d), module)
+    data = lm_batch(seed + 30, device)
+    c = lm_compare(solver, data, cuda_kernels)
+    emit({"phase": f"{name}_compare", **c})
+    check(c["loss_rel_diff"] <= 1e-5,
+          f"{name} loss kernel vs plain rel diff {c['loss_rel_diff']}")
+    check(c["worst_grad_allclose_ratio"] <= 1.0,
+          f"{name} gradient {c['worst_grad']} kernel vs plain beyond rtol "
+          f"1e-4 / atol 1e-6: {c['worst_grad_allclose_ratio']}")
+    scan = module.lower()
+    per_step = {k: 0 for k in launch_counters()}
+    per_step.update({f"{scan}_scan_fused": 2, f"{scan}_bwd_fused": 2})
+    solver.train_step(*data)                       # warm-up
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    steps = []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        m = solver.train_step(*data)
+        steps.append({k: fn.launches for k, fn in counters.items()})
+        for fn in counters.values():
+            fn.launches = 0
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_steps
+    check(all(st == per_step for st in steps),
+          f"every {name} step must launch {per_step}, got {steps}")
+    loss = float(m["loss"])
+    check(math.isfinite(loss), f"{name} loss {loss}")
+    tokens = int(data[1].sum())
+    emit({"phase": name, "module": module, "batch": LM_B,
+          "U": data[0].shape[1], "tokens_per_step": tokens, "steps": n_steps,
+          "ms_per_step": dt * 1e3, "tokens_per_s": tokens / dt,
+          "launches_per_step": {k: v for k, v in per_step.items() if v},
+          "loss_last_step": loss, "grad_norm": float(m["grad_norm"])})
+    # a trace that lost events (seen late in a whole run) is taken again
+    want = {"tc_scan_kernel": 2, "tc_bwd_kernel": 2}
+    for attempt in range(3):
+        kdm = train_breakdown(solver, data, name, LM_RANGES, attempt=attempt)
+        check({k: fn.launches for k, fn in counters.items()} == per_step,
+              f"{name} profiled step's wrapper counts")
+        for fn in counters.values():
+            fn.launches = 0
+        got = {k: v["launches"] for k, v in kdm.items()}
+        if got == want:
+            break
+    check(got == want, f"{name} profiled step launched {got}, want {want}")
+    return per_step
+
+
+def convert_to_flac(root):
+    """Every WAV under ``root`` rewritten as a PCM16 FLAC (tests/
+    flac_encoder.py, a test helper, loaded by its path: another ``tests``
+    package may be installed) and deleted; returns {flac path: the WAV's
+    samples}."""
+    import importlib.util
+    from end_to_end_asr_pytorch_tpu_torch.data.audio_io import read_wav
+    spec = importlib.util.spec_from_file_location(
+        "flac_encoder", ROOT / "tests" / "flac_encoder.py")
+    encoder = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(encoder)
+    encode_flac = encoder.encode_flac
+    waves = {}
+    for wav in sorted(Path(root).rglob("*.wav")):
+        w, sr = read_wav(str(wav))
+        pcm = np.clip(np.round(w * 32768.0), -32768, 32767).astype(np.int16)
+        flac = wav.with_suffix(".flac")
+        flac.write_bytes(encode_flac(pcm, sr=sr))
+        wav.unlink()
+        waves[flac] = w
+    return waves
+
+
+def run_main(args, what, timeout=600):
+    """``python -m end_to_end_asr_pytorch_tpu_torch.main`` with ``args``
+    from the repository root -> (stdout, seconds); a non-zero exit fails."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "end_to_end_asr_pytorch_tpu_torch.main",
+         *args], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=timeout)
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def phase_recipe_entry(seed, phases, n_utts=32):
+    """The LibriSpeech recipe's chain on a generated corpus in FLAC
+    (n_utts train, dev and test utterances and 1,280 text-only sentences;
+    the character vocabulary of the slices, V=31). flac_entry: every FLAC
+    the port decodes equals its WAV sample for sample, the test split's
+    loader batches are int16, and ``main`` trains bench.py's model for 2
+    steps on the FLAC tree. lm_entry: ``main --lm`` trains
+    lm_example.yaml's LM (2 x LSTM-512) for 20 steps on lm_text.txt,
+    writing best_ppx.pth and latest.pth with a finite dev perplexity; then
+    ``main --test`` on the FLAC tree with test_entry's settings (beam 8,
+    CTC 0.3, LM 0.3 through decode.lm_path on that best_ppx.pth, amp off,
+    K8's step tail) and the ASR checkpoint of flac_entry (or the slice's
+    random model where flac_entry is not run)."""
+    import re
+    import torch
+    import yaml
+    from end_to_end_asr_pytorch_tpu_torch.data.dataset import load_dataset
+    from end_to_end_asr_pytorch_tpu_torch.data.flac import read_flac
+    from end_to_end_asr_pytorch_tpu_torch.data.synthetic import generate_corpus
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = Path(d)
+        corpus = generate_corpus(str(d / "synth"), n_train=n_utts,
+                                 n_dev=n_utts, n_test=n_utts, seed=seed,
+                                 text_only=20 * LM_B)
+        (d / "vocab.txt").write_text("\n".join(CHARS) + "\n")
+        t0 = time.perf_counter()
+        waves = convert_to_flac(corpus)
+        convert_s = time.perf_counter() - t0
+        text = {"mode": "character", "vocab_file": str(d / "vocab.txt")}
+        data = {"corpus": {"name": "librispeech", "path": str(corpus),
+                           "train_split": ["train-clean"],
+                           "dev_split": ["dev-clean"],
+                           "test_split": ["test-clean"],
+                           "batch_size": n_utts},
+                "audio": AUDIO_CFG, "text": text}
+        common = ["--seed", str(seed), "--logdir", str(d / "log"),
+                  "--ckpdir", str(d / "ckpt"), "--outdir", str(d / "out")]
+        asr_ckpt = d / "ckpt" / f"las_sd{seed}" / "latest.pth"
+        if "flac_entry" in phases:
+            mismatched = [str(p) for p, w in waves.items()
+                          if not np.array_equal(read_flac(str(p))[0], w)]
+            check(not mismatched, f"FLAC decodes differ from their WAVs: "
+                  f"{mismatched[:3]}")
+            dv, tt = load_dataset(0, False, mode="test", **data)[:2]
+            dtypes = {str(b["wave"].dtype) for s in (dv, tt) for b in s}
+            check(dtypes == {"int16"}, f"FLAC batches are {dtypes}")
+            cfg = {"data": {**data, "corpus": {**data["corpus"],
+                                               "batch_size": 16}},
+                   "model": MODEL_CFG,
+                   "hparas": {**TRAIN_HPARAS, "max_step": 2, "valid_step": 2,
+                              "PROGRESS_STEP": 1, "curriculum": 0}}
+            (d / "las.yaml").write_text(yaml.safe_dump(cfg))
+            out, train_s = run_main(["--config", str(d / "las.yaml"),
+                                     *common], "main on FLAC")
+            ck = torch.load(str(asr_ckpt), weights_only=True)
+            check(ck["global_step"] == 2, f"main on FLAC: {ck['global_step']}")
+            emit({"phase": "flac_entry", "utterances": len(waves),
+                  "samples": int(sum(len(w) for w in waves.values())),
+                  "flac_bytes": int(sum(p.stat().st_size for p in waves)),
+                  "convert_seconds": convert_s, "batch_dtypes": sorted(dtypes),
+                  "train_seconds": train_s,
+                  "train_stdout_tail": out.strip().splitlines()[-2:]})
+        if "lm_entry" not in phases:
+            return
+        lm_cfg = {"data": {"corpus": {"name": "librispeech",
+                                      "path": str(corpus),
+                                      "train_split": ["lm_text.txt"],
+                                      "dev_split": ["dev-clean"],
+                                      "batch_size": LM_B}, "text": text},
+                  "model": LM_TRAIN_CFG,
+                  "hparas": {**LM_HPARAS, "max_step": 20, "valid_step": 10,
+                             "PROGRESS_STEP": 5}}
+        (d / "lm.yaml").write_text(yaml.safe_dump(lm_cfg))
+        out, lm_s = run_main(["--config", str(d / "lm.yaml"), "--lm",
+                              *common], "main --lm")
+        lm_dir = d / "ckpt" / f"lm_sd{seed}"
+        cks = {n: torch.load(str(lm_dir / f"{n}.pth"), weights_only=True)
+               for n in ("best_ppx", "latest")}
+        steps_ppx = [(c["global_step"], c["ppx"]) for c in cks.values()]
+        check(cks["latest"]["global_step"] == 20
+              and all(math.isfinite(p) for _, p in steps_ppx),
+              f"main --lm checkpoints (step, ppx): {steps_ppx}")
+        lm_log = [json.loads(ln) for ln in (d / "log" / f"lm_sd{seed}" /
+                                            "log.jsonl").read_text()
+                  .splitlines()]
+        if not asr_ckpt.exists():
+            from end_to_end_asr_pytorch_tpu_torch.ops.audio import (
+                create_transform)
+            from end_to_end_asr_pytorch_tpu_torch.utils.torch_ckpt import (
+                save_checkpoint)
+            frontend, _ = create_transform(AUDIO_CFG, device="cuda")
+            save_checkpoint(asr_ckpt, slice_models(frontend, seed)[0])
+        decode = {**DECODE_CFG, "lm_config": str(d / "lm.yaml"),
+                  "lm_path": str(lm_dir / "best_ppx.pth")}
+        (d / "test.yaml").write_text(yaml.safe_dump(
+            {"data": data, "model": MODEL_CFG, "hparas": {},
+             "decode": decode}))
+        out, test_s = run_main(["--config", str(d / "test.yaml"), "--test",
+                                "--load", str(asr_ckpt), *common],
+                               "main --test with the trained LM")
+        summary = [ln for ln in out.splitlines()
+                   if re.match(r"\[INFO\] (dev|test): ", ln)]
+        k8 = [int(m) for ln in summary
+              for m in re.findall(r"K8 launches (\d+)", ln)]
+        check(len(summary) == 2 and len(k8) == 2 and all(n > 0 for n in k8)
+              and all("| beam fused " in ln for ln in summary)
+              and "Loaded LM ckpt for shallow fusion (weight 0.3)" in out,
+              f"main --test with the trained LM: {out[-2000:]}")
+        for split in ("dev", "test"):
+            rows = (d / "out" / f"test_sd{seed}" / f"{split}_output.csv"
+                    ).read_text().strip().split("\n")[1:]
+            check(len(rows) == n_utts, f"{split}: {len(rows)} rows")
+        emit({"phase": "lm_entry", "lm_seconds": lm_s, "test_seconds": test_s,
+              "dev_ppx": {n: c["ppx"] for n, c in cks.items()},
+              "train_ppx_logged": [e["value"]["tr"] for e in lm_log
+                                   if "tr" in e["value"]],
+              "k8_launches": k8, "summary": summary})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -3325,7 +3796,9 @@ def main():
                             "entry,slice_amp,slice_sub5k,entry_sub5k,"
                             "slice_gru,entry_gru,slice_gru_amp,test_entry,"
                             "train,train_att,train_gru,train_amp,"
-                            "train_gru_amp,train_att_amp,train_entry",
+                            "train_gru_amp,train_att_amp,train_entry,"
+                            "lm_scan,lm_train,lm_train_gru,flac_entry,"
+                            "lm_entry",
                     help="comma list of phases after build (default: all "
                          "but scan_floor and mma_floor)")
     args = ap.parse_args()
@@ -3393,6 +3866,13 @@ def main():
         (kernels["beam_step_fused"],
          kernels["beam_step_fused_v5120"]) = phase_k8(frontend, args.batch,
                                                       args.seed)
+
+    if "lm_scan" in phases:
+        phase_lm_scan(args.seed)
+    if "lm_train" in phases:
+        phase_lm_train(args.seed, device)
+    if "lm_train_gru" in phases:
+        phase_lm_train(args.seed, device, "lm_train_gru", "GRU")
 
     def record(launches, names):
         for name in names:
@@ -3502,6 +3982,8 @@ def main():
         record(launches, ("loc_att_fwd_bf16", "loc_att_bwd_bf16"))
     if "train_entry" in phases:
         phase_train_entry(args.seed)
+    if "flac_entry" in phases or "lm_entry" in phases:
+        phase_recipe_entry(args.seed, phases)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -1,10 +1,13 @@
-"""Waveform file readers: WAV (numpy parser) and NPY. FLAC is not ported yet."""
+"""Waveform file readers: WAV (numpy parser), NPY and FLAC (the host C++
+decoder, ``data/flac.py``)."""
 from __future__ import annotations
 
 import struct
 from pathlib import Path
 
 import numpy as np
+
+from .flac import read_flac
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
@@ -76,5 +79,5 @@ def load_audio(path: str) -> tuple[np.ndarray, int]:
     if suffix == ".npy":
         return np.load(path).astype(np.float32), 16000
     if suffix == ".flac":
-        raise NotImplementedError("FLAC decoding is not ported yet")
+        return read_flac(path)
     raise ValueError(f"unsupported audio format: {path}")

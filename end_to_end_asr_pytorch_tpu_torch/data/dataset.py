@@ -1,9 +1,12 @@
 """Dataset loading and fixed-shape batching (the port's copy of the JAX
-package's ``data/dataset.py``, ASR side).
+package's ``data/dataset.py``).
 
 ``load_dataset(...) -> (tr_set, dv_set, feat_dim, vocab_size, tokenizer,
-msg)``. Batches carry raw waveforms, padded so that the frame count is a
-multiple of ``frame_quantum`` (64 frames) and the label length a multiple of
+msg)`` for ASR; ``load_textset(...) -> (tr_set, dv_set, vocab_size,
+tokenizer, msg)`` for LM training (``TextBatchLoader``: text only,
+length-sorted batches in a shuffled order). Audio batches carry raw
+waveforms, padded so that the frame count is a multiple of
+``frame_quantum`` (64 frames) and the label length a multiple of
 ``text_quantum`` (16 tokens): few distinct shapes. PCM16-exact waveforms
 travel as int16 (the front end dequantizes them bit-exactly). Bucketing sorts
 by length, chunks into batches and shuffles the batch order per epoch;
@@ -14,6 +17,7 @@ from __future__ import annotations
 import itertools
 import threading
 from collections import OrderedDict, deque
+from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -225,3 +229,97 @@ def load_dataset(n_jobs: int, ascending: bool, corpus: Dict[str, Any],
         f"{a_name} {len(tr_ds)} utts / {b_name} {len(dv_ds)} utts | batch {bs}",
     ]
     return tr_set, dv_set, feat_dim, tokenizer.vocab_size, tokenizer, msg
+
+
+class TextBatchLoader:
+    """LM batches ``{"text", "text_len"}``: the dataset sorted by token
+    count (stably), cut into batches, the text padded to a multiple of
+    ``text_quantum``; each epoch walks the batches in an order shuffled by
+    ``np.random.RandomState(seed)`` (``shuffle=False``: ascending)."""
+
+    def __init__(self, dataset, batch_size: int, text_quantum: int = 16,
+                 shuffle: bool = True, seed: int = 0):
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.text_quantum = text_quantum
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
+        idx = sorted(range(len(dataset)), key=lambda i: len(dataset.text_ids(i)))
+        self.batches = [idx[i:i + batch_size]
+                        for i in range(0, len(idx), batch_size)]
+
+    def __len__(self):
+        return len(self.batches)
+
+    def make_batch(self, ids: List[int]) -> Dict[str, Any]:
+        texts = [self.ds.text_ids(i) for i in ids]
+        u_pad = _round_up(max(len(t) for t in texts), self.text_quantum)
+        text = np.zeros((len(ids), u_pad), np.int32)
+        text_len = np.zeros((len(ids),), np.int32)
+        for b, t in enumerate(texts):
+            text[b, :len(t)] = t
+            text_len[b] = len(t)
+        return {"text": text, "text_len": text_len}
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        order = list(range(len(self.batches)))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        for bi in order:
+            yield self.make_batch(self.batches[bi])
+
+
+class TextLineDataset:
+    """Sentences, one a line, lower-cased, from text files under ``path``
+    (a split entry ending in ``.txt``, e.g. the synthetic generator's
+    ``lm_text.txt``), with the ``text_ids`` / ``text_raw`` interface
+    ``TextBatchLoader`` reads."""
+
+    def __init__(self, path: str, files, tokenizer):
+        self.tokenizer = tokenizer
+        lines: List[str] = []
+        for f in files:
+            lines += [ln.strip().lower() for ln in
+                      (Path(path) / f).read_text().splitlines() if ln.strip()]
+        if not lines:
+            raise RuntimeError(f"no text lines under {path} {list(files)}")
+        self._raw = lines
+        self._ids = [tokenizer.encode(ln) for ln in lines]
+
+    def __len__(self):
+        return len(self._ids)
+
+    def text_ids(self, i: int) -> List[int]:
+        return self._ids[i]
+
+    def text_raw(self, i: int) -> str:
+        return self._raw[i]
+
+
+def _make_textset(corpus_cfg: Dict[str, Any], splits, tokenizer):
+    """Text-line files when every split entry ends in ``.txt``, a corpus's
+    transcripts when none does; a mix raises."""
+    if isinstance(splits, str):
+        splits = [splits]
+    n_txt = sum(str(s).endswith(".txt") for s in splits)
+    if n_txt == len(splits):
+        return TextLineDataset(corpus_cfg["path"], splits, tokenizer)
+    if n_txt:
+        raise ValueError(
+            f"cannot mix text-line files and transcript splits: {splits}")
+    return _make_corpus(corpus_cfg, splits, tokenizer)
+
+
+def load_textset(corpus: Dict[str, Any], text: Dict[str, Any]):
+    """LM training data: (tr_set, dv_set, vocab_size, tokenizer, msg), the
+    train set shuffled per epoch, the dev set in ascending order
+    (``corpus.batch_size`` defaults to 32)."""
+    tokenizer = load_text_encoder(text["mode"], text["vocab_file"])
+    bs = int(corpus.get("batch_size", 32))
+    tr_ds = _make_textset(corpus, corpus["train_split"], tokenizer)
+    dv_ds = _make_textset(corpus, corpus["dev_split"], tokenizer)
+    msg = [f"LM corpus | train {len(tr_ds)} / dev {len(dv_ds)} sentences | "
+           f"vocab {tokenizer.vocab_size}"]
+    return (TextBatchLoader(tr_ds, bs), TextBatchLoader(dv_ds, bs,
+                                                        shuffle=False),
+            tokenizer.vocab_size, tokenizer, msg)

@@ -5,8 +5,8 @@ supports length-sorted bucketing. Transcripts are lowercased before encoding
 (LibriSpeech ships uppercase; tokenizer vocabs here are lowercase).
 
 Audio lengths for sorting come from file sizes (no decode on the sort path);
-decoding happens lazily at batch time via data/audio_io.py (WAV and NPY;
-FLAC raises until its decoder is ported).
+decoding happens lazily at batch time via data/audio_io.py (FLAC, WAV and
+NPY).
 """
 from __future__ import annotations
 

@@ -2,23 +2,25 @@
 defaults, the same dispatch.
 
   python -m end_to_end_asr_pytorch_tpu_torch.main --config config/libri/asr_example.yaml          # train ASR
+  python -m end_to_end_asr_pytorch_tpu_torch.main --config config/libri/lm_example.yaml --lm      # train LM
   python -m end_to_end_asr_pytorch_tpu_torch.main --config config/libri/asr_example.yaml --test \\
       --load ckpt/asr_example_sd0/best_att.pth [--outdir result/]                  # decode dev / test
 
 Training writes ``<ckpdir>/<name>_sd<seed>/{latest,best_att,best_ctc}.pth``
 in the reference checkpoint layout and logs to
-``<logdir>/<name>_sd<seed>/log.jsonl``. ``--test`` decodes the dev and test
+``<logdir>/<name>_sd<seed>/log.jsonl``; ``--lm`` trains an RNN-LM on text
+and writes ``best_ppx.pth`` / ``latest.pth`` there, the files
+``decode.lm_path`` takes. ``--test`` decodes the dev and test
 splits with the ``decode:`` block (beam search with CTC prefix scoring and
 RNN-LM shallow fusion from ``decode.lm_config`` / ``decode.lm_path`` when
 ``lm_weight > 0``; greedy CTC for a CTC-only model) and writes
 ``<outdir>/<name>_sd<seed>/{dev,test}_{output,beam}.csv``. ``--load`` takes a
 reference-layout torch checkpoint or one the JAX package wrote (training
 resumes the latter's weights and step, not its optax state). Runs on the
-card unless ``--cpu`` is given (no card is an error). ``--amp`` trains in
-bf16 (as ``hparas.amp: True``; ``--test`` ignores it, as the JAX package's
-decode solver does). ``--cudnn-ctc`` and ``--no-pin`` are accepted for
-compatibility and ignored; ``--lm`` (RNN-LM training) is not ported yet and
-raises.
+card unless ``--cpu`` is given (no card is an error). ``--amp`` trains the
+ASR in bf16 (as ``hparas.amp: True``; ``--test`` and ``--lm`` ignore it, as
+the JAX package's decode and LM solvers do). ``--cudnn-ctc`` and
+``--no-pin`` are accepted for compatibility and ignored.
 """
 from __future__ import annotations
 
@@ -50,21 +52,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="(compatibility flag, ignored)")
     ap.add_argument("--test", action="store_true", help="beam-decode mode")
     ap.add_argument("--no-msg", action="store_true", help="quiet console")
-    ap.add_argument("--lm", action="store_true", help="(not ported yet)")
+    ap.add_argument("--lm", action="store_true", help="train RNN-LM")
     ap.add_argument("--amp", action="store_true",
-                    help="bf16 training (hparas.amp); --test ignores it")
+                    help="bf16 ASR training (hparas.amp); --test and --lm "
+                         "ignore it")
     return ap
 
 
 def main(argv=None):
     paras = build_parser().parse_args(argv)
-    if paras.lm:
-        raise NotImplementedError("--lm (RNN-LM training) is not ported yet")
     random.seed(paras.seed)
     np.random.seed(paras.seed)
     torch.manual_seed(paras.seed)
     config = load_config(paras.config)
-    if paras.test:
+    if paras.lm:
+        from .solvers.train_lm import Solver
+    elif paras.test:
         from .solvers.test_asr import Solver
     else:
         from .solvers.train_asr import Solver

@@ -1,9 +1,15 @@
-"""RNN language model for shallow-fusion decoding (incremental step only).
+"""RNN language model: the full-sequence ``forward`` of LM training and
+the incremental ``step`` of shallow-fusion decoding.
 
 Embedding (with optional ``emb_tying``: the output layer is ``embed.T``),
-n-layer LSTM/GRU, linear to vocab, as in the JAX package. Under decode amp
-the state is bf16, the weights and the first-layer table are rounded to
-bf16, and every product accumulates in f32: the logits are f32.
+dropout, n-layer LSTM/GRU, linear to vocab, as in the JAX package.
+``forward`` runs each layer's scan over the whole sequence (``ops/rnn``:
+``LSTMScan``, K2 with residuals and K2b on the card, or ``GRUScan``, K4
+and K4b; without residuals under ``torch.no_grad``), with dropout on the
+embedding and between layers when training, its masks drawn from the
+caller's ``torch.Generator``. Under decode amp the state is bf16, the
+weights and the first-layer table are rounded to bf16, and every product
+accumulates in f32: the logits are f32.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch.nn.functional as F
 from ..ops import rnn as rnn_ops
 from ..ops.amp import dot_f32, round_bf16
 from ..utils.init import const, uniform
+from .encoder import dropout
 
 
 class LMState(NamedTuple):
@@ -32,6 +39,7 @@ class RNNLM(nn.Module):
         self.emb_dim = int(cfg.get("emb_dim", cfg.get("dim", 512)))
         self.dim = int(cfg["dim"])
         self.n_layers = int(cfg.get("layer", 1))
+        self.dropout = float(cfg.get("dropout", 0.0))
         self.emb_tying = bool(cfg.get("emb_tying", False))
         if self.emb_tying and self.emb_dim != self.dim:
             raise ValueError("emb_tying needs emb_dim == dim")
@@ -89,3 +97,27 @@ class RNNLM(nn.Module):
         new_state = LMState(torch.stack(hs),
                             torch.stack(cs) if self.module == "lstm" else None)
         return self._logits(inp), new_state
+
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """tokens (B, U) (the input sequence), lengths (B,) -> logits
+        (B, U, V) f32. Steps past a row's length hold the carry and emit
+        zeros. ``train`` applies the configured dropout, which needs
+        ``generator``."""
+        U = tokens.shape[1]
+        drop = train and self.dropout > 0
+        # F.embedding's backward sums each token's rows in parallel; the
+        # index backward of embed[tokens] walks a token's repeats in turn
+        x = F.embedding(tokens, self.embed)
+        if drop:
+            x = dropout(x, self.dropout, generator)
+        mask = (torch.arange(U, device=tokens.device)[:, None]
+                < lengths[None, :])
+        scan = rnn_ops.lstm_scan if self.module == "lstm" else rnn_ops.gru_scan
+        h = x.transpose(0, 1)                        # (U, B, E)
+        for i, w in enumerate(self.cells):
+            h = scan(w, h, mask)
+            if drop and i < self.n_layers - 1:
+                h = dropout(h, self.dropout, generator)
+        return self._logits(h.transpose(0, 1))

@@ -15,10 +15,10 @@ state_dict order, and the output layer (``trans`` / ``out`` / ``proj`` /
 
 The save side writes the reference layout ``{"model": state_dict,
 "optimizer": ..., "global_step": int, "<metric>": float}`` with torch
-``nn.Module`` key names (``asr_state_dict``), which both this loader and the
-JAX package's ``utils/checkpoint.load_checkpoint`` read. The optimizer entry
-is the port's own ``Optimizer.state_dict()``. ``lm_state_dict`` writes an
-RNN-LM in the same layout (``emb``, ``rnn.*_l{n}``, ``trans``).
+``nn.Module`` key names (``asr_state_dict`` for an ASR, ``lm_state_dict``
+for an RNN-LM: ``emb``, ``rnn.*_l{n}``, ``trans``), which both this loader
+and the JAX package's ``utils/checkpoint.load_checkpoint`` read. The
+optimizer entry is the port's own ``Optimizer.state_dict()``.
 """
 from __future__ import annotations
 
@@ -271,10 +271,12 @@ def _read(path: str):
 
 def load_lm_checkpoint(path: str, lm: RNNLM) -> Dict[str, Any]:
     """torch.load a reference RNN-LM checkpoint into ``lm``. Returns
-    {'model', 'global_step'}."""
-    sd, step, _ = _read(path)
+    {'model', 'optimizer' (the saved optimizer state, or None),
+    'global_step'}."""
+    sd, step, opt = _read(path)
     return {"model": assign(lm, translate_lm_state_dict(sd, lm),
-                            "torch LM checkpoint"), "global_step": step}
+                            "torch LM checkpoint"), "optimizer": opt,
+            "global_step": step}
 
 
 def lm_state_dict(lm: RNNLM) -> "OrderedDict[str, torch.Tensor]":
@@ -357,14 +359,16 @@ def asr_state_dict(model: ASR) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
-def save_checkpoint(path, model: ASR, optimizer=None, global_step: int = 0,
+def save_checkpoint(path, model, optimizer=None, global_step: int = 0,
                     metrics: Optional[Dict[str, float]] = None) -> None:
-    """Write ``path`` in the reference layout (see the module docstring),
-    through a temporary file renamed into place."""
+    """Write ``model`` (an ASR or an RNNLM) to ``path`` in the reference
+    layout (see the module docstring), through a temporary file renamed
+    into place."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    ck: Dict[str, Any] = {"model": asr_state_dict(model),
-                          "global_step": int(global_step)}
+    sd = lm_state_dict(model) if isinstance(model, RNNLM) else \
+        asr_state_dict(model)
+    ck: Dict[str, Any] = {"model": sd, "global_step": int(global_step)}
     if optimizer is not None:
         ck["optimizer"] = _to_cpu(optimizer.state_dict())
     for k, v in (metrics or {}).items():

@@ -48,13 +48,11 @@ def test_main_dispatch_and_unported_modes(tmp_path, monkeypatch):
         "data": {"corpus": {"name": "none"}, "audio": {"feat_dim": 40},
                  "text": {"mode": "character"}},
         "model": {}, "hparas": {}}))
-    with pytest.raises(NotImplementedError, match="lm"):
-        port_train.main(["--config", str(cfg), "--cudnn-ctc", "--no-pin",
-                         "--lm"])
-    # --amp (which raised until amp training was ported) is taken by both
-    # modes: they go on to the device
+    # --amp and --lm (which raised until amp and LM training were ported)
+    # are taken by every mode: each goes on to the device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for extra in ([], ["--test"], ["--amp"], ["--test", "--amp"]):
+    for extra in ([], ["--test"], ["--amp"], ["--test", "--amp"], ["--lm"],
+                  ["--lm", "--amp", "--cudnn-ctc", "--no-pin"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_main.main(["--config", str(cfg), "--no-msg",
                             "--logdir", str(tmp_path / "l"), "--ckpdir",

@@ -315,10 +315,35 @@ def _set_option(tmp_path, where, key, value):
 @pytest.mark.parametrize("where,key,value", [
     ("audio", "augment", {"time_mask": 2}),
     ("model", "plugin", {"enabled": True}), ("root", "model_parallel", 2),
-    ("root", "ckpt_format", "orbax"), ("flag", "--lm", None)])
+    ("root", "ckpt_format", "orbax")])
 def test_unported_training_options_raise(tmp_path, where, key, value):
     with pytest.raises(NotImplementedError, match=key.lstrip("-")):
         train.main(_set_option(tmp_path, where, key, value))
+
+
+@pytest.mark.parametrize("extra", [["--lm"], ["--lm", "--amp"]])
+def test_lm_flag_trains(tmp_path, capsys, extra):
+    """``--lm`` (which raised until LM training was ported) trains an RNN-LM
+    on the corpus's transcripts: two steps, ``best_ppx.pth`` and
+    ``latest.pth`` with a finite dev perplexity; ``--amp`` is ignored."""
+    root = _corpus(str(tmp_path.parent / "synth_corpus"))
+    cfg = yaml.safe_load((ROOT / "config/synthetic/lm.yaml").read_text())
+    cfg["data"]["corpus"].update(path=root, batch_size=3)
+    cfg["data"]["text"]["vocab_file"] = f"{root}/vocab.txt"
+    cfg["model"].update(dim=8, emb_dim=8)
+    cfg["hparas"].update(max_step=2, valid_step=2)
+    path = tmp_path / "lm.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    ppx = train.main(["--config", str(path), "--cpu", "--logdir",
+                      str(tmp_path / "log"), "--ckpdir",
+                      str(tmp_path / "ckpt"), *extra])
+    assert math.isfinite(ppx)
+    for name in ("best_ppx.pth", "latest.pth"):
+        ck = torch.load(str(tmp_path / "ckpt" / "lm_sd0" / name),
+                        weights_only=True)
+        assert ck["global_step"] == 2 and math.isfinite(ck["ppx"])
+    ignored = "amp is ignored" in capsys.readouterr().out
+    assert ignored == ("--amp" in extra)
 
 
 @pytest.mark.parametrize("where,key,value", [
