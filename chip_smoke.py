@@ -193,11 +193,12 @@ Phases, each printing one JSON line:
                 3x BiLSTM-512, loc attention 300 / kernel 100, LSTM-512
                 decoder and LM, beam 8, V=31, CTC 0.3 + LM 0.3, decode.amp
                 pinned off, decode.fused_step false: the step tail is K8's
-                eager plain version) with random weights from --seed: three
-                timed decode batches with the kernels (each batch must
-                launch K1 once and K2 six times, one launch per call unless
-                a grid's groups run in waves, and no other kernel), one
-                with the plain versions; then a breakdown of one batch
+                eager plain version) with random weights from --seed: one
+                timed decode batch with the kernels after a warm-up (it
+                must launch K1 once and K2 six times, one launch per call
+                unless a grid's groups run in waves, and no other kernel),
+                one with the plain versions; then a breakdown of one batch
+                (its device time from a trace of device activity only)
   slice_fused - the same with the default step tail, K8: it must launch
                 exactly once per beam step of every batch; then best-score
                 difference, top-1 share, launches, host split and device
@@ -224,6 +225,23 @@ Phases, each printing one JSON line:
   slice_gru_amp - the same with decode.amp at auto (bf16 on the card): K4's
                 bf16 variant six times per batch; top-1 share and best-score
                 difference against the same batch with amp off
+  slice_plugin - the slice's batch and weights with the embedding plugin
+                fused (a hash table of dim 256, fuse 0.3, temp 1.0) and
+                the default step tail: K8 must never launch (its scope
+                ends at plugin fusion); kernel route against plain route
+  slice_fused_atk - slice_fused with decode.approx_topk 0.95: K8 once per
+                beam step and tokens identical to slice_fused's
+  slice_sub5k_cand - slice_sub5k with decode.ctc_candidates 128: K6 once
+                per beam step (psi over the full vocab, then gathered)
+  slice_sub5k_q8 - slice_sub5k with decode.psi_quant int8: K6 never (the
+                int8 product replaces it), the early exit off
+  slice_sub5k_win - slice_sub5k with decode.ctc_window 32 and psi_kernel
+                off: K6 never
+  slice_sub5k_f32_cand - slice_sub5k_f32 with ctc_candidates 128: K8 never
+                (its scope is the full vocabulary)
+                (each of these six: ms per batch, launches per step by
+                kernel, a breakdown, best-score difference and top-1 share
+                against the plain route and against the phase it extends)
   entry       - python -m end_to_end_asr_pytorch_tpu_torch.transcribe on
                 two WAVs with a reference-layout checkpoint (amp off)
   entry_gru   - the same with slice_gru's model (a reference-layout nn.GRU
@@ -266,6 +284,18 @@ Phases, each printing one JSON line:
   train_att_amp - train_amp with attention.use_pallas_train: each step must
                 also launch K7's bf16 forward and backward once per label
                 step (96 each) and the f32 K7 never
+  train_aug   - train with data.audio.augment (SpecAugment, the JAX
+                defaults written out): the same launches per step as
+                train; every drawn mask within its bounds, the masked
+                share of the valid bins; kernel vs plain as train
+  train_plugin - train_att with the embedding plugin (a hash table of
+                dim 256 for V=31, weight 1.0): K7 96 + 96 launches a step;
+                kernel vs plain total loss and emb_loss within rel 1e-5
+  options_entry - on a generated corpus: the hash table from python -m
+                end_to_end_asr_pytorch_tpu_torch.utils.bert_embedding
+                --method hash, ... .main 2 steps with SpecAugment and the
+                plugin, then ... .main --test with the plugin fused,
+                decode.psi_quant int8 and ctc_candidates 8 (amp auto)
   train_entry - python -m end_to_end_asr_pytorch_tpu_torch.train on a
                 generated synthetic corpus (32 train / 8 dev utterances,
                 bench.py's model, 4 steps, validation every 2), then
@@ -349,7 +379,14 @@ F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
 
 
+T_START = time.perf_counter()
+CARD = None   # nvidia-smi's name and power limit, set by main
+
+
 def emit(obj):
+    """One JSON line; a phase's line also gets the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2641,7 +2678,7 @@ FUSED_EXPECT = {**SLICE_EXPECT, "beam_step_fused": "steps"}
 
 def phase_slice(frontend, batch, seed, device, name="slice",
                 model_cfg=MODEL_CFG, decode_cfg=UNFUSED_CFG, vocab=V_CHAR,
-                expect=SLICE_EXPECT, n_batches=3, lm_cfg=LM_CFG):
+                expect=SLICE_EXPECT, n_batches=1, lm_cfg=LM_CFG):
     """Decode batches of bench.py's model (random weights from ``seed``):
     ``n_batches`` timed ones whose launches must be ``expect``'s, one with
     the plain versions (compared), then a breakdown of one batch. Returns
@@ -2750,13 +2787,16 @@ def compare_slices(a, b, name, batch):
 
 
 def phase_slice_other(frontend, sl, decode_cfg, name, expect,
-                      breakdown=False):
-    """The slice's batch and weights through another decode config: its
-    launches (which must be ``expect``'s), the best-score difference and
-    top-1 share against the slice's output, and optionally a breakdown."""
+                      breakdown=False, plugin=None, against_plain=False):
+    """The slice's batch and weights through another decode config (and
+    an embedding ``plugin``): its launches (which must be ``expect``'s),
+    the best-score difference and top-1 share against the slice's output,
+    optionally against the same config on the plain route
+    (``against_plain``: best score within 1e-2) and a breakdown."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.decode.beam import BeamDecoder
-    decoder = BeamDecoder(sl["model"], decode_cfg, lm=sl["lm"])
+    from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
+    decoder = BeamDecoder(sl["model"], decode_cfg, lm=sl["lm"], plugin=plugin)
     counters = launch_counters()
     with torch.no_grad():
         decoder.forward(*frontend(sl["wave"], sl["wave_len"]))     # warm-up
@@ -2768,19 +2808,50 @@ def phase_slice_other(frontend, sl, decode_cfg, name, expect,
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     got = {k: fn.launches for k, fn in counters.items()}
+    steps = decoder.last_steps
     calls = scan_calls(sl["wave"].shape[0])
-    want = {k: (decoder.last_steps if expect.get(k) == "steps"
+    want = {k: (steps if expect.get(k) == "steps"
                 else expect.get(k, 0) * calls.get(k, 1)) for k in counters}
     check(got == want, f"{name}: the batch must launch {want}, got {got}")
     diff, same = compare_top1(sl["out"], out)
-    emit({"phase": name, "amp": decoder.last_amp,
-          "decode_steps": decoder.last_steps, "seconds_per_batch": dt,
+    fields = {}
+    if against_plain:
+        cuda_kernels.USE_KERNELS = False
+        try:
+            with torch.no_grad():
+                out_p = decoder.forward(*frontend(sl["wave"], sl["wave_len"]))
+        finally:
+            cuda_kernels.USE_KERNELS = True
+        diff_p, same_p = compare_top1(out, out_p)
+        check(bool(torch.isfinite(out.scores[:, 0]).all())
+              and bool((out.scores[:, 0] > -1e29).all()), f"{name}: top-1")
+        check(diff_p <= 1e-2, f"{name}: best score kernel vs plain {diff_p}")
+        fields = {"best_score_max_abs_diff_vs_plain": diff_p,
+                  "top1_identical_share_vs_plain": same_p}
+    emit({"phase": name, "amp": decoder.last_amp, "fused": decoder.last_fused,
+          "early_stop": decoder.early_stop, "decode_steps": steps,
+          "seconds_per_batch": dt, "ms_per_batch": dt * 1e3,
           "best_score_max_abs_diff_vs_slice": diff,
-          "top1_identical_share_vs_slice": same, "launches": got})
+          "top1_identical_share_vs_slice": same, **fields, "launches": got,
+          "launches_per_step": {k: v / steps for k, v in got.items() if v},
+          "card": CARD})
     bd = (slice_breakdown(frontend, sl["model"], decoder, sl["wave"],
                           sl["wave_len"], name) if breakdown else None)
     return {"out": out, "seconds_per_batch": dt, "breakdown": bd,
-            "launches": got}
+            "launches": got, "decoder": decoder}
+
+
+def plugin_config(workdir, dim=256):
+    """An embedding plugin block over a hash table (``bert_embedding``'s
+    ``--method hash``, dim ``dim``) of the slices' character vocabulary,
+    written to ``workdir``: weight 1.0, fuse 0.3, temp 1.0."""
+    from end_to_end_asr_pytorch_tpu_torch.utils.bert_embedding import \
+        generate_embedding
+    (workdir / "vocab.txt").write_text("\n".join(CHARS) + "\n")
+    generate_embedding(str(workdir / "vocab.txt"), "character",
+                       str(workdir / "emb.npy"), method="hash", dim=dim)
+    return {"src": str(workdir / "emb.npy"), "weight": 1.0, "fuse": 0.3,
+            "temp": 1.0}
 
 
 def slice_breakdown(frontend, model, decoder, wave, wave_len, name):
@@ -2810,8 +2881,9 @@ def slice_breakdown(frontend, model, decoder, wave, wave_len, name):
         (feat, feat_len), front_ms = timed(lambda: frontend(wave, wave_len))
         _, enc_ms = timed(lambda: encode(feat, feat_len))
         _, fwd_ms = timed(lambda: decoder.forward(feat, feat_len))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity only: the split reads no host event, and a
+        # decode's ~35,000 host operators made the trace slow to read
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, prof_ms = timed(lambda: decoder.forward(feat, feat_len))
     from torch.autograd import DeviceType
     dev = lambda e: getattr(e, "self_device_time_total",
@@ -2929,13 +3001,16 @@ def train_batch(batch, seed, device, U=U_TRAIN, V=3 + len(CHARS)):
     return tuple(torch.from_numpy(a).to(device) for a in (w, wl, text, lab_len))
 
 
-def make_solver(device, seed, workdir, model_cfg=MODEL_CFG, amp=False):
+def make_solver(device, seed, workdir, model_cfg=MODEL_CFG, amp=False,
+                augment=None):
     """The port's training solver with bench.py's model at full width
-    (random weights from ``seed``; ``hparas.amp`` as ``amp``), set up as
-    ``train.py`` sets it up but without a corpus."""
+    (random weights from ``seed``; ``hparas.amp`` as ``amp``;
+    ``data.audio.augment`` as ``augment``), set up as ``train.py`` sets it
+    up but without a corpus."""
     from types import SimpleNamespace
     from end_to_end_asr_pytorch_tpu_torch.solvers.train_asr import Solver
-    cfg = {"data": {"corpus": {"name": "none"}, "audio": AUDIO_CFG,
+    audio = dict(AUDIO_CFG, augment=augment) if augment else AUDIO_CFG
+    cfg = {"data": {"corpus": {"name": "none"}, "audio": audio,
                     "text": {"mode": "character"}},
            "model": model_cfg, "hparas": dict(TRAIN_HPARAS, amp=amp)}
     paras = SimpleNamespace(config="smoke_train.yaml", name=None, seed=seed,
@@ -2975,7 +3050,7 @@ def launch_counters():
 
 
 def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
-                n_steps=5, amp=False):
+                n_steps=5, amp=False, augment=None):
     """Training steps of bench.py's model at full width (the train main
     path; ``amp``: ``hparas.amp``, the scans through their bf16 training
     variants): one warm-up step, ``n_steps`` timed steps with the kernels
@@ -2983,11 +3058,14 @@ def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
     the same weights and generator with the kernels and with the plain
     versions, compared (at tf 1.0: loss rel 1e-4 and every gradient within
     1e-3 of its max magnitude; under amp, where a one-ulp difference of a
-    bf16 value moves the sums after it, rel 1e-3 and 1e-2)."""
+    bf16 value moves the sums after it, rel 1e-3 and 1e-2; with the
+    embedding plugin the total loss and emb_loss within rel 1e-5).
+    ``augment``: SpecAugment's masks of the last step are checked against
+    their bounds (``check_masks``)."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-        solver = make_solver(device, seed, Path(d), model_cfg, amp)
+        solver = make_solver(device, seed, Path(d), model_cfg, amp, augment)
     data = train_batch(batch, seed + 6, device)
     enc = model_cfg["encoder"]
     n_scans = len(enc["dim"]) * (2 if enc["bidirection"] else 1)
@@ -3023,8 +3101,10 @@ def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
     metrics = {k: float(v) for k, v in m.items()}
     check(all(math.isfinite(v) for v in metrics.values()),
           f"non-finite train metrics {metrics}")
+    if augment:
+        check_masks(solver, data, name)
     emit({"phase": name, "batch": batch, "secs": SECS, "labels": U_TRAIN,
-          "amp": solver.amp,
+          "amp": solver.amp, "card": CARD,
           "steps": n_steps, "ms_per_step": dt * 1e3, "utts_per_s": batch / dt,
           "launches_per_step": {k: n / n_steps for k, n in launches.items()},
           "metrics_last_step": metrics,
@@ -3036,12 +3116,53 @@ def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
           **{f"tf_{k}": v for k, v in compare.items()}})
     c = compare[1.0]
     loss_tol, grad_tol = (1e-3, 1e-2) if amp else (1e-4, 1e-3)
+    if solver.plugin is not None:
+        loss_tol = 1e-5
+        check(c["emb_rel_diff"] <= 1e-5,
+              f"emb_loss kernel vs plain rel diff {c['emb_rel_diff']}")
     check(c["loss_rel_diff"] <= loss_tol,
           f"train loss kernel vs plain rel diff {c['loss_rel_diff']}")
     check(c["worst_grad_err_over_max"] <= grad_tol,
           f"train gradient kernel vs plain {c['worst_grad']}: "
           f"{c['worst_grad_err_over_max']}")
     return launches
+
+
+# SpecAugment with the JAX package's defaults written out (an empty
+# augment block turns it off there and here)
+AUG_CFG = {"freq_mask_n": 2, "freq_mask_width": 27, "time_mask_n": 2,
+           "time_mask_width": 40, "time_mask_ratio": 0.2}
+
+
+def check_masks(solver, data, name):
+    """The last step's SpecAugment masks within the JAX draws' bounds, and
+    the share of the valid (frame, bin) entries they zero."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.ops.augment import (
+        apply_masks, mask_params, max_time_width)
+    m = solver.last_masks
+    with torch.no_grad():
+        feat, flen = solver.frontend(data[0], data[1])
+    B, T, F = feat.shape
+    fn, fw, tn, tw, ratio = mask_params(solver.aug_cfg, F)
+    cap = max_time_width(flen, ratio, tn)[:, None]
+    ok = {"freq_width": bool(((m.freq_width >= 0)
+                              & (m.freq_width <= fw)).all()),
+          "freq_start": bool(((m.freq_start >= 0) & (m.freq_start < torch.clamp(
+              F - m.freq_width, min=1))).all()),
+          "time_width": bool(((m.time_width >= 0) & (m.time_width <= tw)
+                              & (m.time_width <= cap)).all()),
+          "time_start": bool(((m.time_start >= 0) & (m.time_start < torch.clamp(
+              flen[:, None] - m.time_width, min=1))).all())}
+    check(all(ok.values()) and m.freq_width.shape == (B, fn)
+          and m.time_width.shape == (B, tn), f"{name}: masks out of bounds {ok}")
+    valid = (torch.arange(T, device=flen.device)[None, :] < flen[:, None])
+    kept = apply_masks(torch.ones_like(feat), m) * valid[..., None]
+    share = 1.0 - float(kept.sum()) / float(valid.sum() * F)
+    emit({"phase": f"{name}_masks", "masked_share_of_valid_bins": share,
+          "freq_width_mean": float(m.freq_width.float().mean()),
+          "time_width_mean": float(m.time_width.float().mean()),
+          "bounds_ok": ok})
 
 
 TRAIN_RANGES = ("train.frontend", "asr.encode", "asr.ctc_head",
@@ -3120,7 +3241,8 @@ def train_compare(solver, data, tf_rate, cuda_kernels):
             solver.gen.set_state(gen_state)
             m = solver.train_step(*data)
             out.append((float(m["loss"]), {k: p.grad.detach().clone()
-                                           for k, p in solver.params.items()}))
+                                           for k, p in solver.params.items()},
+                        float(m.get("emb_loss", float("nan")))))
             with torch.no_grad():
                 for k, p in solver.params.items():
                     p.copy_(saved[k])
@@ -3130,15 +3252,18 @@ def train_compare(solver, data, tf_rate, cuda_kernels):
     finally:
         cuda_kernels.USE_KERNELS = True
         solver.tf_start, solver.tf_end = tf
-    (lk, gk), (lp, gp) = out
+    (lk, gk, ek), (lp, gp, ep) = out
     bad = [k for k, g in gk.items()
            if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
     check(not bad, f"kernel-path gradients not finite or all zero: {bad[:5]}")
     errs = {k: float((gk[k] - gp[k]).abs().max() / gp[k].abs().max())
             for k in gk}
     worst = max(errs, key=errs.get)
+    emb = ({} if math.isnan(ep) else
+           {"emb_loss_kernel": ek, "emb_loss_plain": ep,
+            "emb_rel_diff": abs(ek - ep) / abs(ep)})
     return {"loss_kernel": lk, "loss_plain": lp,
-            "loss_rel_diff": abs(lk - lp) / abs(lp),
+            "loss_rel_diff": abs(lk - lp) / abs(lp), **emb,
             "worst_grad": worst, "worst_grad_err_over_max": errs[worst],
             "grads_err_over_max_top5": dict(sorted(
                 errs.items(), key=lambda kv: -kv[1])[:5]),
@@ -3354,6 +3479,91 @@ def phase_train_entry(seed):
               "last_losses": [e["value"] for e in log if e["name"] == "loss"][-2:],
               "train_stdout_tail": proc.stdout.strip().splitlines()[-2:],
               "rows": len(rows)})
+
+
+def phase_options_entry(seed, n_utts=16):
+    """The options of this slice through the entry points on a generated
+    corpus (32 train, n_utts dev and test utterances, V=31): the hash
+    table from ``python -m ...utils.bert_embedding --method hash``, ``main``
+    2 steps of bench.py's model with SpecAugment (AUG_CFG) and the
+    embedding plugin (weight 1.0, fuse 0.3), then ``main --test`` from its
+    latest.pth with the plugin fused, psi_quant int8, ctc_candidates 8 and
+    amp auto (bf16 on the card): one row per utterance, the unfused route
+    (K8's scope ends at plugin fusion)."""
+    import re
+    import torch
+    import yaml
+    from end_to_end_asr_pytorch_tpu_torch.data.synthetic import generate_corpus
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = Path(d)
+        corpus = generate_corpus(str(d / "synth"), n_train=32, n_dev=n_utts,
+                                 n_test=n_utts, seed=seed)
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "end_to_end_asr_pytorch_tpu_torch.utils.bert_embedding",
+             "--vocab_file", str(corpus / "vocab.txt"), "--mode", "character",
+             "--output", str(d / "emb.npy"), "--method", "hash", "--dim",
+             "256"], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=300)
+        check(proc.returncode == 0, f"bert_embedding exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        table_s = time.perf_counter() - t0
+        cfg = {"data": {"corpus": {"name": "synthetic", "path": str(corpus),
+                                   "train_split": ["train-clean"],
+                                   "dev_split": ["dev-clean"],
+                                   "test_split": ["test-clean"],
+                                   "batch_size": n_utts},
+                        "audio": dict(AUDIO_CFG, augment=AUG_CFG),
+                        "text": {"mode": "character",
+                                 "vocab_file": str(corpus / "vocab.txt")}},
+               "model": {**MODEL_CFG, "plugin": {
+                   "src": str(d / "emb.npy"), "weight": 1.0, "fuse": 0.3,
+                   "temp": 1.0}},
+               "hparas": {"valid_step": 2, "max_step": 2, "PROGRESS_STEP": 1,
+                          **TRAIN_HPARAS},
+               "decode": {**{k: v for k, v in DECODE_CFG.items()
+                             if k not in ("lm_weight", "amp")},
+                          "psi_quant": "int8", "ctc_candidates": 8}}
+        (d / "opts.yaml").write_text(yaml.safe_dump(cfg))
+        _, train_s = run_main(["--config", str(d / "opts.yaml"), "--seed",
+                               str(seed), "--logdir", str(d / "log"),
+                               "--ckpdir", str(d / "ckpt")],
+                              "main (augment, plugin)")
+        ckpt = d / "ckpt" / f"opts_sd{seed}" / "latest.pth"
+        ck = torch.load(str(ckpt), weights_only=True)
+        check(ck["global_step"] == 2
+              and tuple(ck["model"]["plugin.w_proj"].shape) == (256, 512),
+              "main (augment, plugin): latest.pth lacks 2 steps or the plugin")
+        log = [json.loads(ln) for ln in (d / "log" / f"opts_sd{seed}" /
+                                         "log.jsonl").read_text().splitlines()]
+        emb = [e["value"]["tr_emb_loss"] for e in log
+               if e["name"] == "loss" and "tr_emb_loss" in e["value"]]
+        check(len(emb) > 0 and all(math.isfinite(v) for v in emb),
+              f"main (augment, plugin): emb_loss {emb}")
+        stdout, test_s = run_main(["--config", str(d / "opts.yaml"), "--test",
+                                   "--load", str(ckpt), "--outdir",
+                                   str(d / "out"), "--seed", str(seed)],
+                                  "main --test (plugin, psi_quant, candidates)")
+        summary = [ln for ln in stdout.splitlines()
+                   if re.match(r"\[INFO\] (dev|test): ", ln)]
+        check(len(summary) == 2 and all("| beam unfused (K8 launches 0)" in ln
+                                        for ln in summary),
+              f"main --test (options) summary: {summary}")
+        out = d / "out" / f"opts_sd{seed}"
+        rows = {}
+        for split in ("dev", "test"):
+            best, _, n_beam = read_test_csvs(
+                {kind: (out / f"{split}_{kind}.csv").read_text()
+                 for kind in ("output", "beam")})
+            check(len(best) == n_utts and n_beam == 8 * n_utts,
+                  f"main --test (options) {split}: {len(best)} rows")
+            rows[split] = len(best)
+        emit({"phase": "options_entry", "table_seconds": table_s,
+              "train_seconds": train_s, "test_seconds": test_s,
+              "emb_losses": emb, "rows": rows, "summary": summary,
+              "card": CARD})
 
 
 # the RNN-LM's scan shapes: config/libri/lm_example.yaml's batch of 64 at two
@@ -3791,12 +4001,16 @@ def main():
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--phases",
                     default="k1,k2,k2b,k3,k4,k4b,k5,k6,k7,k8,"
-                            "slice,"
-                            "slice_fused,slice_att,"
-                            "entry,slice_amp,slice_sub5k,entry_sub5k,"
+                            "slice,slice_plugin,"
+                            "slice_fused,slice_fused_atk,slice_att,"
+                            "entry,slice_amp,slice_sub5k,slice_sub5k_cand,"
+                            "slice_sub5k_q8,slice_sub5k_win,"
+                            "slice_sub5k_f32_cand,entry_sub5k,"
                             "slice_gru,entry_gru,slice_gru_amp,test_entry,"
-                            "train,train_att,train_gru,train_amp,"
+                            "train,train_aug,train_att,train_plugin,"
+                            "train_gru,train_amp,"
                             "train_gru_amp,train_att_amp,train_entry,"
+                            "options_entry,"
                             "lm_scan,lm_train,lm_train_gru,flac_entry,"
                             "lm_entry",
                     help="comma list of phases after build (default: all "
@@ -3813,7 +4027,8 @@ def main():
     from end_to_end_asr_pytorch_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(None)
-    smi = subprocess.run(
+    global CARD
+    smi = CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -3883,6 +4098,19 @@ def main():
     if "slice" in phases:
         sl = sl_f32 = phase_slice(frontend, args.batch, args.seed, device)
         record(sl["launches"], ("fbank_fused", "lstm_scan_fused"))
+        if "slice_plugin" in phases:
+            from end_to_end_asr_pytorch_tpu_torch.models.plugin import \
+                EmbeddingRegularizer
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                plugin = EmbeddingRegularizer(
+                    plugin_config(Path(d)), V_CHAR, 512,
+                    generator=torch.Generator().manual_seed(args.seed + 7),
+                    device=device)
+            r = phase_slice_other(frontend, sl, DECODE_CFG, "slice_plugin",
+                                  SLICE_EXPECT, breakdown=True, plugin=plugin,
+                                  against_plain=True)
+            check(r["decoder"].last_fused is False,
+                  "slice_plugin took K8's route")
         if "entry" in phases:
             phase_entry(sl["model"], args.seed)
     if "slice_fused" in phases:
@@ -3892,6 +4120,14 @@ def main():
         record(sl["launches"], ("beam_step_fused",))
         if sl_f32 is not None:
             compare_slices(sl_f32, sl, "slice_fused_vs_slice", args.batch)
+        if "slice_fused_atk" in phases:
+            r = phase_slice_other(frontend, sl, {**DECODE_CFG,
+                                                 "approx_topk": 0.95},
+                                  "slice_fused_atk", FUSED_EXPECT,
+                                  breakdown=True, against_plain=True)
+            check(torch.equal(r["out"].tokens, sl["out"].tokens)
+                  and torch.equal(r["out"].lengths, sl["out"].lengths),
+                  "slice_fused_atk: tokens differ from slice_fused's")
     if "slice_att" in phases:
         sl = phase_slice(frontend, args.batch, args.seed, device, "slice_att",
                          with_attention(use_pallas=True),
@@ -3908,7 +4144,9 @@ def main():
         record(sl["launches"], ("lstm_scan_bf16",))
         phase_slice_other(frontend, sl, DECODE_CFG, "slice_amp_vs_f32",
                           FUSED_EXPECT)
-    if "slice_sub5k" in phases or "entry_sub5k" in phases:
+    sub5k = {"slice_sub5k", "entry_sub5k", "slice_sub5k_cand",
+             "slice_sub5k_q8", "slice_sub5k_win", "slice_sub5k_f32_cand"}
+    if phases & sub5k:
         sub_cfg = {**DECODE_CFG, "amp": True, "psi_kernel": True}
         sl = phase_slice(frontend, args.batch, args.seed, device,
                          "slice_sub5k", decode_cfg=sub_cfg, vocab=V_SUB,
@@ -3928,6 +4166,23 @@ def main():
         if "beam_step_fused_v5120" in kernels:
             kernels["beam_step_fused_v5120"]["launches"] = \
                 f32[0]["launches"]["beam_step_fused"]
+        options = {
+            "slice_sub5k_cand": ({**sub_cfg, "ctc_candidates": 128},
+                                 {**amp_expect, "psi_fused": "steps"}),
+            "slice_sub5k_q8": ({**sub_cfg, "psi_quant": "int8"}, amp_expect),
+            "slice_sub5k_win": ({**sub_cfg, "ctc_window": 32,
+                                 "psi_kernel": False}, amp_expect),
+            "slice_sub5k_f32_cand": ({**DECODE_CFG, "ctc_candidates": 128},
+                                     SLICE_EXPECT)}
+        for name, (cfg, exp) in options.items():
+            if name in phases:
+                r = phase_slice_other(frontend, sl, cfg, name, exp,
+                                      breakdown=True, against_plain=True)
+                check(r["decoder"].last_fused is False,
+                      f"{name} took K8's route")
+                if name == "slice_sub5k_q8":
+                    check(r["decoder"].early_stop is False,
+                          "slice_sub5k_q8: the early exit is on")
         if "entry_sub5k" in phases:
             phase_entry(sl["model"], args.seed, "entry_sub5k",
                         {k: v for k, v in sub_cfg.items()
@@ -3959,10 +4214,18 @@ def main():
     if "train" in phases:
         launches = phase_train(args.batch, args.seed, device)
         record(launches, ("lstm_bwd_fused", "ctc_loss_fused"))
+    if "train_aug" in phases:
+        phase_train(args.batch, args.seed, device, "train_aug",
+                    augment=AUG_CFG)
     if "train_att" in phases:
         launches = phase_train(args.batch, args.seed, device, "train_att",
                                with_attention(use_pallas_train=True))
         record(launches, ("loc_att_fwd_fused", "loc_att_bwd_fused"))
+    if "train_plugin" in phases:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            phase_train(args.batch, args.seed, device, "train_plugin",
+                        {**with_attention(use_pallas_train=True),
+                         "plugin": plugin_config(Path(d))})
     if "train_gru" in phases:
         launches = phase_train(args.batch, args.seed, device, "train_gru",
                                GRU_MODEL_CFG)
@@ -3982,6 +4245,8 @@ def main():
         record(launches, ("loc_att_fwd_bf16", "loc_att_bwd_bf16"))
     if "train_entry" in phases:
         phase_train_entry(args.seed)
+    if "options_entry" in phases:
+        phase_options_entry(args.seed)
     if "flac_entry" in phases or "lm_entry" in phases:
         phase_recipe_entry(args.seed, phases)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

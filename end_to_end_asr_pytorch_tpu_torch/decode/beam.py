@@ -24,22 +24,34 @@ states by the winners' parent slots, and hands everything else (the
 log-softmax of both heads, the eos scores and the finished-set merge, psi,
 the joint top-K, the winners' CTC states) to one call of
 ``ops/cuda/beam_step_kernel.py``: K8 (``beam_step_fused``) within its
-scope, CTC on over the full vocabulary and amp resolved off; its plain
-version ``beam_step_plain`` outside it (amp, no CTC) and with
-``fused_step: false`` (the port's own key; the JAX package's decoder
-ignores it). Only there does ``psi_kernel: true`` act: it sends the
-full-vocab psi to K6 wherever the JAX package's gate (``pick_block``) takes
-its Pallas kernel, bf16 probs under amp, f32 probs without. The JAX
-package's amp beam reorders states with one-hot products, which are exact
-reorders; here they are gathers, with the same values.
+scope, CTC on over the full vocabulary with no psi window, no plugin
+fusion and amp resolved off; its plain version ``beam_step_plain``
+outside it and with ``fused_step: false`` (the port's own key; the JAX
+package's decoder ignores it). Only there does ``psi_kernel: true`` act:
+it sends the full-vocab psi to K6 wherever the JAX package's gate
+(``pick_block``) takes its Pallas kernel, bf16 probs under amp, f32 probs
+without. The JAX package's amp beam reorders states with one-hot products,
+which are exact reorders; here they are gathers, with the same values.
+
+The JAX package's opt-in keys, with its validation:
+  * ``ctc_candidates`` C < V: psi over the full vocab, then each
+    hypothesis's C best extensions by attention + LM score are scored and
+    the joint top-K runs over K x C;
+  * ``psi_quant: int8`` (amp only; K6 off): the psi product of int8
+    weights and probs, exact in int32 (``ctc_prefix.q8_product``);
+  * ``ctc_window`` W: psi summed over the W frames around each
+    utterance's alignment frontier (ignored, with a message, under
+    ``psi_kernel``);
+  * ``approx_topk`` r: the JAX package's ``lax.approx_max_k`` promises a
+    recall of at least r; the exact top-K here keeps that promise;
+  * ``early_stop: auto`` is off under ``psi_quant`` or ``ctc_window``;
+  * the embedding plugin (``plugin`` with ``fuse > 0``): the attention
+    head's log-probs are the plugin's fused ones, and the amp normaliser
+    folding is off.
 
 Ties: ``lax.top_k`` prefers the lowest index among equal values, and the
 finished set's NEG_INF placeholders are mass ties. ``torch.topk`` promises
 no tie order, so every top-K here is a stable descending sort.
-
-Not ported yet (a non-default value raises NotImplementedError):
-``psi_quant``, ``ctc_window``, ``approx_topk``, ``ctc_candidates > 0`` and
-the embedding-fusion ``plugin``.
 """
 from __future__ import annotations
 
@@ -62,14 +74,10 @@ from ..utils.text import EOS_IDX, PAD_IDX
 
 NEG_INF = -1e30
 
-# config key -> values that select a path ported here
-_PORTED = {
+# config key -> the values the port takes
+_CHOICES = {
     "amp": ("auto", True, False, None),
     "psi_kernel": (True, False, "auto", None),
-    "psi_quant": (False, None),
-    "ctc_window": (0, None),
-    "approx_topk": (False, None),
-    "ctc_candidates": (0, None),
     "fold_logp": ("auto", True, False, None),
     "fused_step": (True, False, "auto", None),
 }
@@ -118,13 +126,14 @@ class BeamDecoder:
                  lm: Optional[RNNLM] = None, plugin=None):
         if not model.enable_att:
             raise ValueError("beam decoder needs the attention decoder")
-        if plugin is not None:
-            raise NotImplementedError("embedding-fusion plugin is not ported yet")
-        for key, ok in _PORTED.items():
-            if key in decode_cfg and decode_cfg[key] not in ok:
-                raise NotImplementedError(
-                    f"decode.{key}={decode_cfg[key]!r} is not ported yet")
+        for key, ok in _CHOICES.items():
+            if decode_cfg.get(key) not in ok:
+                raise ValueError(f"decode.{key}={decode_cfg[key]!r}: want one "
+                                 f"of {ok}")
         self.model = model
+        # the embedding plugin's fused log-probs (``fuse > 0``)
+        self.plugin = plugin if (plugin is not None
+                                 and plugin.apply_fuse) else None
         self.beam = int(decode_cfg.get("beam_size", 4))
         if self.beam > 256:
             raise ValueError("packed finished-set metadata assumes beam <= 256")
@@ -135,12 +144,39 @@ class BeamDecoder:
         self.ctc_weight = float(cw) if model.enable_ctc else 0.0
         self.lm = lm if self.lm_weight > 0 else None
         self.use_ctc = self.ctc_weight > 0
-        es = decode_cfg.get("early_stop", "auto")
-        self.early_stop = True if es == "auto" else bool(es)
-        self.early_stop_slack = float(decode_cfg.get("early_stop_slack", 0.05))
+        # > 0: CTC scores only each hypothesis's best extensions by
+        # attention + LM score (psi still over the full vocab)
+        self.ctc_candidates = int(decode_cfg.get("ctc_candidates", 0) or 0)
         amp = decode_cfg.get("amp", "auto")
         self.amp = "auto" if amp in ("auto", None) else bool(amp)
         self.psi_kernel = decode_cfg.get("psi_kernel", False) is True
+        # int8 psi product (amp only; it replaces K6)
+        pq = decode_cfg.get("psi_quant", False)
+        if pq not in (False, None, "int8"):
+            raise ValueError(f"psi_quant must be False or 'int8', got {pq!r}")
+        self.psi_quant = pq or False
+        if self.psi_quant:
+            self.psi_kernel = False
+        cwin = int(decode_cfg.get("ctc_window", 0) or 0)
+        if cwin < 0:
+            raise ValueError(f"ctc_window must be >= 0, got {cwin}")
+        if cwin and self.psi_kernel:
+            # K6 streams every frame, as the TPU kernel does
+            print("[beam] ctc_window ignored: psi_kernel streams full T")
+            cwin = 0
+        self.ctc_window = cwin
+        # a recall target for the JAX package's approximate top-K: the
+        # exact top-K here meets any (recall 1), so it is only validated
+        at = decode_cfg.get("approx_topk", False)
+        if at not in (False, None) and not (0.0 < float(at) <= 1.0):
+            raise ValueError(
+                f"approx_topk must be False or a recall in (0, 1], got {at!r}")
+        es = decode_cfg.get("early_stop", "auto")
+        # psi_quant / ctc_window may underestimate a hypothesis's
+        # finalization score, so the exit's bound would not hold
+        self.early_stop = (not (self.psi_quant or self.ctc_window)
+                           if es == "auto" else bool(es))
+        self.early_stop_slack = float(decode_cfg.get("early_stop_slack", 0.05))
         self.fused_step = decode_cfg.get("fused_step", "auto") is not False
         fl = decode_cfg.get("fold_logp", "auto")
         self.fold_logp = "auto" if fl in ("auto", None) else bool(fl)
@@ -155,20 +191,25 @@ class BeamDecoder:
         K = self.beam
         amp = feat.is_cuda if self.amp == "auto" else self.amp
         self.last_amp = amp
+        model, lm, plugin = self.model, self.lm, self.plugin
+        V = model.vocab_size
+        # the candidate set's size (C < V: ctc_candidates)
+        C = V if (not self.use_ctc or self.ctc_candidates <= 0
+                  or V <= self.ctc_candidates) else self.ctc_candidates
         # K8's scope (the TPU kernel's, less its layout rule), decided
-        # before any launch: CTC over the full vocabulary, f32 (no amp), at
-        # every V (PERF.md: at V=5120 K8 takes a cluster of blocks per
-        # utterance and less device time than the eager tail)
-        fused = self.fused_step and self.use_ctc and not amp
+        # before any launch: CTC over the full vocabulary, f32 (no amp), no
+        # psi window and no plugin fusion, at every V (PERF.md: at V=5120
+        # K8 takes a cluster of blocks per utterance and less device time
+        # than the eager tail)
+        fused = (self.fused_step and self.use_ctc and not amp and C == V
+                 and self.ctc_window == 0 and plugin is None)
         self.last_fused = fused
         k8_0 = beam_step_kernel.beam_step_fused.launches
-        model, lm = self.model, self.lm
         if amp:
             model = bf16_rounded_copy(model)
             lm = bf16_rounded_copy(lm) if lm is not None else None
             if feat.dtype == torch.float32:
                 feat = feat.to(torch.bfloat16)
-        V = model.vocab_size
         enc, enc_len = model.encode(feat, feat_len)
         self.last_enc = enc
         B, T, _ = enc.shape
@@ -196,8 +237,17 @@ class BeamDecoder:
             # the JAX package's gate, decided before any launch
             psi_kernel = self.psi_kernel and pick_block(
                 V, T, ctc_probs.element_size()) is not None
+            # the int8 psi operand, quantized from the f32 log-probs and
+            # kept as its integer values in f32 for the exact product
+            probs_q8 = (ctc_prefix.quantize_probs_q8(torch.exp(ctc_lp)).float()
+                        if (amp and self.psi_quant == "int8") else None)
+            # per-frame best non-blank log-prob, the window's frontier
+            # signal (padded frames are NEG_INF there)
+            max_nb_lp = (torch.amax(ctc_lp[:, :, 1:], dim=-1)
+                         if (self.ctc_window and not psi_kernel) else None)
         else:
             ctc_lp = ctc_probs = r_state = blank_lp = None
+            probs_q8 = max_nb_lp = None
             psi_kernel = False
             psi_prev = torch.zeros((B, K), device=dev)
 
@@ -207,8 +257,8 @@ class BeamDecoder:
         # JAX package's exact op sequence)
         tables = model.precompute_decode_tables(amp=True) if amp else None
         lm_embp = lm.emb_proj_table(amp=True) if (use_lm and amp) else None
-        fold_lse = amp and (V >= 1024 if self.fold_logp == "auto"
-                            else self.fold_logp)
+        fold_lse = amp and plugin is None and (
+            V >= 1024 if self.fold_logp == "auto" else self.fold_logp)
 
         carry = {
             "last": torch.full((B, K), EOS_IDX, dtype=torch.int64, device=dev),
@@ -230,7 +280,10 @@ class BeamDecoder:
         else:
             run_tail = functools.partial(
                 beam_step_plain, probs=ctc_probs, blank_lp=blank_lp,
-                psi_kernel=psi_kernel, fold_lse=fold_lse)
+                psi_kernel=psi_kernel, fold_lse=fold_lse,
+                candidates=C if C < V else 0, window=self.ctc_window,
+                probs_q8=probs_q8, max_nb_lp=max_nb_lp,
+                att_logp=plugin is not None)
         batch_base = torch.arange(B, device=dev)[:, None] * K
 
         def tail(carry, t: int, logits, last_flat):
@@ -258,6 +311,8 @@ class BeamDecoder:
             logits, new_dec, new_align, _ = model.decode_step_beam(
                 cache, carry["dec_state"], carry["align"], last_flat, K,
                 tables=tables)
+            if plugin is not None:
+                logits = plugin.fused_log_prob(new_dec.h[-1], logits)
             out, new_lm, k_idx = tail(carry, t, logits, last_flat)
             flat_sel = (batch_base + k_idx).reshape(B * K)
             sel = lambda s: type(s)(*(x[:, flat_sel] if x is not None else None

@@ -15,7 +15,7 @@ def ctc_greedy(ctc_output: torch.Tensor) -> torch.Tensor:
 
 
 def att_greedy(model: ASR, enc: torch.Tensor, enc_len: torch.Tensor,
-               max_step: int, amp: bool = False) -> torch.Tensor:
+               max_step: int, amp: bool = False, plugin=None) -> torch.Tensor:
     """Self-fed argmax decode for up to ``max_step`` steps -> (B, max_step)
     int32 ids; a row emits <eos> for every step after its first <eos>. The
     loop stops once every row is done: the remaining steps would all write
@@ -23,7 +23,9 @@ def att_greedy(model: ASR, enc: torch.Tensor, enc_len: torch.Tensor,
     to running all ``max_step`` steps. ``amp`` (the training solver's amp
     flag, as the JAX package's validation passes it) takes the first-layer
     lookup-table route (``precompute_decode_tables``) in place of the
-    embedding gather."""
+    embedding gather. An embedding ``plugin`` with ``fuse > 0`` replaces
+    each step's logits by its fused log-probs, as the JAX package's
+    validation decode does."""
     B = enc.shape[0]
     cache, state, align = model.init_decode(enc, enc_len)
     tables = model.precompute_decode_tables() if amp else None
@@ -34,6 +36,8 @@ def att_greedy(model: ASR, enc: torch.Tensor, enc_len: torch.Tensor,
     for t in range(max_step):
         logits, state, align, _ = model.decode_step(cache, state, align, prev,
                                                     tables=tables)
+        if plugin is not None and plugin.apply_fuse:
+            logits = plugin.fused_log_prob(state.h[-1], logits)
         pred = torch.where(done, EOS_IDX, torch.argmax(logits, dim=-1))
         ids[:, t] = pred.to(torch.int32)
         done = done | (pred == EOS_IDX)

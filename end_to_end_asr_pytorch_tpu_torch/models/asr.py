@@ -121,10 +121,13 @@ class ASR(nn.Module):
     def forward(self, feat: torch.Tensor, feat_len: torch.Tensor,
                 decode_step: int, tf_rate: float = 1.0,
                 teacher: Optional[torch.Tensor] = None, *,
-                train: bool = False, generator=None):
+                train: bool = False, generator=None,
+                get_dec_state: bool = False):
         """-> (ctc_output (B, T', V) | None, encode_len (B,),
         att_output (B, U, V) | None, att_align (B, U, H, T') | None,
-        dec_state: the final top-layer hidden (B, dec_dim) | None).
+        dec_state | None): the final top-layer hidden (B, dec_dim), or with
+        ``get_dec_state`` every step's (B, U, dec_dim) (the embedding
+        plugin's input).
 
         Step 0 is fed <sos>; each later step one Bernoulli(tf_rate) coin for
         the whole batch, drawn from ``generator``, picks the teacher token or
@@ -142,16 +145,18 @@ class ASR(nn.Module):
             with record_function("asr.label_scan"):
                 att_out, att_align, dec_state = self.label_scan(
                     enc, enc_len, decode_step, tf_rate, teacher, train=train,
-                    generator=generator)
+                    generator=generator, get_dec_state=get_dec_state)
         return ctc_out, enc_len, att_out, att_align, dec_state
 
     def label_scan(self, enc: torch.Tensor, enc_len: torch.Tensor,
                    decode_step: int, tf_rate: float = 1.0,
                    teacher: Optional[torch.Tensor] = None, *,
-                   train: bool = False, generator=None):
+                   train: bool = False, generator=None,
+                   get_dec_state: bool = False):
         """The attention decoder over ``decode_step`` label steps ->
         (att_output (B, U, V), att_align (B, U, H, T'), final top-layer
-        hidden (B, dec_dim)); see ``forward``."""
+        hidden (B, dec_dim), or with ``get_dec_state`` each step's
+        (B, U, dec_dim)); see ``forward``."""
         B = enc.shape[0]
         dev = enc.device
         cache, state, align = self.init_decode(enc, enc_len)
@@ -167,7 +172,7 @@ class ASR(nn.Module):
         tables = (self.precompute_decode_tables(enc.dtype == torch.bfloat16)
                   if (self.emb_drop == 0.0 or not train) else None)
         pred = sos[:, 0]
-        logits_all, aligns = [], []
+        logits_all, aligns, queries = [], [], []
         for u in range(decode_step):
             prev = torch.where(coins[u], tf_toks[:, u], pred)
             logits, state, align, _ = self.decode_step(
@@ -176,8 +181,11 @@ class ASR(nn.Module):
             pred = torch.argmax(logits, dim=-1)
             logits_all.append(logits)
             aligns.append(align)
+            if get_dec_state:
+                queries.append(self.decoder.query(state))
         return (torch.stack(logits_all, dim=1), torch.stack(aligns, dim=1),
-                self.decoder.query(state))
+                torch.stack(queries, dim=1) if get_dec_state
+                else self.decoder.query(state))
 
     def decode_step_beam(self, cache: AttCache, state: DecoderState,
                          prev_align: torch.Tensor, prev_token: torch.Tensor,

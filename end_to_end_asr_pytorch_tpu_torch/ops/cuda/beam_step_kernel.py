@@ -25,8 +25,9 @@ vocabulary (``clusters``), and takes the beam's loop-invariant probs =
 exp(ctc_lp) beside ctc_lp. ``split_top_k`` and ``combined_log_norm`` spell
 out how the slices' top-K candidates and row normalisers are combined.
 ``beam_step_plain`` is also the beam's step tail wherever the kernel is
-not taken (amp, no CTC, ``fused_step: false``), so the beam holds one eager
-copy of it.
+not taken (amp, no CTC, ``fused_step: false``, a candidate set smaller
+than V, a psi window, the embedding plugin's fusion), so the beam holds
+one eager copy of it.
 """
 from __future__ import annotations
 
@@ -94,17 +95,29 @@ def beam_step_plain(t: int, logits: torch.Tensor,
                     blank: int = 0, probs: Optional[torch.Tensor] = None,
                     blank_lp: Optional[torch.Tensor] = None,
                     psi_kernel: bool = False,
-                    fold_lse: bool = False) -> BeamStepOut:
+                    fold_lse: bool = False, candidates: int = 0,
+                    window: int = 0,
+                    probs_q8: Optional[torch.Tensor] = None,
+                    max_nb_lp: Optional[torch.Tensor] = None,
+                    att_logp: bool = False) -> BeamStepOut:
     """Plain version of the kernel, and the beam's step tail on every route
     the kernel does not take (``decode/beam.py``). Beyond the kernel's
     contract: ``ctc_lp`` and ``r`` None decode without CTC (psi 0, no
     state); ``probs`` = exp(ctc_lp) (bf16 under amp) and the clamped blank
     column ``blank_lp`` may be passed precomputed; ``psi_kernel`` sends the
     full-vocab psi to K6; ``fold_lse`` (amp) leaves both heads unnormalised
-    and subtracts their weighted normalisers as one per-hypothesis shift."""
+    and subtracts their weighted normalisers as one per-hypothesis shift;
+    ``candidates`` C in (0, V) scores only each hypothesis's C best
+    extensions by attention + LM score (``ctc_candidates``: the joint top-K
+    runs over K x C); ``window``, ``probs_q8`` and ``max_nb_lp`` are the
+    psi options of ``ctc_prefix.score_candidates`` (``ctc_window``,
+    ``psi_quant``); ``att_logp``: ``logits`` are already the attention
+    head's log-probs (the embedding plugin's fused ones)."""
     B, K, V = logits.shape
     dev = logits.device
-    if fold_lse:
+    if att_logp:
+        logp_att = logits
+    elif fold_lse:
         logp_att = logits
         shift = aw * logsumexp(logits)[..., 0]
     else:
@@ -142,24 +155,33 @@ def beam_step_plain(t: int, logits: torch.Tensor,
     cont_keep = (vocab_ids != eos) & (vocab_ids != pad)
     masked = torch.where(cont_keep[None, None, :], step_score, NEG_INF)
     step_t = torch.full((B, K), t, device=dev)
+    cand = None
     if ctc_lp is not None:
         psi, _ = ctc_prefix.score_candidates(
             ctc_lp, r, last, step_t, blank=blank, with_state=False,
             probs=torch.exp(ctc_lp) if probs is None else probs,
-            psi_kernel=psi_kernel)
+            psi_kernel=psi_kernel, probs_q8=probs_q8, window=window,
+            max_nb_lp=max_nb_lp)
+        if 0 < candidates < V:
+            # psi over the full vocab, then the C best extensions' entries
+            _, cand = top_k(masked, candidates)               # (B, K, C)
+            psi = torch.gather(psi, 2, cand)
+            masked = torch.gather(masked, 2, cand)
         tot = base[:, :, None] + masked + cw * psi
     else:
         tot = base[:, :, None] + masked
+    nC = tot.shape[-1]
     alive = valid & (t < max_len[:, None])
     tot = torch.where(alive[..., None], tot, NEG_INF)
-    top_tot, top_idx = top_k(tot.reshape(B, K * V), K)
-    k_idx = top_idx // V
-    v_idx = top_idx % V
+    top_tot, top_idx = top_k(tot.reshape(B, K * nC), K)
+    k_idx = top_idx // nC
+    v_idx = (top_idx % nC if cand is None
+             else torch.gather(cand.reshape(B, K * nC), 1, top_idx))
     if ctc_lp is None:
         return BeamStepOut(v_idx, k_idx, top_tot > NEG_INF / 2, top_tot,
                            fin_norm_o, fin_meta_o, None,
                            torch.zeros((B, K), device=dev))
-    psi_pick = torch.gather(psi.reshape(B, K * V), 1, top_idx)
+    psi_pick = torch.gather(psi.reshape(B, K * nC), 1, top_idx)
 
     # the winners' CTC states
     if blank_lp is None:

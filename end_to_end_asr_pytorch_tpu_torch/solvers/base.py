@@ -37,6 +37,7 @@ class BaseSolver:
         self.device = resolve_device("cpu" if getattr(paras, "cpu", False)
                                      else None)
         self.step = 0
+        self.tokenizer = None   # load_data sets it
         self._log = None
 
     def verbose(self, msg):

@@ -4,8 +4,9 @@ batches with the ``decode:`` block.
 
 The beam (``decode/beam.py``: joint CTC prefix / attention scores, shallow
 fusion of the RNN-LM from ``decode.lm_config`` / ``decode.lm_path`` when
-``lm_weight > 0``; each step's tail through K8 unless amp is on or
-``decode.fused_step`` is false) decodes models with an attention decoder;
+``lm_weight > 0``, of the embedding plugin's fused log-probs when
+``model.plugin`` has ``fuse > 0``; each step's tail through K8 within its
+scope, see ``decode/beam.py``) decodes models with an attention decoder;
 a CTC-only model decodes greedily. Rows stream to ``<outdir>/<name>_sd<seed>/{split}_output.csv``
 (``idx\\thyp\\ttruth``, the best hypothesis) and ``{split}_beam.csv``
 (``idx\\trank\\tscore\\thyp``, the n-best with 4-decimal scores) batch by
@@ -25,6 +26,7 @@ from ..decode.beam import BeamDecoder
 from ..decode.greedy import ctc_greedy
 from ..models.asr import ASR
 from ..models.lm import RNNLM
+from ..models.plugin import plugin_from_config
 from ..ops.audio import create_transform
 from ..utils.jax_ckpt import load_checkpoint
 from ..utils.metrics import edit_distance
@@ -35,10 +37,6 @@ class Solver(BaseSolver):
         super().__init__(config, paras, mode)
         self.decode_cfg = dict(config.get("decode", {}))
         self.lm_weight = float(self.decode_cfg.get("lm_weight", 0.0))
-        plugin = config["model"].get("plugin")
-        if plugin and plugin.get("enabled", True):
-            raise NotImplementedError("model.plugin (embedding fusion) is not "
-                                      "ported yet")
         if int(config.get("model_parallel", 1)) > 1:
             raise NotImplementedError("model_parallel > 1 (decoding sharded "
                                       "over a device mesh) is not ported yet")
@@ -56,8 +54,13 @@ class Solver(BaseSolver):
         init = torch.Generator().manual_seed(self.paras.seed)
         self.model = ASR(self.feat_dim, self.vocab_size, self.config["model"],
                          generator=init, device=dev)
+        # the embedding plugin: fused decoding when its fuse > 0
+        self.plugin = (plugin_from_config(
+            self.config["model"], self.vocab_size, self.model.dec_dim,
+            self.tokenizer, torch.Generator().manual_seed(7), dev)
+            if self.model.enable_att else None)
         if self.paras.load:
-            ck = load_checkpoint(self.paras.load, self.model)
+            ck = load_checkpoint(self.paras.load, self.model, self.plugin)
             self.verbose(f"Loaded ASR ckpt {self.paras.load} ({ck['format']}) "
                          f"@ step {ck['global_step']}")
         self.lm = None
@@ -67,7 +70,8 @@ class Solver(BaseSolver):
             load_checkpoint(self.decode_cfg["lm_path"], self.lm)
             self.verbose(f"Loaded LM ckpt for shallow fusion "
                          f"(weight {self.lm_weight})")
-        self.decoder = (BeamDecoder(self.model, self.decode_cfg, self.lm)
+        self.decoder = (BeamDecoder(self.model, self.decode_cfg, self.lm,
+                                    plugin=self.plugin)
                         if self.model.enable_att else None)
 
     @torch.no_grad()

@@ -21,6 +21,14 @@ attention outputs go back to f32 for the losses (K3 stays f32). The
 optimizer, its state and the checkpoints keep the f32 parameters;
 validation decodes with the f32 weights, greedily through the lookup
 tables, as the JAX solver passes ``amp`` to its greedy decode.
+
+``data.audio.augment`` applies SpecAugment (``ops/augment.py``) to the
+front end's features in training steps only, its masks drawn from the
+step's generator. ``model.plugin`` adds the embedding regularizer
+(``models/plugin.py``): its ``emb_loss`` joins the total, the optimizer
+and the checkpoints take its projection (``plugin.w_proj`` /
+``plugin.b_proj``), and validation's greedy decode uses its fused
+log-probs when ``fuse > 0``.
 """
 from __future__ import annotations
 
@@ -37,7 +45,9 @@ from .base import BaseSolver
 from ..data.dataset import load_dataset
 from ..decode.greedy import att_greedy, ctc_greedy
 from ..models.asr import ASR
+from ..models.plugin import plugin_from_config
 from ..ops.amp import bf16_call
+from ..ops.augment import apply_masks, draw_masks
 from ..ops.audio import create_transform
 from ..ops.ctc import ctc_loss, ctc_loss_k3
 from ..optim import Optimizer
@@ -82,13 +92,7 @@ def asr_loss(ctc_out, enc_len, att_out, text, text_len, ctc_weight: float,
 
 def check_supported(config) -> None:
     """Raise on the options whose parts are not ported yet."""
-    h, model = config.get("hparas", {}), config["model"]
     todo = []
-    if config["data"].get("audio", {}).get("augment"):
-        todo.append("data.audio.augment (SpecAugment)")
-    plugin = model.get("plugin")
-    if plugin and plugin.get("enabled", True):
-        todo.append("model.plugin (embedding regularizer)")
     if int(config.get("model_parallel", 1)) > 1:
         todo.append("model_parallel > 1")
     fmt = config.get("ckpt_format", "native")
@@ -113,6 +117,8 @@ class Solver(BaseSolver):
         self.tf_step = int(h.get("tf_step", 1))
         self.curriculum = int(h.get("curriculum", 0))
         self.amp = bool(getattr(paras, "amp", False) or h.get("amp", False))
+        self.aug_cfg = config["data"]["audio"].get("augment")
+        self.last_masks = None  # the SpecAugment masks of the last step
 
     # ----------------------------------------------------------------- data
     def load_data(self):
@@ -132,6 +138,14 @@ class Solver(BaseSolver):
                          generator=init, device=dev)
         self.model.requires_grad_(True)
         self.params = dict(self.model.named_parameters())
+        self.plugin = plugin_from_config(
+            self.config["model"], self.vocab_size, self.model.dec_dim,
+            self.tokenizer, torch.Generator().manual_seed(self.paras.seed + 7),
+            dev)
+        if self.plugin is not None:
+            self.plugin.requires_grad_(True)
+            self.params.update({f"plugin.{n}": p for n, p in
+                                self.plugin.named_parameters()})
         self.ctc_weight = self.model.ctc_weight
         self.optimizer = Optimizer(self.config["hparas"], grad_clip=self.GRAD_CLIP)
         self.optimizer.init(self.params)
@@ -147,7 +161,7 @@ class Solver(BaseSolver):
                      f"{'K3' if use_k3 else 'plain'} | "
                      f"{'amp (bf16)' if self.amp else 'f32'}")
         if self.paras.load:
-            ck = load_checkpoint(self.paras.load, self.model)
+            ck = load_checkpoint(self.paras.load, self.model, self.plugin)
             if ck["optimizer"] is not None:
                 self.optimizer.load_state_dict(ck["optimizer"])
             self.step = ck["global_step"]
@@ -171,22 +185,35 @@ class Solver(BaseSolver):
         are profiler ranges: ``train.frontend``, the model's ``asr.*``,
         ``train.loss``, ``train.backward``, ``train.optimizer``. Under amp
         the model runs on bf16 features and parameters and its outputs go
-        back to f32."""
+        back to f32. ``data.audio.augment`` masks the f32 features first
+        (SpecAugment, drawn from the step's generator); the embedding
+        plugin adds its ``emb_loss`` on every label step's decoder state."""
         tf_rate = self.tf_rate()
         with record_function("train.frontend"):
             feat, feat_len = self.frontend(wave, wave_len)
+            if self.aug_cfg:
+                self.last_masks = draw_masks(feat_len, feat.shape[2],
+                                             self.aug_cfg, self.gen)
+                feat = apply_masks(feat, self.last_masks)
         args = (feat_len, text.shape[1], tf_rate)
-        kw = dict(teacher=text, train=True, generator=self.gen)
+        kw = dict(teacher=text, train=True, generator=self.gen,
+                  get_dec_state=self.plugin is not None)
         if self.amp:
-            ctc_out, enc_len, att_out, _, _ = bf16_call(
+            ctc_out, enc_len, att_out, _, dec_states = bf16_call(
                 self.model, feat.to(torch.bfloat16), *args, **kw)
             ctc_out = None if ctc_out is None else ctc_out.float()
             att_out = None if att_out is None else att_out.float()
+            dec_states = None if dec_states is None else dec_states.float()
         else:
-            ctc_out, enc_len, att_out, _, _ = self.model(feat, *args, **kw)
+            ctc_out, enc_len, att_out, _, dec_states = self.model(feat, *args,
+                                                                  **kw)
         with record_function("train.loss"):
             loss, metrics = asr_loss(ctc_out, enc_len, att_out, text, text_len,
                                      self.ctc_weight, self.ctc_loss_fn)
+            if self.plugin is not None:
+                metrics["emb_loss"] = self.plugin.loss(dec_states, text)
+                loss = loss + metrics["emb_loss"]
+                metrics["loss"] = loss
         for p in self.params.values():
             p.grad = None
         with record_function("train.backward"):
@@ -253,7 +280,7 @@ class Solver(BaseSolver):
         if model.enable_att:
             out["att_pred"] = att_greedy(model, enc, enc_len,
                                          int(math.ceil(U * DEV_STEP_RATIO)),
-                                         amp=self.amp)
+                                         amp=self.amp, plugin=self.plugin)
             _, _, att_out, _, _ = model(feat, feat_len, U, 1.0, teacher=text)
             out["att_loss"] = masked_ce(att_out, text)
         return out
@@ -297,8 +324,9 @@ class Solver(BaseSolver):
                 self.best_wer[head] = wer
                 save_checkpoint(self.ckpdir / f"best_{head}.pth", self.model,
                                 self.optimizer, self.step,
-                                {"wer": wer, "cer": cer})
+                                {"wer": wer, "cer": cer}, plugin=self.plugin)
         save_checkpoint(self.ckpdir / "latest.pth", self.model, self.optimizer,
                         self.step,
-                        {f"wer_{h}": self.best_wer[h] for h in self.best_wer})
+                        {f"wer_{h}": self.best_wer[h] for h in self.best_wer},
+                        plugin=self.plugin)
         self.progress("DEV | " + " | ".join(msg))

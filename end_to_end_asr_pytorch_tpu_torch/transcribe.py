@@ -14,7 +14,10 @@ or a JSON BPE), and its ``decode`` block reaches the beam as it is:
 ``amp: auto`` (the default) decodes in bf16 on the card and in f32 with
 ``--cpu``, each beam step's tail is one K8 launch where its scope holds
 (CTC on, amp off) unless ``fused_step: false``, and ``psi_kernel: true``
-takes K6 where its gate opens off K8's route.
+takes K6 where its gate opens off K8's route. Beyond the root tool, a
+``model.plugin`` block is read as ``main --test`` reads it: the plugin's
+projection comes from the checkpoint and ``fuse > 0`` decodes with its
+fused log-probs.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from .data.audio_io import load_audio
 from .decode.beam import BeamDecoder
 from .decode.greedy import ctc_greedy
 from .models.asr import ASR
+from .models.plugin import plugin_from_config
 from .ops.audio import create_transform
 from .utils.device import resolve_device
 from .utils.text import load_text_encoder
@@ -69,13 +73,17 @@ def main(argv=None):
     tokenizer = load_text_encoder(**cfg["data"]["text"])
     frontend, feat_dim = create_transform(cfg["data"]["audio"], device=device)
     model = ASR(feat_dim, tokenizer.vocab_size, cfg["model"], device=device)
-    load_checkpoint(args.load, model)
+    plugin = (plugin_from_config(cfg["model"], tokenizer.vocab_size,
+                                 model.dec_dim, tokenizer, device=device)
+              if model.enable_att else None)
+    load_checkpoint(args.load, model, plugin)
 
     decode_cfg = dict(cfg.get("decode", {}))
     decode_cfg["lm_weight"] = 0.0
     if args.beam:
         decode_cfg["beam_size"] = args.beam
-    decoder = BeamDecoder(model, decode_cfg) if model.enable_att else None
+    decoder = (BeamDecoder(model, decode_cfg, plugin=plugin)
+               if model.enable_att else None)
 
     files = collect_files(args.audio)
     if not files:

@@ -24,7 +24,7 @@ from __future__ import annotations
 import json
 import struct
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch.nn as nn
@@ -154,21 +154,24 @@ def is_torch_checkpoint(path: str) -> bool:
     return False
 
 
-def load_checkpoint(path: str, module: nn.Module) -> Dict[str, Any]:
+def load_checkpoint(path: str, module: nn.Module,
+                    plugin: Optional[nn.Module] = None) -> Dict[str, Any]:
     """Fill ``module`` (the port's ASR or RNNLM) from ``path`` in either
-    format. Returns {'optimizer' (a torch checkpoint's saved port optimizer
-    state, else None), 'global_step', 'format'}."""
+    format, and ``plugin`` (an ASR's embedding plugin) from it as well:
+    from a native plugin solver's {'asr', 'plugin'} tree (a plugin part is
+    skipped without ``plugin``), or by suffix from a torch checkpoint
+    (``utils/torch_ckpt.py``). Returns {'optimizer' (a torch checkpoint's
+    saved port optimizer state, else None), 'global_step', 'format'}."""
     p = Path(path)
     if p.is_dir():
         raise NotImplementedError(
             f"{path}: orbax checkpoint directories are not ported yet")
     if is_torch_checkpoint(str(p)):
-        load = load_lm_checkpoint if isinstance(module, RNNLM) else \
-            load_torch_checkpoint
-        ck = load(str(p), module)
+        ck = (load_lm_checkpoint(str(p), module) if isinstance(module, RNNLM)
+              else load_torch_checkpoint(str(p), module, plugin))
         return {"optimizer": ck.get("optimizer"),
                 "global_step": ck["global_step"], "format": "torch"}
     ck = read_native(str(p))
-    load_arrays(module, tree_arrays(ck["model"]))
+    load_arrays(module, tree_arrays(ck["model"]), plugin)
     return {"optimizer": None, "global_step": ck["global_step"],
             "format": "native"}

@@ -226,13 +226,32 @@ def load_asr_state_dict(sd: Dict[str, Any], model: ASR) -> ASR:
                   "torch checkpoint")
 
 
-def load_torch_checkpoint(path: str, model: ASR) -> Dict[str, Any]:
+def load_plugin_state_dict(sd: Dict[str, Any], plugin) -> None:
+    """Fill the embedding plugin's projection from a state_dict by suffix
+    (``latent_transform`` / ``emb_proj`` (the reference's) / ``plugin``;
+    nn.Linear's (emb, dec) layout, the port's own); where it has none, the
+    plugin keeps its initial values, as the JAX loader does."""
+    res = KeyResolver(sd)
+    w = res.find(["latent_transform.weight", "emb_proj.weight",
+                  "plugin.w_proj"], shape=tuple(plugin.w_proj.shape),
+                 required=False)
+    if w is not None:
+        b = res.find(["latent_transform.bias", "emb_proj.bias",
+                      "plugin.b_proj"], shape=tuple(plugin.b_proj.shape))
+        assign(plugin, {"w_proj": w, "b_proj": b}, "torch checkpoint (plugin)")
+
+
+def load_torch_checkpoint(path: str, model: ASR,
+                          plugin=None) -> Dict[str, Any]:
     """torch.load a reference checkpoint ({'model': state_dict, ...} or a
-    bare state_dict) into ``model``. Returns {'model', 'optimizer' (the
-    saved optimizer state, or None), 'global_step'}."""
+    bare state_dict) into ``model`` (and an embedding ``plugin``). Returns
+    {'model', 'optimizer' (the saved optimizer state, or None),
+    'global_step'}."""
     sd, step, opt = _read(path)
-    return {"model": load_asr_state_dict(sd, model), "optimizer": opt,
-            "global_step": step}
+    load_asr_state_dict(sd, model)
+    if plugin is not None:
+        load_plugin_state_dict(sd, plugin)
+    return {"model": model, "optimizer": opt, "global_step": step}
 
 
 def translate_lm_state_dict(sd: Dict[str, Any], lm: RNNLM
@@ -360,14 +379,19 @@ def asr_state_dict(model: ASR) -> "OrderedDict[str, torch.Tensor]":
 
 
 def save_checkpoint(path, model, optimizer=None, global_step: int = 0,
-                    metrics: Optional[Dict[str, float]] = None) -> None:
+                    metrics: Optional[Dict[str, float]] = None,
+                    plugin=None) -> None:
     """Write ``model`` (an ASR or an RNNLM) to ``path`` in the reference
-    layout (see the module docstring), through a temporary file renamed
-    into place."""
+    layout (see the module docstring), an ASR's embedding ``plugin`` as
+    ``plugin.w_proj`` (emb, dec) / ``plugin.b_proj``, through a temporary
+    file renamed into place."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     sd = lm_state_dict(model) if isinstance(model, RNNLM) else \
         asr_state_dict(model)
+    if plugin is not None:
+        sd["plugin.w_proj"] = plugin.w_proj.detach().cpu().clone()
+        sd["plugin.b_proj"] = plugin.b_proj.detach().cpu().clone()
     ck: Dict[str, Any] = {"model": sd, "global_step": int(global_step)}
     if optimizer is not None:
         ck["optimizer"] = _to_cpu(optimizer.state_dict())

@@ -6,8 +6,11 @@ Keys are the paths ``jax.tree_util.keystr`` prints for ``ASRParams`` /
 attributes carry the same names (``encoder.layers.0.fwd.w_ih``). Matmul
 weights keep the JAX (in, out) layout; only convolution kernels change
 layout, to PyTorch's: VGG HWIO -> OIHW, CNN (k, in, out) -> (out, in, k),
-the location conv (k, 1, F) -> (F, 1, k). This module imports no JAX: the
-caller flattens the tree.
+the location conv (k, 1, F) -> (F, 1, k). The JAX plugin solver's tree
+``{'asr': ASRParams, 'plugin': PluginParams}`` (``['asr'].encoder...``,
+``['plugin'].w_proj``) splits into the ASR's arrays and the embedding
+plugin's, whose ``w_proj`` (dec, emb) becomes ``nn.Linear``'s (emb, dec).
+This module imports no JAX: the caller flattens the tree.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ from ..models.lm import RNNLM
 
 
 def port_name(path: str) -> str:
-    """'.encoder.layers[0].fwd.w_ih' -> 'encoder.layers.0.fwd.w_ih'."""
+    """'.encoder.layers[0].fwd.w_ih' -> 'encoder.layers.0.fwd.w_ih';
+    "['asr'].embed" -> 'asr.embed'."""
+    path = re.sub(r"\['(\w+)'\]", r".\1", path)
     return re.sub(r"\[(\d+)\]", r".\1", path).lstrip(".")
 
 
@@ -56,12 +61,45 @@ def assign(module: nn.Module, arrays: Dict[str, np.ndarray],
     return module
 
 
-def load_arrays(module: nn.Module, arrays: Dict[str, Any]) -> nn.Module:
-    """Copy ``{jax_path: array}`` (JAX layout) into ``module``."""
-    got = {}
-    for k, v in arrays.items():
-        name = port_name(k)
-        got[name] = _to_port_layout(name, np.asarray(v, dtype=np.float32))
+def split_plugin(arrays: Dict[str, Any]):
+    """{port name: array} of an ASR, or of the plugin solver's
+    {'asr', 'plugin'} tree (names ``asr.*`` / ``plugin.*``) -> (the ASR's
+    arrays, the plugin's arrays or None)."""
+    if not any(k.startswith("asr.") for k in arrays):
+        return arrays, None
+    asr = {k[4:]: v for k, v in arrays.items() if k.startswith("asr.")}
+    plugin = {k[7:]: v for k, v in arrays.items() if k.startswith("plugin.")}
+    extra = sorted(set(arrays) - {f"asr.{k}" for k in asr}
+                   - {f"plugin.{k}" for k in plugin})
+    if extra:
+        raise KeyError(f"weight bridge: unexpected {extra[:10]}")
+    return asr, plugin
+
+
+def load_plugin_arrays(plugin: nn.Module, arrays: Dict[str, Any]
+                       ) -> nn.Module:
+    """Copy the JAX ``PluginParams`` arrays {w_proj (dec, emb), b_proj}
+    into the port's ``EmbeddingRegularizer``."""
+    got = {k: np.asarray(v, dtype=np.float32) for k, v in arrays.items()}
+    if "w_proj" in got:
+        got["w_proj"] = got["w_proj"].T
+    return assign(plugin, got, "weight bridge (plugin)")
+
+
+def load_arrays(module: nn.Module, arrays: Dict[str, Any],
+                plugin: Optional[nn.Module] = None) -> nn.Module:
+    """Copy ``{jax_path: array}`` (JAX layout) into ``module``; a plugin
+    solver's tree also fills ``plugin`` (its plugin part is skipped when
+    ``plugin`` is None; a plugin without one in the tree raises)."""
+    named = {port_name(k): v for k, v in arrays.items()}
+    named, plug = split_plugin(named)
+    if plugin is not None:
+        if plug is None:
+            raise KeyError("weight bridge: the checkpoint holds no plugin "
+                           "parameters")
+        load_plugin_arrays(plugin, plug)
+    got = {name: _to_port_layout(name, np.asarray(v, dtype=np.float32))
+           for name, v in named.items()}
     return assign(module, got, "weight bridge")
 
 

@@ -313,9 +313,7 @@ def _set_option(tmp_path, where, key, value):
 
 
 @pytest.mark.parametrize("where,key,value", [
-    ("audio", "augment", {"time_mask": 2}),
-    ("model", "plugin", {"enabled": True}), ("root", "model_parallel", 2),
-    ("root", "ckpt_format", "orbax")])
+    ("root", "model_parallel", 2), ("root", "ckpt_format", "orbax")])
 def test_unported_training_options_raise(tmp_path, where, key, value):
     with pytest.raises(NotImplementedError, match=key.lstrip("-")):
         train.main(_set_option(tmp_path, where, key, value))
