@@ -291,6 +291,34 @@ Phases, each printing one JSON line:
   train_plugin - train_att with the embedding plugin (a hash table of
                 dim 256 for V=31, weight 1.0): K7 96 + 96 launches a step;
                 kernel vs plain total loss and emb_loss within rel 1e-5
+  dist_train  - data parallelism (parallel/mesh.py): a world-1 NCCL group
+                in this process, 3 Solver.train_steps of train's batch
+                against a solver with no group (deterministic cuDNN and
+                PyTorch algorithms in both, which also makes two runs with
+                no group equal): losses and parameters within rel 1e-6,
+                train's launches a step, the all-reduce of the gradients'
+                95 MB timed (CUDA events, device ms by kernel)
+  dist_train_w2 - two ranks of 16 rows spawned on the one card in a gloo
+                group (NCCL on two cards where there are two), encoder
+                dropout 0.1 and SpecAugment: after 3 steps the ranks bit-
+                identical to each other and to the same split computed in
+                one process with no group; against world 1 loss rel 1e-5
+                and parameters within 1e-3 of their max; each rank K1 1,
+                K2 6, K3 1, K2b 6 a step; host ms per step and all-reduce
+                ms
+  dist_pad    - train's batch with 2 rows made zero-length, with
+                attention.use_pallas_train (K1, K2, K2b, K3, K7 96 + 96):
+                gradients finite and bit-identical whether those rows'
+                samples are zero or random; against the 30 real rows loss
+                rel 1e-5, gradients within 1e-3 of their max; a zero-
+                length row decoded through K5 + K8 and through K6 (amp,
+                V=5120): finite top-1, the other rows bit-identical
+                whatever the dummy row holds
+  dist_entry  - torchrun --standalone --nproc_per_node=1 of ... .main (2
+                steps and a validation on a generated corpus: one
+                log.jsonl) and of ... .main --test (random weights from
+                --seed), beside the same --test without torchrun, the
+                three at once: CSVs equal
   options_entry - on a generated corpus: the hash table from python -m
                 end_to_end_asr_pytorch_tpu_torch.utils.bert_embedding
                 --method hash, ... .main 2 steps with SpecAugment and the
@@ -3861,18 +3889,40 @@ def convert_to_flac(root):
     return waves
 
 
+TORCHRUN = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node=1"]
+
+
+def run_mains(runs, timeout=600):
+    """Run the port's ``main`` once per ``(what, launcher, args)`` at the
+    same time (``launcher``: [] or ``TORCHRUN``) -> {what: (stdout,
+    seconds)}; a non-zero exit fails."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    procs = {what: subprocess.Popen(
+        [*(launcher or [sys.executable]), "-m",
+         "end_to_end_asr_pytorch_tpu_torch.main", *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for what, launcher, args in runs}
+    out = {}
+    try:
+        for what, p in procs.items():
+            stdout, stderr = p.communicate(timeout=timeout)
+            check(p.returncode == 0, f"{what} exited {p.returncode}: "
+                  f"{stderr[-2000:]}")
+            out[what] = (stdout, time.perf_counter() - t0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
 def run_main(args, what, timeout=600):
     """``python -m end_to_end_asr_pytorch_tpu_torch.main`` with ``args``
     from the repository root -> (stdout, seconds); a non-zero exit fails."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "end_to_end_asr_pytorch_tpu_torch.main",
-         *args], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=timeout)
-    check(proc.returncode == 0, f"{what} exited {proc.returncode}: "
-          f"{proc.stderr[-2000:]}")
-    return proc.stdout, time.perf_counter() - t0
+    return run_mains([(what, [], args)], timeout)[what]
 
 
 def phase_recipe_entry(seed, phases, n_utts=32):
@@ -3994,6 +4044,467 @@ def phase_recipe_entry(seed, phases, n_utts=32):
               "k8_launches": k8, "summary": summary})
 
 
+# ------------------------------------------------------------ data parallel
+DIST_STEPS = 3
+# dist_train_w2's model: train's with encoder dropout 0.1 (and SpecAugment)
+W2_MODEL_CFG = {**MODEL_CFG, "encoder": {**MODEL_CFG["encoder"],
+                                         "dropout": [0.1] * 3}}
+
+
+def train_launches(batch):
+    """The kernel launches of one f32 ``train`` step of bench.py's LSTM
+    model on ``batch`` rows: K1 1, K3 1, K2 and K2b once per encoder scan
+    (times the waves of a grid that does not fit), no other kernel."""
+    calls = scan_calls(batch)
+    n_scans = len(MODEL_CFG["encoder"]["dim"]) * 2
+    out = {k: 0 for k in launch_counters()}
+    out.update({"fbank_fused": 1, "ctc_loss_fused": 1,
+                "lstm_scan_fused": n_scans * calls["lstm_scan_fused"],
+                "lstm_bwd_fused": n_scans * calls["lstm_bwd_fused"]})
+    return out
+
+
+def deterministic(on=True):
+    """Deterministic cuDNN algorithms and deterministic PyTorch ops (those
+    with no such version warn): the backward's atomics (cuDNN's
+    convolution gradients, the embedding's index backward) otherwise
+    reorder sums from run to run, which the data-parallel phases'
+    comparisons would read as a difference."""
+    import torch
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def dist_steps(solver, data, rows=None, n_steps=DIST_STEPS):
+    """``n_steps`` train steps on ``data`` (a rank's rows, ``rows`` as the
+    loaders give them): each step's loss, kernel launches and host ms (the
+    step synchronised)."""
+    import torch
+    counters = launch_counters()
+    losses, launches, ms = [], [], []
+    for _ in range(n_steps):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = solver.train_step(*data, rows=rows)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: fn.launches for k, fn in counters.items()})
+        losses.append(float(m["loss"]))
+    return losses, launches, ms
+
+
+def split_steps(solver, data, world, n_steps=DIST_STEPS):
+    """World ``world``'s arithmetic in this process, with no group: each
+    step every rank's rows go through the forward and backward from the
+    same generator state (draws at the global shape, losses over the
+    global counts), the ranks' gradients are summed in rank order and the
+    optimizer takes one step. Returns each step's loss (the ranks' sum)."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    text, tl = data[2], data[3]
+    B = len(tl)
+    per = B // world
+    counts = torch.stack([(tl > 0).sum(), (text != 0).sum()]).to(
+        torch.float32)
+    losses = []
+    for _ in range(n_steps):
+        state = solver.gen.get_state()
+        grads, loss = None, None
+        for r in range(world):
+            lo, hi = r * per, (r + 1) * per
+            solver.gen.set_state(state)
+            for p in solver.params.values():
+                p.grad = None
+            with mesh.batch_rows((lo, hi, B)):
+                _, part = solver._forward_loss(
+                    *(t[lo:hi].contiguous() for t in data),
+                    solver.tf_rate(), counts)
+            part.backward()
+            g = {k: p.grad for k, p in solver.params.items()}
+            grads = g if grads is None else {k: grads[k] + g[k] for k in g}
+            loss = part.detach() if loss is None else loss + part.detach()
+        for k, p in solver.params.items():
+            p.grad = grads[k]
+        solver.optimizer.step(solver.params)
+        losses.append(float(loss))
+    return losses
+
+
+def params_rel_err(got, ref):
+    """The largest, over the parameters, of max |got - ref| over the
+    reference's max magnitude, and its parameter."""
+    errs = {k: float((got[k].detach().to(ref[k].device) - ref[k]).abs().max()
+                     / ref[k].abs().max().clamp(min=1e-30)) for k in ref}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def allreduce_times(solver, iters=5):
+    """CUDA-event ms and profiler device ms of one ``all_reduce_grads`` of
+    the solver's gradients (every rank must call it as often)."""
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    fn = lambda: mesh.all_reduce_grads(solver.params)
+    return {"allreduce_ms": cuda_ms(fn, iters, warmup=1),
+            "allreduce_device_ms": device_ms(fn, iters, by_kernel=True),
+            "allreduce_mb": 4 * sum(p.numel()
+                                    for p in solver.params.values()) / 1e6}
+
+
+def phase_dist_train(batch, seed, device):
+    """A world-1 NCCL group in this process: DIST_STEPS steps of
+    ``Solver.train_step`` on train's batch against the same steps of a
+    solver with no group (same seed, deterministic algorithms in both):
+    losses and parameters within rel 1e-6, the launches of train's step,
+    the all-reduce's ms per step, and a profiled step's breakdown (as
+    train's, with the group's two ranges). Also how far two runs with no
+    group drift apart without deterministic algorithms."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        data = train_batch(batch, seed + 6, device)
+        runs = []
+        for det in (False, False, True, True):
+            deterministic(det)
+            plain = make_solver(device, seed, Path(d))
+            ref_losses, _, ref_ms = dist_steps(plain, data)
+            runs.append({k: v.detach().clone()
+                         for k, v in plain.params.items()})
+            del plain
+        ref = runs[2]
+        mesh.init(device, backend="nccl", init_method=f"file://{d}/store",
+                  rank=0, world=1)
+        try:
+            solver = make_solver(device, seed, Path(d))
+            losses, launches, ms = dist_steps(solver, data)
+            got = {k: v.detach().clone() for k, v in solver.params.items()}
+            times = allreduce_times(solver)
+            deterministic(False)
+            train_breakdown(solver, data, "dist_train", ranges=TRAIN_RANGES
+                            + ("train.counts", "train.all_reduce"))
+        finally:
+            mesh.shutdown()
+            deterministic(False)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    p_rel, worst = params_rel_err(got, ref)
+    rerun_rel, _ = params_rel_err(runs[3], ref)
+    nondet_rel, nondet_worst = params_rel_err(runs[1], runs[0])
+    expect = train_launches(batch)
+    emit({"phase": "dist_train", "backend": "nccl", "world": 1,
+          "batch": batch, "steps": DIST_STEPS, "card": CARD,
+          "losses": losses, "loss_rel_diff": loss_rel,
+          "params_rel_diff": p_rel, "worst_param": worst,
+          "params_rel_diff_no_group_rerun": rerun_rel,
+          "params_rel_diff_rerun_nondeterministic": nondet_rel,
+          "worst_param_nondeterministic": nondet_worst,
+          "ms_per_step": ms, "ms_per_step_no_group": ref_ms, **times,
+          "launches_per_step": launches[-1]})
+    check(loss_rel <= 1e-6 and p_rel <= 1e-6,
+          f"dist_train: world-1 group vs no group loss {loss_rel}, "
+          f"params {p_rel} ({worst})")
+    check(all(st == expect for st in launches),
+          f"dist_train: every step must launch {expect}, got {launches}")
+
+
+def dist_w2_child(rank, world, backend, store, out_dir, seed, batch):
+    """One rank of dist_train_w2: its rows of train's batch, DIST_STEPS
+    steps, the all-reduce timed; writes its losses, launches, times and
+    parameters to ``out_dir``."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    mesh.init(dev, backend=backend, init_method=store, rank=rank,
+              world=world, timeout=300)
+    deterministic()
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            solver = make_solver(dev, seed, Path(d), W2_MODEL_CFG,
+                                 augment=AUG_CFG)
+        per = batch // world
+        lo, hi = rank * per, (rank + 1) * per
+        data = tuple(t[lo:hi].contiguous()
+                     for t in train_batch(batch, seed + 6, dev))
+        losses, launches, ms = dist_steps(solver, data, rows=(lo, hi, batch))
+        times = allreduce_times(solver)
+        torch.save({"losses": losses, "launches": launches, "ms": ms,
+                    **times, "params": {k: v.detach().cpu() for k, v in
+                                        solver.params.items()}},
+                   f"{out_dir}/rank{rank}.pt")
+    finally:
+        mesh.shutdown()
+
+
+def phase_dist_train_w2(batch, seed, device, world=2):
+    """Two ranks of 16 rows each (gloo over CUDA tensors on the one card, or
+    NCCL on two cards where there are two), encoder dropout 0.1 and
+    SpecAugment on, against world 1 in this process on the same seed
+    (deterministic algorithms in both): after DIST_STEPS steps the ranks'
+    losses and parameters bit-identical to each other and to the same
+    split computed in this process with no group (``split_steps``), and
+    against world 1 loss rel <= 1e-5 and parameters within 1e-3 of their
+    max (summing two half-batch gradients rounds otherwise than one
+    whole-batch sum: ~2e-4 of a bias's max after Adadelta's three steps);
+    each rank's launches those of train's step."""
+    import torch
+    import torch.multiprocessing as mp
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        deterministic()
+        ref_solver = make_solver(device, seed, Path(d), W2_MODEL_CFG,
+                                 augment=AUG_CFG)
+        data = train_batch(batch, seed + 6, device)
+        ref_losses, _, ref_ms = dist_steps(ref_solver, data)
+        ref = {k: v.detach() for k, v in ref_solver.params.items()}
+        del ref_solver
+        split = make_solver(device, seed, Path(d), W2_MODEL_CFG,
+                            augment=AUG_CFG)
+        split_losses = split_steps(split, data, world)
+        deterministic(False)
+        emul = {k: v.detach() for k, v in split.params.items()}
+        del split
+        t0 = time.perf_counter()
+        ctx = mp.spawn(dist_w2_child, args=(world, backend, f"file://{d}/store",
+                                            d, seed, batch),
+                       nprocs=world, join=False)
+        try:
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() - t0 < 600,
+                      "dist_train_w2: the ranks ran past 600 s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        res = [torch.load(f"{d}/rank{r}.pt") for r in range(world)]
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(res[0]["losses"], ref_losses))
+    p_rel, worst = params_rel_err(res[0]["params"], ref)
+    split_rel, split_worst = params_rel_err(emul, ref)
+    exact = (res[0]["losses"] == split_losses and all(
+        torch.equal(res[0]["params"][k].to(device), emul[k]) for k in emul))
+    same = all(r["losses"] == res[0]["losses"] and all(
+        torch.equal(r["params"][k], res[0]["params"][k]) for k in ref)
+        for r in res[1:])
+    expect = train_launches(batch // world)
+    emit({"phase": "dist_train_w2", "backend": backend, "world": world,
+          "cards": min(world, torch.cuda.device_count()),
+          "rows_per_rank": batch // world, "steps": DIST_STEPS,
+          "card": CARD, "losses": res[0]["losses"],
+          "losses_world1": ref_losses, "loss_rel_diff": loss_rel,
+          "params_rel_diff": p_rel, "worst_param": worst,
+          "ranks_bit_identical": same,
+          "equals_split_in_one_process": exact,
+          "split_params_rel_diff": split_rel, "split_worst_param": split_worst,
+          "ms_per_step": [r["ms"] for r in res],
+          "ms_per_step_world1": ref_ms,
+          **{k: [r[k] for r in res] for k in ("allreduce_ms",
+                                                "allreduce_device_ms")},
+          "allreduce_mb": res[0]["allreduce_mb"], "wall_seconds": wall,
+          "launches_per_step": [r["launches"][-1] for r in res]})
+    check(loss_rel <= 1e-5, f"dist_train_w2: loss rel diff {loss_rel}")
+    check(p_rel <= 1e-3, f"dist_train_w2: params rel diff {p_rel} ({worst})")
+    check(same, "dist_train_w2: the ranks' parameters differ")
+    check(exact, "dist_train_w2: the ranks' losses or parameters differ "
+          "from the same split computed in one process")
+    check(all(st == expect for r in res for st in r["launches"]),
+          f"dist_train_w2: every rank's step must launch {expect}, got "
+          f"{[r['launches'] for r in res]}")
+
+
+def pad_rows(tensors, rows, seed):
+    """Two copies of (wave, wave_len, text, text_len) with ``rows`` made
+    zero-length (lengths and labels 0): one with zero waves (the padding a
+    loader adds), one with random samples there, which a length of 0 must
+    hide."""
+    import torch
+    zero = [t.clone() for t in tensors]
+    for t in zero:
+        t[rows] = 0
+    noisy = [t.clone() for t in zero]
+    g = torch.Generator(device=noisy[0].device).manual_seed(seed)
+    noisy[0][rows] = (0.1 * torch.randn(
+        noisy[0][rows].shape, generator=g, device=noisy[0].device)).to(
+        noisy[0].dtype)
+    return zero, noisy
+
+
+def pad_decode(frontend, seed, device, name, model_cfg, decode_cfg, vocab,
+               kernel):
+    """Beam decoding of 4 waves whose last is zero-length, its samples zero
+    and random: finite top-1 scores, ``kernel`` launched, and the real rows'
+    tokens, lengths and scores identical whatever the dummy row holds."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.decode.beam import BeamDecoder
+    model, lm = slice_models(frontend, seed, vocab, device, model_cfg)
+    decoder = BeamDecoder(model, decode_cfg, lm=lm)
+    w, wl = make_waves(4, seed + 2)
+    rows = torch.tensor([3], device=device)
+    outs, launches = [], None
+    counters = launch_counters()
+    for wave, wave_len in pad_rows(
+            [torch.from_numpy(w).to(device), torch.from_numpy(wl).to(device)],
+            rows, seed):
+        for fn in counters.values():
+            fn.launches = 0
+        with torch.no_grad():
+            outs.append(decoder.forward(*frontend(wave, wave_len)))
+        launches = launches or {k: fn.launches for k, fn in counters.items()
+                                if fn.launches}
+    a, b = outs
+    top1 = a.scores[:, 0]
+    same = (torch.equal(a.tokens[:3], b.tokens[:3])
+            and torch.equal(a.lengths[:3], b.lengths[:3])
+            and torch.equal(a.scores[:3], b.scores[:3]))
+    ok = bool(torch.isfinite(top1).all()) and bool((top1 > -1e29).all())
+    check(ok and same and launches.get(kernel, 0) > 0,
+          f"dist_pad {name}: top-1 finite {ok}, real rows identical {same}, "
+          f"launches {launches}")
+    return {"launches": launches, "dummy_top1": float(top1[3]),
+            "real_rows_identical": same}
+
+
+def phase_dist_pad(frontend, batch, seed, device, n_pad=2):
+    """train's batch with ``n_pad`` rows made zero-length (the padding of a
+    global batch; attention.use_pallas_train, so K1, K2, K2b, K3 and K7 all
+    see them): every gradient finite and bit-identical whether those rows'
+    waves are zero or random (they add exactly nothing), and against the
+    batch without those rows the loss within rel 1e-5 and the gradients
+    within 1e-3 of their max (another batch shape sums in another order);
+    then decoding with a zero-length row through K5 + K8 and through K6."""
+    import torch
+    cfg = with_attention(use_pallas_train=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        solver = make_solver(device, seed, Path(d), cfg)
+    data = train_batch(batch, seed + 6, device)
+    pad = torch.argsort(data[1])[:n_pad]         # never the longest wave
+    keep = torch.tensor([i for i in range(batch) if i not in set(
+        pad.tolist())], device=device)
+    zero, noisy = pad_rows(data, pad, seed)
+    real = [t[keep].contiguous() for t in data]
+    counters = launch_counters()
+    out = []
+    deterministic()
+    for rows in (zero, noisy, real):
+        for fn in counters.values():
+            fn.launches = 0
+        solver.gen.manual_seed(seed + 1)
+        for p in solver.params.values():
+            p.grad = None
+        _, loss = solver._forward_loss(*rows, solver.tf_rate(), None)
+        loss.backward()
+        out.append((float(loss.detach()), {k: p.grad.detach().clone()
+                                  for k, p in solver.params.items()},
+                    {k: fn.launches for k, fn in counters.items()
+                     if fn.launches}))
+    deterministic(False)
+    (lz, gz, launches), (ln, gn, _), (lr, gr, _) = out
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in list(gz.values()) + list(gn.values()))
+    exact = lz == ln and all(torch.equal(gz[k], gn[k]) for k in gz)
+    g_rel, worst = params_rel_err(gz, gr)
+    loss_rel = abs(lz - lr) / abs(lr)
+    dec = {name: pad_decode(frontend, seed, device, name, *args)
+           for name, *args in (
+               ("k5_k8", with_attention(use_pallas=True), DECODE_CFG, V_CHAR,
+                "beam_step_fused"),
+               ("k6", MODEL_CFG, {**DECODE_CFG, "amp": True,
+                                  "psi_kernel": True}, V_SUB, "psi_fused"))}
+    emit({"phase": "dist_pad", "batch": batch, "zero_length_rows": n_pad,
+          "padded_rows": pad.tolist(), "loss_padded": lz, "loss_real": lr,
+          "loss_rel_diff": loss_rel, "grads_finite": finite,
+          "grads_identical_zero_vs_random_dummy": exact,
+          "grads_rel_diff_vs_real_rows": g_rel, "worst_grad": worst,
+          "launches": launches, "decode": dec})
+    check(finite, "dist_pad: non-finite gradients with zero-length rows")
+    check(exact, "dist_pad: the zero-length rows' contents moved the loss "
+          "or a gradient")
+    check(loss_rel <= 1e-5 and g_rel <= 1e-3,
+          f"dist_pad: padded vs real loss {loss_rel}, gradients {g_rel} "
+          f"({worst})")
+    check(launches.get("loc_att_fwd_fused") == U_TRAIN
+          and launches.get("loc_att_bwd_fused") == U_TRAIN
+          and launches.get("ctc_loss_fused") == 1
+          and launches.get("fbank_fused") == 1,
+          f"dist_pad: launches {launches}")
+
+
+def phase_dist_entry(seed, n_utts=8):
+    """``torchrun --standalone --nproc_per_node=1`` for ``main`` (bench.py's
+    model, 2 steps and a validation on a generated corpus: a world-1 NCCL
+    group, one log.jsonl, a latest.pth) and ``main --test`` (bench.py's
+    model, random weights from ``seed``), whose CSVs must equal those of
+    ``main --test`` without torchrun (tokens identical, scores within
+    1e-4); the three runs at the same time."""
+    import torch
+    import yaml
+    from end_to_end_asr_pytorch_tpu_torch.data.synthetic import generate_corpus
+    from end_to_end_asr_pytorch_tpu_torch.models.asr import ASR
+    from end_to_end_asr_pytorch_tpu_torch.utils.text import load_text_encoder
+    from end_to_end_asr_pytorch_tpu_torch.utils.torch_ckpt import asr_state_dict
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = Path(d)
+        corpus = generate_corpus(str(d / "synth"), n_train=2 * n_utts,
+                                 n_dev=n_utts, n_test=n_utts, seed=seed)
+        cfg = {"data": {"corpus": {"name": "synthetic", "path": str(corpus),
+                                   "train_split": ["train-clean"],
+                                   "dev_split": ["dev-clean"],
+                                   "test_split": ["test-clean"],
+                                   "batch_size": n_utts},
+                        "audio": AUDIO_CFG,
+                        "text": {"mode": "character",
+                                 "vocab_file": str(corpus / "vocab.txt")}},
+               "model": MODEL_CFG,
+               "hparas": {**TRAIN_HPARAS, "valid_step": 2, "max_step": 2,
+                          "PROGRESS_STEP": 1},
+               "decode": {k: v for k, v in DECODE_CFG.items()
+                          if k != "lm_weight"}}
+        (d / "dp.yaml").write_text(yaml.safe_dump(cfg))
+        dirs = ["--config", str(d / "dp.yaml"), "--seed", str(seed),
+                "--logdir", str(d / "log"), "--ckpdir", str(d / "ckpt")]
+        # --test decodes bench.py's model with random weights from seed, so
+        # the three runs go side by side on the card
+        vocab = load_text_encoder("character",
+                                  str(corpus / "vocab.txt")).vocab_size
+        model = ASR(AUDIO_CFG["feat_dim"], vocab, MODEL_CFG,
+                    generator=torch.Generator().manual_seed(seed))
+        torch.save({"model": asr_state_dict(model), "global_step": 0},
+                   str(d / "asr.pth"))
+        runs = run_mains([("torchrun main", TORCHRUN, dirs)] + [
+            (how, launcher, [*dirs, "--test", "--load", str(d / "asr.pth"),
+                             "--outdir", str(d / how)])
+            for how, launcher in (("plain", []), ("torchrun", TORCHRUN))])
+        out, train_s = runs.pop("torchrun main")
+        check("| world 1 (nccl)" in out, f"torchrun main: {out[-1000:]}")
+        logs = list((d / "log").rglob("log.jsonl"))
+        entries = [json.loads(ln) for ln in logs[0].read_text().splitlines()]
+        per_step = sum(e["step"] == 1 and e["name"] == "loss" for e in entries)
+        check(len(logs) == 1 and per_step == 1
+              and (d / "ckpt" / f"dp_sd{seed}" / "latest.pth").exists(),
+              f"torchrun main: logs {logs}, step-1 loss entries {per_step}")
+        secs = {how: r[1] for how, r in runs.items()}
+        csvs = {how: {s: read_test_csvs({
+            k: (d / how / f"dp_sd{seed}" / f"{s}_{k}.csv").read_text()
+            for k in ("output", "beam")}) for s in ("dev", "test")}
+            for how in runs}
+    same = all(csvs["plain"][s][0] == csvs["torchrun"][s][0]
+               for s in ("dev", "test"))
+    diff = max(abs(csvs["plain"][s][1][k] - csvs["torchrun"][s][1][k])
+               for s in ("dev", "test") for k in csvs["plain"][s][1])
+    rows = [csvs["torchrun"][s][2] for s in ("dev", "test")]
+    emit({"phase": "dist_entry", "utts_per_split": n_utts,
+          "train_seconds": train_s, "test_seconds": secs,
+          "log_entries": len(entries), "hyps_identical": same,
+          "best_score_max_abs_diff": diff, "nbest_rows": rows})
+    check(same and diff <= 1e-4,
+          f"dist_entry: torchrun --test vs plain: hyps identical {same}, "
+          f"best score diff {diff}")
+    check(rows == [8 * n_utts] * 2, f"dist_entry: n-best rows {rows}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -4009,7 +4520,8 @@ def main():
                             "slice_gru,entry_gru,slice_gru_amp,test_entry,"
                             "train,train_aug,train_att,train_plugin,"
                             "train_gru,train_amp,"
-                            "train_gru_amp,train_att_amp,train_entry,"
+                            "train_gru_amp,train_att_amp,dist_train,"
+                            "dist_train_w2,dist_pad,dist_entry,train_entry,"
                             "options_entry,"
                             "lm_scan,lm_train,lm_train_gru,flac_entry,"
                             "lm_entry",
@@ -4243,6 +4755,14 @@ def main():
                                with_attention(use_pallas_train=True),
                                amp=True)
         record(launches, ("loc_att_fwd_bf16", "loc_att_bwd_bf16"))
+    if "dist_train" in phases:
+        phase_dist_train(args.batch, args.seed, device)
+    if "dist_train_w2" in phases:
+        phase_dist_train_w2(args.batch, args.seed, device)
+    if "dist_pad" in phases:
+        phase_dist_pad(frontend, args.batch, args.seed, device)
+    if "dist_entry" in phases:
+        phase_dist_entry(args.seed)
     if "train_entry" in phases:
         phase_train_entry(args.seed)
     if "options_entry" in phases:

@@ -2,6 +2,7 @@
 decoder, ``data/flac.py``)."""
 from __future__ import annotations
 
+import os
 import struct
 from pathlib import Path
 
@@ -69,6 +70,42 @@ def write_wav(path: str, wave: np.ndarray, sr: int = 16000) -> None:
     hdr += b"data" + struct.pack("<I", len(pcm))
     with open(path, "wb") as f:
         f.write(hdr + pcm)
+
+
+def num_samples(path: str) -> int | None:
+    """The length ``load_audio`` returns, read from the file's header
+    without decoding: a WAV's data chunk over its frame size, a FLAC
+    STREAMINFO's total samples, an NPY's shape. ``None`` when the header
+    does not say (a FLAC stream of unknown length)."""
+    suffix = Path(path).suffix.lower()
+    if suffix == ".npy":
+        return int(np.load(path, mmap_mode="r").shape[0])
+    with open(path, "rb") as f:
+        if suffix == ".flac":
+            head = f.read(42)
+            if len(head) < 42 or head[:4] != b"fLaC" or head[4] & 0x7F:
+                return None
+            si = head[8:]
+            n = ((si[13] & 0xF) << 32) | int.from_bytes(si[14:18], "big")
+            return n or None
+        head = f.read(12)
+        if suffix != ".wav" or head[:4] != b"RIFF" or head[8:] != b"WAVE":
+            raise ValueError(f"unsupported audio format: {path}")
+        end = os.fstat(f.fileno()).st_size
+        pos, frame, size = 12, None, None
+        while pos + 8 <= end:
+            f.seek(pos)
+            hdr = f.read(24)
+            cid, n = hdr[:4], struct.unpack_from("<I", hdr, 4)[0]
+            if cid == b"fmt ":
+                _, n_ch, _, _, _, bits = struct.unpack_from("<HHIIHH", hdr, 8)
+                frame = n_ch * (bits // 8)
+            elif cid == b"data":
+                size = min(n, end - pos - 8)
+            pos += 8 + n + (n & 1)
+    if frame is None or size is None:
+        raise ValueError(f"missing fmt/data chunk: {path}")
+    return size // frame
 
 
 def load_audio(path: str) -> tuple[np.ndarray, int]:

@@ -23,6 +23,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 
 from .librispeech import LibriDataset
+from ..parallel import mesh
 from ..ops.audio import create_transform
 from ..utils.text import load_text_encoder
 
@@ -75,9 +76,11 @@ class AudioBatchLoader:
                  shuffle: bool = True, ascending: bool = False,
                  seed: int = 0, cache_waves: bool = True, n_jobs: int = 0,
                  bucketing: bool = True,
-                 cache_bytes: int = DEFAULT_CACHE_BYTES):
+                 cache_bytes: int = DEFAULT_CACHE_BYTES,
+                 rank: int = 0, world: int = 1):
         self.ds = dataset
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.n_jobs = n_jobs
         self.frame_quantum = frame_quantum
         self.text_quantum = text_quantum
@@ -126,10 +129,32 @@ class AudioBatchLoader:
         return s_pad
 
     def make_batch(self, ids: List[int]) -> Dict[str, Any]:
-        waves = [self._wave(i) for i in ids]
-        texts = [self.ds.text_ids(i) for i in ids]
-        s_pad = self._pad_samples(max(len(w) for w in waves))
-        u_pad = _round_up(max(len(t) for t in texts), self.text_quantum)
+        """The batch of dataset rows ``ids``; over several ranks, this
+        rank's rows of it (``_rank_rows``)."""
+        if self.world == 1:
+            return self._assemble(ids)
+        rows, lo, hi = _rank_rows(ids, self.rank, self.world)
+        s_max = max(self.ds.num_samples(i) for i in ids)
+        u_max = max(len(self.ds.text_ids(i)) for i in ids)
+        b = self._assemble(rows, s_max, u_max)
+        b["rows"] = (lo, hi, len(ids))
+        return b
+
+    def _assemble(self, ids: List[Optional[int]], s_max: Optional[int] = None,
+                  u_max: Optional[int] = None) -> Dict[str, Any]:
+        """Rows ``ids`` (``None``: a zero-length dummy row), padded to the
+        longest of them or to ``s_max`` samples and ``u_max`` labels."""
+        waves = [np.zeros(0, np.int16) if i is None else self._wave(i)
+                 for i in ids]
+        texts = [[] if i is None else self.ds.text_ids(i) for i in ids]
+        if s_max is None:
+            s_max = max(len(w) for w in waves)
+        elif max(len(w) for w in waves) > s_max:
+            raise ValueError(f"a wave of rows {ids} is longer than its "
+                             f"file's header says ({s_max} samples)")
+        s_pad = self._pad_samples(s_max)
+        u_pad = _round_up(max(len(t) for t in texts) if u_max is None
+                          else u_max, self.text_quantum)
         B = len(ids)
         wave_dtype = (np.int16 if all(w.dtype == np.int16 for w in waves)
                       else np.float32)
@@ -147,8 +172,9 @@ class AudioBatchLoader:
             text_len[b] = len(t)
         return {"wave": wave, "wave_len": wave_len, "text": text,
                 "text_len": text_len,
-                "name": [self.ds.utt_id(i) for i in ids],
-                "text_raw": [self.ds.text_raw(i) for i in ids]}
+                "name": ["" if i is None else self.ds.utt_id(i) for i in ids],
+                "text_raw": ["" if i is None else self.ds.text_raw(i)
+                             for i in ids]}
 
     def epoch_iter(self, shuffle: Optional[bool] = None
                    ) -> Iterator[Dict[str, Any]]:
@@ -186,6 +212,14 @@ class AudioBatchLoader:
         return self.epoch_iter()
 
 
+def _rank_rows(ids: List[int], rank: int, world: int):
+    """(this rank's rows of ``ids`` padded to a multiple of ``world`` with
+    ``None`` dummies, as ``parallel/mesh.pad_batch_to`` pads, lo, hi)."""
+    padded = list(ids) + [None] * ((-len(ids)) % world)
+    lo, hi = mesh.row_range(len(padded), rank, world)
+    return padded[lo:hi], lo, hi
+
+
 def _make_corpus(corpus_cfg: Dict[str, Any], splits, tokenizer) -> LibriDataset:
     name = corpus_cfg.get("name", "librispeech").lower()
     if name in ("librispeech", "synthetic"):  # synthetic uses libri layout
@@ -195,31 +229,36 @@ def _make_corpus(corpus_cfg: Dict[str, Any], splits, tokenizer) -> LibriDataset:
 
 def load_dataset(n_jobs: int, ascending: bool, corpus: Dict[str, Any],
                  audio: Dict[str, Any], text: Dict[str, Any],
-                 mode: str = "train", frame_quantum: int = 64):
+                 mode: str = "train", frame_quantum: int = 64,
+                 rank: int = 0, world: int = 1):
     """``mode="train"``: (tr_set, dv_set, feat_dim, vocab_size, tokenizer,
     msg), ``ascending`` giving the train set curriculum order.
     ``mode="test"``: the dev and test splits in that place, both unshuffled
-    (``corpus.test_split`` defaults to ``dev_split``)."""
+    (``corpus.test_split`` defaults to ``dev_split``). Over ``world``
+    ranks, ``corpus.batch_size`` is the global batch and each loader
+    yields rank ``rank``'s rows of it."""
     tokenizer = load_text_encoder(text["mode"], text["vocab_file"])
     _, feat_dim = create_transform(audio)
     bs = int(corpus.get("batch_size", 8))
     bucketing = bool(corpus.get("bucketing", True))
     cache_bytes = int(corpus.get("cache_bytes", DEFAULT_CACHE_BYTES))
+    shard = dict(rank=rank, world=world)
     if mode == "train":
         tr_ds = _make_corpus(corpus, corpus["train_split"], tokenizer)
         tr_set = AudioBatchLoader(tr_ds, bs, frame_quantum=frame_quantum,
                                   shuffle=not ascending, ascending=ascending,
                                   n_jobs=n_jobs, bucketing=bucketing,
-                                  cache_bytes=cache_bytes)
+                                  cache_bytes=cache_bytes, **shard)
         dv_ds = _make_corpus(corpus, corpus["dev_split"], tokenizer)
     else:
         tr_ds = _make_corpus(corpus, corpus["dev_split"], tokenizer)
         tr_set = AudioBatchLoader(tr_ds, bs, frame_quantum=frame_quantum,
-                                  shuffle=False, cache_bytes=cache_bytes)
+                                  shuffle=False, cache_bytes=cache_bytes,
+                                  **shard)
         dv_ds = _make_corpus(corpus, corpus.get("test_split",
                                                 corpus["dev_split"]), tokenizer)
     dv_set = AudioBatchLoader(dv_ds, bs, frame_quantum=frame_quantum,
-                              shuffle=False, cache_bytes=cache_bytes)
+                              shuffle=False, cache_bytes=cache_bytes, **shard)
     a_name, b_name = ("train", "dev") if mode == "train" else ("dev", "test")
     msg = [
         f"I/O spec  | audio feat = {audio.get('feat_type', 'fbank')} "
@@ -238,8 +277,10 @@ class TextBatchLoader:
     ``np.random.RandomState(seed)`` (``shuffle=False``: ascending)."""
 
     def __init__(self, dataset, batch_size: int, text_quantum: int = 16,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, seed: int = 0, rank: int = 0,
+                 world: int = 1):
         self.ds = dataset
+        self.rank, self.world = rank, world
         self.batch_size = batch_size
         self.text_quantum = text_quantum
         self.shuffle = shuffle
@@ -252,14 +293,24 @@ class TextBatchLoader:
         return len(self.batches)
 
     def make_batch(self, ids: List[int]) -> Dict[str, Any]:
-        texts = [self.ds.text_ids(i) for i in ids]
-        u_pad = _round_up(max(len(t) for t in texts), self.text_quantum)
+        """The batch of rows ``ids``; over several ranks, this rank's rows
+        of it, padded to the global batch's longest text, with ``rows``
+        as the audio batches carry it and the global batch's ``tokens``."""
+        u_max = max(len(self.ds.text_ids(i)) for i in ids)
+        out = {}
+        if self.world > 1:
+            out["tokens"] = sum(len(self.ds.text_ids(i)) for i in ids)
+            n = len(ids)
+            ids, lo, hi = _rank_rows(ids, self.rank, self.world)
+            out["rows"] = (lo, hi, n)
+        texts = [[] if i is None else self.ds.text_ids(i) for i in ids]
+        u_pad = _round_up(u_max, self.text_quantum)
         text = np.zeros((len(ids), u_pad), np.int32)
         text_len = np.zeros((len(ids),), np.int32)
         for b, t in enumerate(texts):
             text[b, :len(t)] = t
             text_len[b] = len(t)
-        return {"text": text, "text_len": text_len}
+        return {"text": text, "text_len": text_len, **out}
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         order = list(range(len(self.batches)))
@@ -310,16 +361,19 @@ def _make_textset(corpus_cfg: Dict[str, Any], splits, tokenizer):
     return _make_corpus(corpus_cfg, splits, tokenizer)
 
 
-def load_textset(corpus: Dict[str, Any], text: Dict[str, Any]):
+def load_textset(corpus: Dict[str, Any], text: Dict[str, Any],
+                 rank: int = 0, world: int = 1):
     """LM training data: (tr_set, dv_set, vocab_size, tokenizer, msg), the
     train set shuffled per epoch, the dev set in ascending order
-    (``corpus.batch_size`` defaults to 32)."""
+    (``corpus.batch_size`` defaults to 32, the global batch over ``world``
+    ranks: each loader yields rank ``rank``'s rows)."""
     tokenizer = load_text_encoder(text["mode"], text["vocab_file"])
     bs = int(corpus.get("batch_size", 32))
     tr_ds = _make_textset(corpus, corpus["train_split"], tokenizer)
     dv_ds = _make_textset(corpus, corpus["dev_split"], tokenizer)
     msg = [f"LM corpus | train {len(tr_ds)} / dev {len(dv_ds)} sentences | "
            f"vocab {tokenizer.vocab_size}"]
-    return (TextBatchLoader(tr_ds, bs), TextBatchLoader(dv_ds, bs,
-                                                        shuffle=False),
+    shard = dict(rank=rank, world=world)
+    return (TextBatchLoader(tr_ds, bs, **shard),
+            TextBatchLoader(dv_ds, bs, shuffle=False, **shard),
             tokenizer.vocab_size, tokenizer, msg)

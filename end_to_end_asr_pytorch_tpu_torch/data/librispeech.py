@@ -13,7 +13,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import List, Sequence, Tuple
 
-from .audio_io import load_audio
+from .audio_io import load_audio, num_samples
 
 
 def read_text(trans_file: Path) -> dict:
@@ -67,6 +67,12 @@ class LibriDataset:
     def load_wave(self, i: int):
         wave, sr = load_audio(str(self.items[i][0]))
         return wave
+
+    def num_samples(self, i: int) -> int:
+        """``len(load_wave(i))``, from the file's header where it says
+        (decoding only a FLAC stream of unknown length)."""
+        n = num_samples(str(self.items[i][0]))
+        return len(self.load_wave(i)) if n is None else n
 
     def text_ids(self, i: int) -> List[int]:
         return self.items[i][1]

@@ -21,6 +21,18 @@ card unless ``--cpu`` is given (no card is an error). ``--amp`` trains the
 ASR in bf16 (as ``hparas.amp: True``; ``--test`` and ``--lm`` ignore it, as
 the JAX package's decode and LM solvers do). ``--cudnn-ctc`` and
 ``--no-pin`` are accepted for compatibility and ignored.
+
+Data parallel over N cards (or N CPU processes with ``--cpu``), one
+process per card, each mode as above:
+
+  python -m torch.distributed.run --standalone --nproc_per_node=N \
+      -m end_to_end_asr_pytorch_tpu_torch.main --config ... [--lm | --test]
+
+``corpus.batch_size`` stays the global batch: each rank takes its rows,
+the losses are normalised over the global batch and the gradients summed
+(NCCL on the card, gloo on the CPU), so a step equals the one-process
+step. Rank 0 alone prints, logs and writes checkpoints and decode CSVs.
+``model_parallel > 1`` is not ported.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ import numpy as np
 import torch
 
 from .config import load_config
+from .parallel import mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,13 +85,19 @@ def main(argv=None):
     else:
         from .solvers.train_asr import Solver
     solver = Solver(config, paras)
-    if not paras.no_msg:
-        dev = solver.device
-        name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-        print(f"[device] {dev} ({name})", flush=True)
-    solver.load_data()
-    solver.set_model()
-    return solver.exec()
+    try:
+        if not solver.quiet():
+            dev = solver.device
+            name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else "cpu")
+            world = (f" | world {solver.world} ({mesh.backend()})"
+                     if mesh.active() else "")
+            print(f"[device] {dev} ({name}){world}", flush=True)
+        solver.load_data()
+        solver.set_model()
+        return solver.exec()
+    finally:
+        mesh.shutdown()
 
 
 if __name__ == "__main__":

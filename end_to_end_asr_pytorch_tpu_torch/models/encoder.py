@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..ops import rnn as rnn_ops
 from ..ops.amp import dot_f32
+from ..parallel import mesh
 from ..utils.init import const, uniform
 
 
@@ -43,14 +44,15 @@ def _as_list(v, n):
 
 def dropout(h: torch.Tensor, rate: float, generator: torch.Generator
             ) -> torch.Tensor:
-    """Inverted dropout, keep mask drawn from ``generator`` (on h's device).
-    A training step must pass its generator: without one it raises rather
-    than train with no dropout."""
+    """Inverted dropout, keep mask drawn from ``generator`` (on h's device)
+    at the global batch's shape (``parallel/mesh.rand``: h's batch axis is
+    0, or 1 within ``mesh.time_major``). A training step must pass its
+    generator: without one it raises rather than train with no dropout."""
     if generator is None:
         raise ValueError(f"dropout {rate} in a training step needs a "
                          "torch.Generator")
     keep = 1.0 - rate
-    u = torch.rand(h.shape, generator=generator, device=h.device)
+    u = mesh.rand(h.shape, generator, h.device)
     return h * (u < keep).to(h.dtype) / keep
 
 

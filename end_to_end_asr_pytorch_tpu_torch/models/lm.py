@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..ops import rnn as rnn_ops
 from ..ops.amp import dot_f32, round_bf16
+from ..parallel import mesh
 from ..utils.init import const, uniform
 from .encoder import dropout
 
@@ -119,5 +120,6 @@ class RNNLM(nn.Module):
         for i, w in enumerate(self.cells):
             h = scan(w, h, mask)
             if drop and i < self.n_layers - 1:
-                h = dropout(h, self.dropout, generator)
+                with mesh.time_major():
+                    h = dropout(h, self.dropout, generator)
         return self._logits(h.transpose(0, 1))

@@ -68,16 +68,19 @@ class EmbeddingRegularizer(nn.Module):
         return proj * torch.rsqrt(torch.sum(proj * proj, -1, keepdim=True)
                                   + 1e-8)
 
-    def loss(self, dec_states: torch.Tensor,
-             targets: torch.Tensor) -> torch.Tensor:
+    def loss(self, dec_states: torch.Tensor, targets: torch.Tensor,
+             count: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``weight`` x the mean of 1 - cos between the projected decoder
         states (B, U, dec_dim) and the targets' (B, U) embeddings, over
-        the non-pad targets."""
+        the non-pad targets (their sum divided by ``count``, the global
+        batch's number of them, when given)."""
         cos = torch.sum(self.project(dec_states) * self.table[targets.long()],
                         dim=-1)
         mask = (targets != 0).to(cos.dtype)
+        if count is None:
+            count = torch.sum(mask)
         return (self.weight * torch.sum((1.0 - cos) * mask)
-                / torch.clamp(torch.sum(mask), min=1.0))
+                / torch.clamp(count, min=1.0))
 
     def fused_log_prob(self, dec_state: torch.Tensor,
                        char_logits: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,8 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from ..parallel import mesh
+
 
 class Masks(NamedTuple):
     freq_start: torch.Tensor   # (B, freq_mask_n) int64
@@ -55,9 +57,9 @@ def max_time_width(feat_len: torch.Tensor, ratio: float, tn: int
 
 
 def _below(limit: torch.Tensor, generator) -> torch.Tensor:
-    """One uniform integer in [0, limit) per entry of ``limit`` (>= 1)."""
-    u = torch.rand(limit.shape, generator=generator, device=limit.device,
-                   dtype=torch.float64)
+    """One uniform integer in [0, limit) per entry of ``limit`` (>= 1), a
+    row per utterance."""
+    u = mesh.rand(limit.shape, generator, limit.device, torch.float64)
     return torch.minimum((u * limit).to(torch.int64), limit - 1)
 
 
@@ -67,14 +69,14 @@ def draw_masks(feat_len: torch.Tensor, F: int, cfg: Dict[str, Any],
     ``feat_len`` (B,): a frequency mask's width is uniform in [0, fw] and its
     start in [0, max(F - width, 1)); a time mask's width is
     min(uniform [0, tw], max_time_width) and its start in
-    [0, max(len - width, 1))."""
+    [0, max(len - width, 1)). Every draw is taken at the global batch's
+    shape (``parallel/mesh.py``)."""
     fn, fw, tn, tw, ratio = mask_params(cfg, F)
     B = feat_len.shape[0]
     dev = feat_len.device
-    kw = dict(generator=generator, device=dev)
-    f_width = torch.randint(0, fw + 1, (B, fn), **kw)
+    f_width = mesh.randint(fw + 1, (B, fn), generator, dev)
     f_start = _below(torch.clamp(F - f_width, min=1), generator)
-    t_width = torch.minimum(torch.randint(0, tw + 1, (B, tn), **kw),
+    t_width = torch.minimum(mesh.randint(tw + 1, (B, tn), generator, dev),
                             max_time_width(feat_len, ratio, tn)[:, None])
     t_start = _below(torch.clamp(feat_len.to(torch.int64)[:, None] - t_width,
                                  min=1), generator)

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/<name>-<hash>.so``
 (the hash covers the source, the shared ``csrc/*.cuh`` headers and the
-flags, so an edited source or header rebuilds).
+flags, so an edited source or header rebuilds). A lock on the build
+directory (``utils/locks.dir_lock``) lets one process build while the
+others (the ranks of a data-parallel job) wait and load what it built.
 Nothing is built or loaded at import time. No fast-math flags: the decode's
 CTC prefix scores rely on f32 subnormals and full-precision ``expf``/``logf``.
 """
@@ -17,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ...utils.locks import dir_lock
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -46,7 +50,12 @@ def build(names: Iterable[str]) -> float:
     """Compile every named source that has no up-to-date library, all
     ``nvcc`` processes started together. Returns the wall seconds taken."""
     t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with dir_lock(BUILD_DIR):
+        _build_locked(names)
+    return time.perf_counter() - t0
+
+
+def _build_locked(names: Iterable[str]) -> None:
     procs = []
     for name in names:
         out = _target(name)
@@ -67,7 +76,6 @@ def build(names: Iterable[str]) -> float:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return time.perf_counter() - t0
 
 
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

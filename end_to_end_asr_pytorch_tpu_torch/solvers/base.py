@@ -7,6 +7,11 @@ name ``<config stem or --name>_sd<seed>``, log and checkpoint directories
 Logs go to ``<logdir>/<exp>/log.jsonl``, one JSON object per entry
 (``{"step", "name", "value"}``, the value a dict of scalars or a text),
 in place of the JAX package's TensorBoard writer.
+
+Under ``torchrun`` the solver joins the process group
+(``parallel/mesh.init``: ``self.rank`` of ``self.world``); only rank 0
+prints, logs and writes checkpoints (``save``, which every rank calls:
+a barrier follows the write).
 """
 from __future__ import annotations
 
@@ -15,7 +20,9 @@ from pathlib import Path
 from typing import Any, Dict, Union
 
 from ..config import merge_hparas
+from ..parallel import mesh
 from ..utils.device import resolve_device
+from ..utils.torch_ckpt import save_checkpoint
 
 
 class BaseSolver:
@@ -36,21 +43,28 @@ class BaseSolver:
             self.outdir.mkdir(parents=True, exist_ok=True)
         self.device = resolve_device("cpu" if getattr(paras, "cpu", False)
                                      else None)
+        self.rank, self.world = mesh.init(self.device)
         self.step = 0
         self.tokenizer = None   # load_data sets it
         self._log = None
 
+    def quiet(self) -> bool:
+        return getattr(self.paras, "no_msg", False) or self.rank != 0
+
     def verbose(self, msg):
-        if not getattr(self.paras, "no_msg", False):
+        if not self.quiet():
             for m in (msg if isinstance(msg, list) else [msg]):
                 print(f"[INFO] {m}", flush=True)
 
     def progress(self, msg: str):
-        if not getattr(self.paras, "no_msg", False):
+        if not self.quiet():
             print(f"[{self.step}] {msg}", flush=True)
 
     def write_log(self, log_name: str, value: Union[Dict[str, float], str]):
-        """A dict of scalars or a text, as one line of log.jsonl."""
+        """A dict of scalars or a text, as one line of log.jsonl (rank 0
+        only)."""
+        if self.rank != 0:
+            return
         if isinstance(value, dict):
             value = {k: float(v) for k, v in value.items() if v is not None}
             if not value:
@@ -60,6 +74,13 @@ class BaseSolver:
         self._log.write(json.dumps({"step": self.step, "name": log_name,
                                     "value": value}) + "\n")
         self._log.flush()
+
+    def save(self, name: str, model, **kw):
+        """``save_checkpoint`` to ``<ckpdir>/<name>`` on rank 0; every rank
+        waits for the write."""
+        if self.rank == 0:
+            save_checkpoint(self.ckpdir / name, model, **kw)
+        mesh.barrier()
 
     def close(self):
         if self._log is not None:

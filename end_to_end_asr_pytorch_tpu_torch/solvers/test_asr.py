@@ -1,6 +1,11 @@
 """Decode solver (``main --test``), the port of the JAX package's
-``solvers/test_asr.py`` on one device: the dev and test splits decoded in
-batches with the ``decode:`` block.
+``solvers/test_asr.py``: the dev and test splits decoded in batches with
+the ``decode:`` block. Under ``torchrun`` each rank decodes its rows of the
+global batch (``corpus.batch_size``, padded with zero-length rows to a
+multiple of the world, as the JAX package pads for its mesh); rank 0
+gathers every rank's hypotheses and n-best lists and writes them in the
+global row order, the dummy rows dropped, and the summary's WER / CER and
+K8 launches cover every rank.
 
 The beam (``decode/beam.py``: joint CTC prefix / attention scores, shallow
 fusion of the RNN-LM from ``decode.lm_config`` / ``decode.lm_path`` when
@@ -15,6 +20,7 @@ route and, on the card, K8's launches.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -28,6 +34,7 @@ from ..models.asr import ASR
 from ..models.lm import RNNLM
 from ..models.plugin import plugin_from_config
 from ..ops.audio import create_transform
+from ..parallel import mesh
 from ..utils.jax_ckpt import load_checkpoint
 from ..utils.metrics import edit_distance
 
@@ -44,7 +51,9 @@ class Solver(BaseSolver):
     def load_data(self):
         (self.dv_set, self.tt_set, self.feat_dim, self.vocab_size,
          self.tokenizer, msg) = load_dataset(self.paras.njobs, False,
-                                             mode="test", **self.config["data"])
+                                             mode="test", rank=self.rank,
+                                             world=self.world,
+                                             **self.config["data"])
         self.verbose(msg)
 
     def set_model(self):
@@ -89,27 +98,39 @@ class Solver(BaseSolver):
         k8 = 0
         t0 = time.time()
         out_file = self.outdir / f"{split_name}_output.csv"
-        with open(out_file, "w", encoding="utf-8") as f_out, \
-                open(self.outdir / f"{split_name}_beam.csv", "w",
-                     encoding="utf-8") as f_beam:
-            f_out.write("idx\thyp\ttruth\n")
-            f_beam.write("idx\trank\tscore\thyp\n")
+        lead = self.rank == 0
+        with contextlib.ExitStack() as files:
+            f_out = f_beam = None
+            if lead:
+                f_out = files.enter_context(open(out_file, "w",
+                                                 encoding="utf-8"))
+                f_beam = files.enter_context(open(
+                    self.outdir / f"{split_name}_beam.csv", "w",
+                    encoding="utf-8"))
+                f_out.write("idx\thyp\ttruth\n")
+                f_beam.write("idx\trank\tscore\thyp\n")
             wrote_nbest = False
             for batch in dataset:
                 out = self._run_batch(batch)
+                out.update({k: batch[k] for k in ("name", "text_raw",
+                                                  "text_len", "wave_len")})
+                out["k8"] = 0
                 if self.decoder is not None:
                     fused = self.decoder.last_fused
-                    k8 += self.decoder.last_k8_launches
-                for i in range(len(batch["name"])):
-                    if batch["text_len"][i] == 0:
+                    out["k8"] = self.decoder.last_k8_launches
+                out = mesh.gather_batch(out)
+                k8 += out["k8"]
+                for i in range(len(out["name"])):
+                    if out["text_len"][i] == 0:
                         continue
-                    name = batch["name"][i]
-                    ref = batch["text_raw"][i]
+                    name = out["name"][i]
+                    ref = out["text_raw"][i]
                     hyp = out["best"][i]
-                    f_out.write(f"{name}\t{hyp}\t{ref}\n")
-                    for k, (h, s) in enumerate(out["nbest"][i]):
-                        f_beam.write(f"{name}\t{k}\t{s:.4f}\t{h}\n")
-                        wrote_nbest = True
+                    if lead:
+                        f_out.write(f"{name}\t{hyp}\t{ref}\n")
+                        for k, (h, s) in enumerate(out["nbest"][i]):
+                            f_beam.write(f"{name}\t{k}\t{s:.4f}\t{h}\n")
+                    wrote_nbest = wrote_nbest or bool(out["nbest"][i])
                     e = self._er_one(hyp, ref, "wer")
                     if e is not None:
                         wer_sum += e
@@ -118,9 +139,9 @@ class Solver(BaseSolver):
                     if e is not None:
                         cer_sum += e
                         cer_n += 1
-                    audio_sec += float(batch["wave_len"][i]) / 16000.0
+                    audio_sec += float(out["wave_len"][i]) / 16000.0
                     n_utts += 1
-            if not wrote_nbest:
+            if lead and not wrote_nbest:
                 f_beam.write("\n")
         dt = time.time() - t0
         wer = wer_sum / wer_n if wer_n else 0.0

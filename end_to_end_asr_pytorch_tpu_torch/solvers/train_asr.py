@@ -29,12 +29,19 @@ step's generator. ``model.plugin`` adds the embedding regularizer
 and the checkpoints take its projection (``plugin.w_proj`` /
 ``plugin.b_proj``), and validation's greedy decode uses its fused
 log-probs when ``fuse > 0``.
+
+Under ``torchrun`` (``parallel/mesh.py``) each rank trains on its rows of
+the global batch and takes the JAX sharded step's values: the losses
+divide by the global batch's counts, the random draws take its shape, the
+gradients are summed over the ranks before the clip, and validation
+gathers every rank's predictions, so every rank reaches the same rates and
+checkpoint decisions (rank 0 writes).
 """
 from __future__ import annotations
 
 import math
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,28 +58,47 @@ from ..ops.augment import apply_masks, draw_masks
 from ..ops.audio import create_transform
 from ..ops.ctc import ctc_loss, ctc_loss_k3
 from ..optim import Optimizer
+from ..parallel import mesh
 from ..utils.metrics import cal_er
 from ..utils.jax_ckpt import load_checkpoint
-from ..utils.torch_ckpt import save_checkpoint
 
 DEV_STEP_RATIO = 1.2  # decode-step headroom during validation
 
 
-def masked_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Cross-entropy with ignore_index=0 (pad), mean over valid tokens."""
+def masked_ce(logits: torch.Tensor, targets: torch.Tensor,
+              count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy with ignore_index=0 (pad), summed over valid tokens and
+    divided by their number, or by ``count`` (the global batch's)."""
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     mask = (targets != 0).to(nll.dtype)
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if count is None:
+        count = torch.sum(mask)
+    return torch.sum(nll * mask) / torch.clamp(count, min=1.0)
+
+
+def global_counts(text: torch.Tensor, text_len: torch.Tensor
+                  ) -> Optional[torch.Tensor]:
+    """The global batch's (rows with a label, label tokens), f32, summed
+    over the ranks: the normalisers of ``asr_loss``; ``None`` without a
+    process group (each loss counts its own batch)."""
+    if not mesh.active():
+        return None
+    return mesh.all_reduce_sum(torch.stack(
+        [(text_len > 0).sum(), (text != 0).sum()]).to(torch.float32))
 
 
 def asr_loss(ctc_out, enc_len, att_out, text, text_len, ctc_weight: float,
-             ctc_loss_fn) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             ctc_loss_fn, counts: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The joint loss of the JAX solver's ``loss_fn``: per-row CTC NLL over
     max(text_len, 1), rows with NLL >= 1e29 dropped, summed over the number
-    of rows with a label; plus the masked CE of the attention head."""
+    of rows with a label; plus the masked CE of the attention head. With
+    ``counts`` (``global_counts``) both divide by the global batch's
+    numbers, so the ranks' losses sum to the global one."""
     valid = text_len > 0
-    n_valid = torch.clamp(valid.sum(), min=1)
+    n_valid = (torch.clamp(valid.sum(), min=1) if counts is None
+               else torch.clamp(counts[0], min=1.0))
     metrics: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), device=text.device)
     if ctc_out is not None:
@@ -83,7 +109,8 @@ def asr_loss(ctc_out, enc_len, att_out, text, text_len, ctc_weight: float,
         total = total + ctc_weight * ctc_l
         metrics["ctc_loss"] = ctc_l
     if att_out is not None:
-        att_l = masked_ce(att_out, text)
+        att_l = masked_ce(att_out, text,
+                          None if counts is None else counts[1])
         total = total + (1.0 - ctc_weight) * att_l
         metrics["att_loss"] = att_l
     metrics["loss"] = total
@@ -125,6 +152,7 @@ class Solver(BaseSolver):
         (self.tr_set, self.dv_set, self.feat_dim, self.vocab_size,
          self.tokenizer, msg) = load_dataset(self.paras.njobs,
                                              self.curriculum > 0,
+                                             rank=self.rank, world=self.world,
                                              **self.config["data"])
         self.verbose(msg)
 
@@ -178,7 +206,8 @@ class Solver(BaseSolver):
                 torch.from_numpy(batch["text"]).to(dev, torch.int64),
                 torch.from_numpy(batch["text_len"]).to(dev, torch.int64))
 
-    def train_step(self, wave, wave_len, text, text_len) -> Dict[str, torch.Tensor]:
+    def train_step(self, wave, wave_len, text, text_len,
+                   rows=None) -> Dict[str, torch.Tensor]:
         """One optimizer step on a batch: front end, teacher-forced model,
         joint loss, backward, update. Returns device scalars; ``grad_norm``
         is the raw gradient's global norm, taken before the clip. Its parts
@@ -187,8 +216,38 @@ class Solver(BaseSolver):
         the model runs on bf16 features and parameters and its outputs go
         back to f32. ``data.audio.augment`` masks the f32 features first
         (SpecAugment, drawn from the step's generator); the embedding
-        plugin adds its ``emb_loss`` on every label step's decoder state."""
+        plugin adds its ``emb_loss`` on every label step's decoder state.
+
+        Under a process group the batch is this rank's rows (``rows``, the
+        loader's ``(lo, hi, total)``): the random draws take the global
+        batch's shape, the losses divide by the global counts
+        (``train.counts``), and the gradients and the loss metrics are
+        summed over the ranks before the optimizer (``train.all_reduce``),
+        so every rank takes the world-1 step."""
         tf_rate = self.tf_rate()
+        counts = None
+        if mesh.active():
+            with record_function("train.counts"):
+                counts = global_counts(text, text_len)
+        with mesh.batch_rows(rows):
+            metrics, loss = self._forward_loss(wave, wave_len, text,
+                                               text_len, tf_rate, counts)
+        for p in self.params.values():
+            p.grad = None
+        with record_function("train.backward"):
+            loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh.active():
+            with record_function("train.all_reduce"):
+                metrics = {k: v.clone() for k, v in metrics.items()}
+                mesh.all_reduce_grads(self.params, list(metrics.values()))
+        with record_function("train.optimizer"):
+            metrics["grad_norm"] = self.optimizer.step(self.params)
+        metrics["tf_rate"] = torch.tensor(tf_rate)
+        return metrics
+
+    def _forward_loss(self, wave, wave_len, text, text_len, tf_rate, counts):
+        """(metrics, loss) of the step's forward (see ``train_step``)."""
         with record_function("train.frontend"):
             feat, feat_len = self.frontend(wave, wave_len)
             if self.aug_cfg:
@@ -209,20 +268,13 @@ class Solver(BaseSolver):
                                                                   **kw)
         with record_function("train.loss"):
             loss, metrics = asr_loss(ctc_out, enc_len, att_out, text, text_len,
-                                     self.ctc_weight, self.ctc_loss_fn)
+                                     self.ctc_weight, self.ctc_loss_fn, counts)
             if self.plugin is not None:
-                metrics["emb_loss"] = self.plugin.loss(dec_states, text)
+                metrics["emb_loss"] = self.plugin.loss(
+                    dec_states, text, None if counts is None else counts[1])
                 loss = loss + metrics["emb_loss"]
                 metrics["loss"] = loss
-        for p in self.params.values():
-            p.grad = None
-        with record_function("train.backward"):
-            loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        with record_function("train.optimizer"):
-            metrics["grad_norm"] = self.optimizer.step(self.params)
-        metrics["tf_rate"] = torch.tensor(tf_rate)
-        return metrics
+        return metrics, loss
 
     # ----------------------------------------------------------------- exec
     def exec(self):
@@ -232,8 +284,10 @@ class Solver(BaseSolver):
         while self.step < self.max_step:
             shuffle = epoch >= self.curriculum
             for batch in self.tr_set.epoch_iter(shuffle=shuffle):
-                metrics = self.train_step(*self._to_device(batch))
-                utts += int(np.sum(batch["text_len"] > 0))
+                rows = batch.get("rows")
+                metrics = self.train_step(*self._to_device(batch), rows=rows)
+                utts += (rows[2] if rows else
+                         int(np.sum(batch["text_len"] > 0)))
                 self.step += 1
                 if self.step % self.PROGRESS_STEP == 0:
                     m = {k: float(v) for k, v in metrics.items()}
@@ -264,7 +318,11 @@ class Solver(BaseSolver):
     # ------------------------------------------------------------- validate
     @torch.no_grad()
     def valid_batch(self, wave, wave_len, text, text_len) -> Dict[str, torch.Tensor]:
+        """Greedy predictions and losses of one dev batch; under a process
+        group the losses divide by the global batch's counts (the ranks'
+        sum to the global loss)."""
         model = self.model
+        counts = global_counts(text, text_len)
         feat, feat_len = self.frontend(wave, wave_len)
         U = text.shape[1]
         out = {}
@@ -275,17 +333,24 @@ class Solver(BaseSolver):
             out["ctc_pred"] = ctc_greedy(ctc_out)
             valid = (text_len > 0) & (nll < 1e29)
             per = nll / torch.clamp(text_len, min=1)
+            n_valid = (torch.clamp((text_len > 0).sum(), min=1)
+                       if counts is None else torch.clamp(counts[0], min=1.0))
             out["ctc_loss"] = (torch.sum(torch.where(valid, per, torch.zeros_like(per)))
-                               / torch.clamp((text_len > 0).sum(), min=1))
+                               / n_valid)
         if model.enable_att:
             out["att_pred"] = att_greedy(model, enc, enc_len,
                                          int(math.ceil(U * DEV_STEP_RATIO)),
                                          amp=self.amp, plugin=self.plugin)
             _, _, att_out, _, _ = model(feat, feat_len, U, 1.0, teacher=text)
-            out["att_loss"] = masked_ce(att_out, text)
+            out["att_loss"] = masked_ce(att_out, text,
+                                        None if counts is None else counts[1])
         return out
 
     def validate(self):
+        """Dev WER / CER and losses of both heads, means over batches of
+        each batch's rate; under a process group each batch's predictions
+        are gathered from every rank first, so every rank reaches the same
+        rates and the same checkpoint decisions."""
         ers = {"att": [], "ctc": []}
         cers = {"att": [], "ctc": []}
         losses = {"att": [], "ctc": []}
@@ -293,6 +358,9 @@ class Solver(BaseSolver):
         for batch in self.dv_set:
             out = {k: v.cpu().numpy() for k, v in
                    self.valid_batch(*self._to_device(batch)).items()}
+            batch = mesh.gather_batch({**out, **{k: batch[k] for k in (
+                "text", "text_len", "text_raw")}})
+            out = {k: batch[k] for k in out}
             n_real = int(np.sum(batch["text_len"] > 0))
             truth = batch["text"][:n_real]
             for head in ("att", "ctc"):
@@ -322,11 +390,11 @@ class Solver(BaseSolver):
             msg.append(f"{head} WER {wer:.3f} CER {cer:.3f}")
             if wer < self.best_wer[head]:
                 self.best_wer[head] = wer
-                save_checkpoint(self.ckpdir / f"best_{head}.pth", self.model,
-                                self.optimizer, self.step,
-                                {"wer": wer, "cer": cer}, plugin=self.plugin)
-        save_checkpoint(self.ckpdir / "latest.pth", self.model, self.optimizer,
-                        self.step,
-                        {f"wer_{h}": self.best_wer[h] for h in self.best_wer},
-                        plugin=self.plugin)
+                self.save(f"best_{head}.pth", self.model,
+                          optimizer=self.optimizer, global_step=self.step,
+                          metrics={"wer": wer, "cer": cer}, plugin=self.plugin)
+        self.save("latest.pth", self.model, optimizer=self.optimizer,
+                  global_step=self.step,
+                  metrics={f"wer_{h}": self.best_wer[h] for h in self.best_wer},
+                  plugin=self.plugin)
         self.progress("DEV | " + " | ".join(msg))

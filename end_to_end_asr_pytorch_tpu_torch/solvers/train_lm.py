@@ -10,7 +10,10 @@ optimizer with its gradient clip, perplexity logged every
 ``best_ppx.pth`` / ``latest.pth`` in the reference layout, which the
 decode solver's ``decode.lm_path`` reads. Each layer's scan goes through
 K2 / K2b (LSTM) or K4 / K4b (GRU) on the card. Training runs in f32, as
-the JAX solver's does: ``--amp`` and ``hparas.amp`` are ignored.
+the JAX solver's does: ``--amp`` and ``hparas.amp`` are ignored. Under
+``torchrun`` each rank trains on its rows of the global batch, the NLL
+divides by the global token count, the gradients are summed, and the dev
+perplexity sums every rank's NLL and tokens.
 """
 from __future__ import annotations
 
@@ -28,9 +31,9 @@ from .train_asr import check_supported
 from ..data.dataset import load_textset
 from ..models.lm import RNNLM
 from ..optim import Optimizer
+from ..parallel import mesh
 from ..utils.jax_ckpt import load_checkpoint
 from ..utils.text import EOS_IDX
-from ..utils.torch_ckpt import save_checkpoint
 
 
 def lm_nll(lm: RNNLM, text: torch.Tensor, text_len: torch.Tensor,
@@ -64,7 +67,8 @@ class Solver(BaseSolver):
     def load_data(self):
         (self.tr_set, self.dv_set, self.vocab_size, self.tokenizer,
          msg) = load_textset(self.config["data"]["corpus"],
-                             self.config["data"]["text"])
+                             self.config["data"]["text"], self.rank,
+                             self.world)
         self.verbose(msg)
 
     def set_model(self):
@@ -94,28 +98,44 @@ class Solver(BaseSolver):
                 torch.from_numpy(batch["text_len"]).to(self.device,
                                                        torch.int64))
 
-    def train_step(self, text, text_len) -> Dict[str, torch.Tensor]:
+    def train_step(self, text, text_len, rows=None) -> Dict[str, torch.Tensor]:
         """One optimizer step on a batch; returns device scalars (``loss``,
         and ``grad_norm`` before the clip). Its parts are profiler ranges:
-        ``lm.forward``, ``lm.backward``, ``lm.optimizer``."""
-        with record_function("lm.forward"):
-            total, count = lm_nll(self.lm, text, text_len, True, self.gen)
-            loss = total / torch.clamp(count, min=1.0)
+        ``lm.forward``, ``lm.backward``, ``lm.optimizer``. Under a process
+        group the batch is this rank's rows (``rows``, as the ASR solver's):
+        dropout draws at the global shape, the NLL divides by the global
+        token count, and the gradients and the loss are summed over the
+        ranks (``lm.all_reduce``) before the optimizer."""
+        count = None
+        if mesh.active():
+            count = mesh.all_reduce_sum(
+                (torch.arange(text.shape[1], device=text.device)[None, :]
+                 < text_len[:, None]).sum().to(torch.float32))
+        with record_function("lm.forward"), mesh.batch_rows(rows):
+            total, local = lm_nll(self.lm, text, text_len, True, self.gen)
+            loss = total / torch.clamp(local if count is None else count,
+                                       min=1.0)
         for p in self.params.values():
             p.grad = None
         with record_function("lm.backward"):
             loss.backward()
+        loss = loss.detach()
+        if mesh.active():
+            with record_function("lm.all_reduce"):
+                loss = loss.clone()
+                mesh.all_reduce_grads(self.params, [loss])
         with record_function("lm.optimizer"):
             gnorm = self.optimizer.step(self.params)
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        return {"loss": loss, "grad_norm": gnorm}
 
     def exec(self):
         self.verbose(f"LM training from step {self.step} to {self.max_step}")
         t0, toks = time.time(), 0
         while self.step < self.max_step:
             for batch in self.tr_set:
-                m = self.train_step(*self._to_device(batch))
-                toks += int(batch["text_len"].sum())
+                m = self.train_step(*self._to_device(batch),
+                                    rows=batch.get("rows"))
+                toks += batch.get("tokens", int(batch["text_len"].sum()))
                 self.step += 1
                 if self.step % self.PROGRESS_STEP == 0:
                     loss = float(m["loss"])
@@ -133,11 +153,14 @@ class Solver(BaseSolver):
 
     @torch.no_grad()
     def validate(self):
-        """Dev perplexity exp(sum NLL / tokens) over the dev set; writes
-        ``best_ppx.pth`` when it improves and ``latest.pth`` always."""
+        """Dev perplexity exp(sum NLL / tokens) over the dev set (each
+        batch's sums added over the ranks); writes ``best_ppx.pth`` when it
+        improves and ``latest.pth`` always."""
         total, count = 0.0, 0.0
         for batch in self.dv_set:
             t, c = lm_nll(self.lm, *self._to_device(batch))
+            if mesh.active():
+                t, c = mesh.all_reduce_sum(torch.stack([t, c]))
             total += float(t)
             count += float(c)
         ppx = float(np.exp(total / max(count, 1.0)))
@@ -145,7 +168,7 @@ class Solver(BaseSolver):
         self.progress(f"DEV | lm ppx {ppx:.2f}")
         if ppx < self.best_ppx:
             self.best_ppx = ppx
-            save_checkpoint(self.ckpdir / "best_ppx.pth", self.lm,
-                            self.optimizer, self.step, {"ppx": ppx})
-        save_checkpoint(self.ckpdir / "latest.pth", self.lm, self.optimizer,
-                        self.step, {"ppx": ppx})
+            self.save("best_ppx.pth", self.lm, optimizer=self.optimizer,
+                      global_step=self.step, metrics={"ppx": ppx})
+        self.save("latest.pth", self.lm, optimizer=self.optimizer,
+                  global_step=self.step, metrics={"ppx": ppx})

@@ -4,6 +4,11 @@ parser, flags and dispatch).
   python -m end_to_end_asr_pytorch_tpu_torch.train --config config/synthetic/las.yaml \\
       [--name NAME] [--logdir log/] [--ckpdir ckpt/] [--load ckpt.pth] \\
       [--seed 0] [--njobs 1] [--no-msg] [--cpu]
+
+Over N cards, one process each (``main``'s docstring has the details):
+
+  python -m torch.distributed.run --standalone --nproc_per_node=N \
+      -m end_to_end_asr_pytorch_tpu_torch.train --config ...
 """
 from __future__ import annotations
 

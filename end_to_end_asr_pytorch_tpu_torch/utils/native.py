@@ -5,11 +5,12 @@
 The source is compiled on its own with ``g++ -O3 -fPIC -std=c++17 -shared``
 at first use into ``build/torch_native/<name>-<hash>.so`` (the hash covers
 the source and the flags, so an edited source rebuilds), through a
-temporary file renamed into place, so that several processes may build it
-at once; a lock serialises the threads of one process. Nothing is built or
-loaded at import time, and nothing is written under ``native/``. There is
-no fallback: a missing compiler, a failed build or a library that does not
-load raises, with the compiler's output.
+temporary file renamed into place, under a lock on the build directory
+(``utils/locks.dir_lock``): one process (or thread) builds, the others
+wait and load what it built. Nothing is built or loaded at import time,
+and nothing is written under ``native/``. There is no fallback: a missing
+compiler, a failed build or a library that does not load raises, with the
+compiler's output.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
+
+from .locks import dir_lock
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "flac_decoder.cc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
@@ -41,11 +44,17 @@ def build() -> Path:
     out = _target()
     if out.exists():
         return out
+    with dir_lock(BUILD_DIR):
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     cxx = shutil.which("g++")
     if cxx is None:
         raise RuntimeError(f"g++ not found: the FLAC decoder ({SOURCE}) is "
                            "compiled at first use")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
                           capture_output=True, text=True)
@@ -54,7 +63,6 @@ def build() -> Path:
         raise RuntimeError(f"g++ failed for {SOURCE} (exit "
                            f"{proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
-    return out
 
 
 def get_lib() -> ctypes.CDLL:

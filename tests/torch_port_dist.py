@@ -1,0 +1,147 @@
+"""Process groups for the port's data-parallel tests, on the CPU.
+
+``run_world`` starts ``world`` processes with ``torch.multiprocessing``,
+each joining a gloo group through a ``file://`` store under the test's
+temporary directory (so parallel test workers never share a port), and
+returns what each rank's function returned, in rank order. Every child
+runs on one thread; the group has a 60 s timeout and the whole run a
+join limit, so a deadlock fails the test instead of hanging it. This
+module imports neither JAX nor the JAX package, so the children start
+quickly.
+"""
+import copy
+import sys
+import time
+import traceback
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+ROOT = Path(__file__).resolve().parent.parent
+GROUP_TIMEOUT_S = 60.0
+
+
+def _child(rank, fn, world, tmp, args):
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT))
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    try:
+        mesh.init(torch.device("cpu"), backend="gloo",
+                  init_method=f"file://{tmp}/store", rank=rank, world=world,
+                  timeout=GROUP_TIMEOUT_S)
+        out = fn(rank, world, *args)
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    except BaseException:
+        Path(f"{tmp}/rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        mesh.shutdown()
+
+
+def run_world(fn, world, tmp, *args, timeout=120.0):
+    """``fn(rank, world, *args)`` in ``world`` processes of one gloo group;
+    their results in rank order. Fails on a rank that raised, or on a run
+    that outlasts ``timeout`` seconds (its processes are killed)."""
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    ctx = mp.spawn(_child, args=(fn, world, str(tmp), args), nprocs=world,
+                   join=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"world {world} still running after "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+# ----------------------------------------------------- what the ranks run
+def make_solver(cfg, hparas, workdir, seed=0, vocab=12, feat_dim=40):
+    """The port's ASR training solver on ``cfg``'s model, set up as
+    ``main`` sets it up but without a corpus."""
+    from end_to_end_asr_pytorch_tpu_torch.solvers.train_asr import Solver
+    config = {"data": {"corpus": {"name": "none"},
+                       "audio": copy.deepcopy(cfg["audio"]),
+                       "text": {"mode": "character"}},
+              "model": copy.deepcopy(cfg["model"]), "hparas": dict(hparas)}
+    paras = SimpleNamespace(config="dist.yaml", name=None, seed=seed,
+                            logdir=f"{workdir}/log", ckpdir=f"{workdir}/ckpt",
+                            load=None, njobs=0, no_msg=True, cpu=True)
+    solver = Solver(config, paras)
+    solver.feat_dim, solver.vocab_size = feat_dim, vocab
+    solver.set_model()
+    return solver
+
+
+def rank_batch(batch, rank, world):
+    """Rank ``rank``'s rows of a global numpy batch padded to a multiple of
+    ``world`` (as the loaders cut it), as tensors, and its ``rows``."""
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    n = len(batch["text_len"])
+    padded = mesh.pad_batch_to(batch, world)
+    lo, hi = mesh.row_range(len(padded["text_len"]), rank, world)
+    t = [torch.from_numpy(np.ascontiguousarray(padded[k][lo:hi]))
+         for k in ("wave", "wave_len", "text", "text_len")]
+    t[2], t[3] = t[2].long(), t[3].long()
+    return t, ((lo, hi, n) if world > 1 else None)
+
+
+def asr_steps(rank, world, cfg, hparas, batches, workdir, state=None):
+    """Train steps of ``make_solver(cfg, hparas)`` on this rank's rows of
+    each global batch (``state``: a port state dict to start from): the
+    losses and the parameters after the last."""
+    solver = make_solver(cfg, hparas, workdir, vocab=cfg["vocab"])
+    if state is not None:
+        solver.model.load_state_dict(state)
+    losses = []
+    for b in batches:
+        t, rows = rank_batch(b, rank, world)
+        m = solver.train_step(*t, rows=rows)
+        losses.append({k: float(v) for k, v in m.items()})
+    return {"losses": losses,
+            "params": {n: p.detach().clone() for n, p in solver.params.items()}}
+
+
+def lm_steps(rank, world, model_cfg, hparas, batches, workdir, state=None):
+    """Train steps of the port's LM solver on this rank's rows of each
+    global text batch: losses and parameters after the last."""
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    from end_to_end_asr_pytorch_tpu_torch.solvers.train_lm import Solver
+    config = {"data": {"corpus": {"name": "none"},
+                       "text": {"mode": "character"}},
+              "model": copy.deepcopy(model_cfg), "hparas": dict(hparas)}
+    paras = SimpleNamespace(config="lm.yaml", name=None, seed=0,
+                            logdir=f"{workdir}/log", ckpdir=f"{workdir}/ckpt",
+                            load=None, njobs=0, no_msg=True, cpu=True)
+    solver = Solver(config, paras)
+    solver.vocab_size = model_cfg["vocab"]
+    solver.set_model()
+    if state is not None:
+        solver.lm.load_state_dict(state)
+    losses = []
+    for b in batches:
+        n = len(b["text_len"])
+        padded = mesh.pad_batch_to(b, world)
+        lo, hi = mesh.row_range(len(padded["text_len"]), rank, world)
+        m = solver.train_step(
+            torch.from_numpy(padded["text"][lo:hi]).long(),
+            torch.from_numpy(padded["text_len"][lo:hi]).long(),
+            rows=(lo, hi, n) if world > 1 else None)
+        losses.append(float(m["loss"]))
+    return {"losses": losses,
+            "params": {n: p.detach().clone() for n, p in solver.params.items()}}
+
+
+def run_main(rank, world, argv):
+    """``main`` with ``argv`` in an existing group; its return value."""
+    from end_to_end_asr_pytorch_tpu_torch import main
+    return main.main(argv)
