@@ -342,6 +342,33 @@ Phases, each printing one JSON line:
                 finite dev perplexity; then ... .main --test on the FLAC
                 tree with test_entry's settings and decode.lm_path on that
                 best_ppx.pth (the LibriSpeech recipe's chain)
+  tp_train    - tensor parallelism (model_parallel: 2, parallel/tp.py):
+                config/synthetic/las_sub16k.yaml's model at full width
+                (V=16384) with attention.use_pallas_train, B=32 waves of 7 s,
+                U=96, Adam lr 1e-3, teacher forcing 1: 3 steps of two ranks
+                on the one card under gloo (--tp-layouts 1x2; 2x2 and the
+                like take NCCL with a card a rank where there are enough)
+                against world 1 in this process, deterministic algorithms
+                in both: loss rel 1e-5, the gathered parameters within 1e-3
+                of each tensor's max, the replicated leaves bit-identical
+                across the ranks, each rank K1 1, K2 4, K2b 4, K3 1, K7 96 +
+                96 a step; bytes held at world 1 and per rank, the step's
+                peak, ms per step, and the model group's collectives' ms
+                and bytes in one more step, run without deterministic
+                algorithms as main runs: the replicated leaves must still
+                be bit-identical across the ranks after it
+  tp_lm_train - the same for lm_sub16k.yaml's LM (2 x LSTM-256, emb 256,
+                dropout 0.1, V=16384), B=64 sentences of 20-80 tokens: each
+                rank K2 2 and K2b 2 a step
+  tp_test     - the Solver of main --test at model_parallel: 2 on generated
+                dev and test splits of 8 utterances (las_sub16k's model with
+                attention.use_pallas, lm_sub16k's LM fused 0.3, CTC 0.3,
+                beam 8, amp off, a generated 16384-piece sentencepiece
+                model) against world 1's CSVs: best scores within 1e-4, the
+                identical top-1 rows counted, K5 and K8 (at V=16384) once
+                per beam step on each rank; bytes, ms per batch (the dev
+                split decoded again, warm), and the collectives' ms over
+                the dev split decoded a third time
 Then a line with the per-kernel measurements ({"kernels": [...]}: K1 and K2
 launches counted on the slice's run, K8 on slice_fused's (and its V=5120
 row on slice_sub5k_f32's), K5 on
@@ -4505,6 +4532,401 @@ def phase_dist_entry(seed, n_utts=8):
     check(rows == [8 * n_utts] * 2, f"dist_entry: n-best rows {rows}")
 
 
+# ------------------------------------------------------ tensor parallel
+# config/synthetic/las_sub16k.yaml's model and lm_sub16k.yaml's LM at full
+# width (V=16384), random weights from --seed
+def sub16k_cfg(name):
+    import yaml
+    return yaml.safe_load((ROOT / "config" / "synthetic" / name).read_text())
+
+
+V_16K = 16384
+TP_STEPS = 3
+TP_HPARAS = {"optimizer": "Adam", "lr": 1e-3, "eps": 1e-8,
+             "lr_scheduler": "fixed", "tf_start": 1.0, "tf_end": 1.0,
+             "GRAD_CLIP": 5.0}
+
+
+def tp_solver(kind, device, seed, workdir, m, model):
+    """The port's ASR (``kind`` "asr") or LM ("lm") training solver at
+    ``model_parallel: m`` on ``model``, V=16384, Adam lr 1e-3, set up as
+    ``main`` / ``main --lm`` set it up but without a corpus."""
+    from types import SimpleNamespace
+    from end_to_end_asr_pytorch_tpu_torch.solvers import train_asr, train_lm
+    data = {"corpus": {"name": "none"}, "text": {"mode": "subword"}}
+    if kind == "asr":
+        data["audio"] = AUDIO_CFG
+    cfg = {"data": data, "model": model, "hparas": dict(TP_HPARAS),
+           "model_parallel": m}
+    paras = SimpleNamespace(config=f"tp_{kind}.yaml", name=None, seed=seed,
+                            logdir=str(workdir / "log"),
+                            ckpdir=str(workdir / "ckpt"), load=None,
+                            njobs=0, no_msg=True, cpu=False, amp=False)
+    solver = (train_asr if kind == "asr" else train_lm).Solver(cfg, paras)
+    solver.vocab_size = V_16K
+    if kind == "asr":
+        solver.feat_dim = AUDIO_CFG["feat_dim"]
+    solver.set_model()
+    return solver
+
+
+def tp_bytes(solver):
+    """Bytes of the parameters and of the optimizer slots this rank
+    holds."""
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    return {"params": size(solver.params.values()),
+            "slots": size(v for d in solver.optimizer.slots.values()
+                          for v in d.values())}
+
+
+def tp_train_run(kind, dev, seed, batch, m, workdir, rank, world):
+    """One rank (or world 1, no group) of tp_train / tp_lm_train: its rows
+    of the global batch (by data index), TP_STEPS steps, then one more
+    with the model group's collectives timed and deterministic algorithms
+    off, as ``main`` runs; bytes after setup and the step's peak; the
+    whole parameters after TP_STEPS (rank 0) and the replicated ones after
+    TP_STEPS and after the last step."""
+    import torch
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh, tp
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    if kind == "asr":
+        model = sub16k_cfg("las_sub16k.yaml")["model"]
+        model["attention"]["use_pallas_train"] = True
+        full = train_batch(batch, seed + 6, dev, V=V_16K)
+    else:
+        model = sub16k_cfg("lm_sub16k.yaml")["model"]
+        full = lm_batch(seed + 6, dev, B=batch, lo=20, hi=80, V=V_16K)
+    solver = tp_solver(kind, dev, seed, workdir, m, model)
+    torch.cuda.synchronize(dev)
+    setup = torch.cuda.memory_allocated(dev) - base
+    per = batch // (world // m)
+    lo = (rank // m) * per
+    data = tuple(t[lo:lo + per].contiguous() for t in full)
+    rows = (lo, lo + per, batch) if world > 1 else None
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, launches, ms = dist_steps(solver, data, rows, TP_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with tp.whole(solver.params, solver.split, solver.optimizer):
+        whole = {k: v.detach().cpu().clone()
+                 for k, v in solver.params.items()}
+    deterministic(False)
+    with mesh.time_collectives() as coll:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        solver.train_step(*data, rows=rows)
+        torch.cuda.synchronize(dev)
+        timed_ms = (time.perf_counter() - t0) * 1e3
+    return {"losses": losses, "launches": launches, "ms": ms,
+            "setup_bytes": setup, "held": tp_bytes(solver),
+            "peak_bytes": peak, "split": sorted(solver.split),
+            "whole": whole if rank == 0 else None,
+            "replicated": {k: v for k, v in whole.items()
+                           if k not in solver.split},
+            "replicated_free": {k: v.detach().cpu().clone()
+                                for k, v in solver.params.items()
+                                if k not in solver.split},
+            "collectives": dict(coll), "timed_step_ms": timed_ms}
+
+
+def tp_test_run(dev, seed, cfg_path, m, out_dir, rank, world):
+    """One rank (or world 1) of tp_test: the Solver of ``main --test`` on
+    ``cfg_path`` at ``model_parallel: m``; the launches and the beam steps
+    of its run; then the dev split again, warm (ms per batch), and once
+    more with the model group's collectives timed."""
+    import torch
+    from types import SimpleNamespace
+    from end_to_end_asr_pytorch_tpu_torch.config import load_config
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    from end_to_end_asr_pytorch_tpu_torch.solvers.test_asr import Solver
+    config = load_config(cfg_path)
+    config["model_parallel"] = m
+    cfg = Path(cfg_path)
+    paras = SimpleNamespace(config=str(cfg), name=None, seed=seed,
+                            logdir=str(cfg.parent / "log"),
+                            ckpdir=str(cfg.parent / "ckpt"),
+                            outdir=str(out_dir), load=str(cfg.parent / "asr.pth"),
+                            njobs=0, no_msg=True, cpu=False, test=True)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    solver = Solver(config, paras, "test")
+    solver.load_data()
+    solver.set_model()
+    torch.cuda.synchronize(dev)
+    setup = torch.cuda.memory_allocated(dev) - base
+    steps = []
+    decode = solver.decoder.forward
+
+    def counted(*a):
+        out = decode(*a)
+        steps.append(solver.decoder.last_steps)
+        return out
+    solver.decoder.forward = counted
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    solver.exec()
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    run_steps = list(steps)
+    t0 = time.perf_counter()
+    solver._decode_set("dev", solver.dv_set)
+    torch.cuda.synchronize(dev)
+    warm_ms = (time.perf_counter() - t0) * 1e3 / (len(steps) - len(run_steps))
+    with mesh.time_collectives() as coll:
+        t0 = time.perf_counter()
+        solver._decode_set("dev", solver.dv_set)
+        torch.cuda.synchronize(dev)
+        timed = time.perf_counter() - t0
+    size = lambda mod: sum(p.numel() * p.element_size()
+                           for p in mod.parameters())
+    return {"launches": launches, "steps": run_steps, "seconds": secs,
+            "ms_per_batch": warm_ms, "setup_bytes": setup,
+            "held": {"asr": size(solver.model), "lm": size(solver.lm)},
+            "peak_bytes": peak, "split": sorted(solver.split),
+            "collectives": dict(coll), "timed_dev_split_s": timed}
+
+
+def tp_child(rank, world, m, backend, store, out_dir, seed, what, arg):
+    """One rank of a tensor-parallel phase: joins the group (gloo over CUDA
+    tensors on one card, or NCCL with a card a rank), deterministic
+    algorithms on, runs ``what`` and writes its result to ``out_dir``."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    mesh.init(dev, backend=backend, init_method=store, rank=rank,
+              world=world, timeout=300)
+    deterministic()
+    try:
+        if what == "test":
+            out = tp_test_run(dev, seed, arg, m, Path(out_dir) / "out",
+                              rank, world)
+        else:
+            out = tp_train_run(what, dev, seed, arg, m, Path(out_dir) / "w",
+                               rank, world)
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        mesh.shutdown()
+
+
+def tp_spawn(world, m, d, seed, what, arg, limit=600):
+    """``world`` ranks of ``tp_child`` at ``model_parallel: m`` ->
+    (backend, their results in rank order, wall seconds)."""
+    import torch
+    import torch.multiprocessing as mp
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    t0 = time.perf_counter()
+    ctx = mp.spawn(tp_child, args=(world, m, backend, f"file://{d}/store",
+                                   str(d), seed, what, arg),
+                   nprocs=world, join=False)
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t0 < limit,
+                  f"tp {what}: the ranks ran past {limit} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return (backend, [torch.load(f"{d}/rank{r}.pt") for r in range(world)],
+            time.perf_counter() - t0)
+
+
+def tp_expect(kind, batch):
+    """Each rank's launches a step: K1 once, K2 and K2b once per scan (4
+    encoder scans of las_sub16k, 2 LM layers; times the waves of a grid
+    that does not fit), K3 once, K7's forward and backward once per label
+    step; no other kernel."""
+    out = {k: 0 for k in launch_counters()}
+    calls = scan_calls(batch, H=256)
+    n = 4 if kind == "asr" else 2
+    out.update({"lstm_scan_fused": n * calls["lstm_scan_fused"],
+                "lstm_bwd_fused": n * calls["lstm_bwd_fused"]})
+    if kind == "asr":
+        out.update({"fbank_fused": 1, "ctc_loss_fused": 1,
+                    "loc_att_fwd_fused": U_TRAIN,
+                    "loc_att_bwd_fused": U_TRAIN})
+    return out
+
+
+def phase_tp_train(kind, seed, device, layout="1x2", batch=None):
+    """tp_train (``kind`` "asr": las_sub16k's model, B=32 waves of 7 s,
+    U=96, attention.use_pallas_train) or tp_lm_train ("lm": lm_sub16k's
+    LM, B=64 sentences of 20-80 tokens): TP_STEPS Adam steps at the
+    ``layout`` D x M (two ranks on the one card under gloo; NCCL with a
+    card a rank where there are enough) against world 1 in this process,
+    deterministic algorithms in both: loss rel <= 1e-5, the gathered
+    parameters within 1e-3 of each tensor's max, the replicated leaves
+    bit-identical across the ranks, each rank's launches a step as
+    ``tp_expect``; bytes held at M=1 and per rank, the step's peak, ms per
+    step and the model group's collectives' ms in one more step, which
+    runs without deterministic algorithms, as ``main`` does: the
+    replicated leaves must still be bit-identical after it."""
+    import torch
+    D, m = map(int, layout.split("x"))
+    world = D * m
+    name = ("tp_train" if kind == "asr" else "tp_lm_train") + (
+        "" if layout == "1x2" else f"_{layout}")
+    batch = batch or (32 if kind == "asr" else LM_B)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = Path(d)
+        deterministic()
+        try:
+            ref = tp_train_run(kind, device, seed, batch, 1, d / "w1", 0, 1)
+        finally:
+            deterministic(False)
+        torch.cuda.empty_cache()
+        backend, res, wall = tp_spawn(world, m, d, seed, kind, batch)
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(res[0]["losses"], ref["losses"]))
+    p_rel, worst = params_rel_err(res[0]["whole"], ref["whole"])
+    same, free = (all(torch.equal(r[key][k], res[0][key][k])
+                      for r in res[1:] for k in res[0][key])
+                  for key in ("replicated", "replicated_free"))
+    expect = tp_expect(kind, batch // D)
+    coll = [r["collectives"] for r in res]
+    emit({"phase": name, "backend": backend, "layout": layout,
+          "world": world, "cards": min(world, torch.cuda.device_count()),
+          "batch": batch, "steps": TP_STEPS, "card": CARD, "vocab": V_16K,
+          "losses": res[0]["losses"], "losses_world1": ref["losses"],
+          "loss_rel_diff": loss_rel, "params_rel_diff": p_rel,
+          "worst_param": worst, "replicated_bit_identical": same,
+          "replicated_bit_identical_nondeterministic_step": free,
+          "replicated_leaves": sorted(res[0]["replicated"]),
+          "split_leaves": len(res[0]["split"]),
+          "bytes_world1": {"setup": ref["setup_bytes"], **ref["held"],
+                           "peak_step": ref["peak_bytes"]},
+          "bytes_per_rank": [{"setup": r["setup_bytes"], **r["held"],
+                              "peak_step": r["peak_bytes"]} for r in res],
+          "ms_per_step": [r["ms"] for r in res],
+          "ms_per_step_world1": ref["ms"],
+          "collective_ms": [c["ms"] for c in coll],
+          "collective_mb": [c["bytes"] / 1e6 for c in coll],
+          "collective_calls": [c["calls"] for c in coll],
+          "timed_step_ms": [r["timed_step_ms"] for r in res],
+          "wall_seconds": wall,
+          "launches_per_step": [r["launches"][-1] for r in res],
+          "launches_expected": expect})
+    check(loss_rel <= 1e-5, f"{name}: loss rel diff {loss_rel}")
+    check(p_rel <= 1e-3, f"{name}: params rel diff {p_rel} ({worst})")
+    check(same, f"{name}: the ranks' replicated leaves differ")
+    check(free, f"{name}: the ranks' replicated leaves differ after a step "
+          "without deterministic algorithms")
+    check(all(st == expect for r in res for st in r["launches"]),
+          f"{name}: every rank's step must launch {expect}, got "
+          f"{[r['launches'] for r in res]}")
+    check(all(r["held"]["params"] < ref["held"]["params"] for r in res),
+          f"{name}: a rank holds as many parameter bytes as world 1")
+
+
+def phase_tp_test(seed, device, layout="1x2", n_utts=8):
+    """The Solver of ``main --test`` at ``layout`` D x M on generated dev and
+    test splits of n_utts utterances each (las_sub16k's model and
+    lm_sub16k's LM, random weights from ``seed``, a generated 16384-piece
+    sentencepiece model; LM fusion 0.3, CTC 0.3, beam 8, amp off,
+    attention.use_pallas: K5 and K8 once per beam step) against world 1's
+    CSVs: each best score within 1e-4, the identical top-1 rows counted."""
+    import torch
+    import yaml
+    from end_to_end_asr_pytorch_tpu_torch.data.synthetic import generate_corpus
+    from end_to_end_asr_pytorch_tpu_torch.models.asr import ASR
+    from end_to_end_asr_pytorch_tpu_torch.models.lm import RNNLM
+    from end_to_end_asr_pytorch_tpu_torch.utils.sentencepiece_model import (
+        serialize_model_proto)
+    from end_to_end_asr_pytorch_tpu_torch.utils.torch_ckpt import (
+        asr_state_dict, lm_state_dict)
+    D, m = map(int, layout.split("x"))
+    name = "tp_test" + ("" if layout == "1x2" else f"_{layout}")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = Path(d)
+        corpus = generate_corpus(str(d / "synth"), n_train=0, n_dev=n_utts,
+                                 n_test=n_utts, seed=seed)
+        (d / "sp.model").write_bytes(serialize_model_proto(
+            sentencepiece_pieces(V_16K)))
+        text = {"mode": "subword", "vocab_file": str(d / "sp.model")}
+        data = {"corpus": {"name": "synthetic", "path": str(corpus),
+                           "dev_split": ["dev-clean"],
+                           "test_split": ["test-clean"],
+                           "batch_size": n_utts},
+                "audio": AUDIO_CFG, "text": text}
+        las, lm_cfg = sub16k_cfg("las_sub16k.yaml"), sub16k_cfg(
+            "lm_sub16k.yaml")
+        model = las["model"]
+        model["attention"]["use_pallas"] = True
+        (d / "lm.yaml").write_text(yaml.safe_dump(
+            {"data": {k: data[k] for k in ("corpus", "text")},
+             "model": lm_cfg["model"], "hparas": {}}))
+        asr = ASR(AUDIO_CFG["feat_dim"], V_16K, model,
+                  generator=torch.Generator().manual_seed(seed))
+        torch.save({"model": asr_state_dict(asr), "global_step": 0},
+                   str(d / "asr.pth"))
+        lm = RNNLM(V_16K, lm_cfg["model"],
+                   generator=torch.Generator().manual_seed(seed + 1))
+        torch.save({"model": lm_state_dict(lm)}, str(d / "lm.pth"))
+        decode = {**DECODE_CFG, "min_len_ratio": 0.0,
+                  "lm_config": str(d / "lm.yaml"), "lm_path": str(d / "lm.pth")}
+        (d / "tp.yaml").write_text(yaml.safe_dump(
+            {"data": data, "model": model, "hparas": {}, "decode": decode}))
+        deterministic()
+        try:
+            ref = tp_test_run(device, seed, str(d / "tp.yaml"), 1, d / "w1",
+                              0, 1)
+        finally:
+            deterministic(False)
+        torch.cuda.empty_cache()
+        backend, res, wall = tp_spawn(D * m, m, d, seed, "test",
+                                      str(d / "tp.yaml"))
+        csvs = {how: {s: read_test_csvs({
+            k: (d / how / f"tp_sd{seed}" / f"{s}_{k}.csv").read_text()
+            for k in ("output", "beam")}) for s in ("dev", "test")}
+            for how in ("w1", "out")}
+    identical = sum(csvs["out"][s][0][k] == csvs["w1"][s][0][k]
+                    for s in ("dev", "test") for k in csvs["w1"][s][0])
+    diff = max(abs(csvs["out"][s][1][k] - csvs["w1"][s][1][k])
+               for s in ("dev", "test") for k in csvs["w1"][s][1])
+    rows = [csvs["out"][s][2] for s in ("dev", "test")]
+    steps = [sum(r["steps"]) for r in res]
+    coll = [r["collectives"] for r in res]
+    emit({"phase": name, "backend": backend, "layout": layout,
+          "world": D * m, "utts_per_split": n_utts, "card": CARD,
+          "vocab": V_16K, "top1_identical": identical,
+          "top1_rows": 2 * n_utts, "best_score_max_abs_diff": diff,
+          "nbest_rows": rows, "beam_steps": [r["steps"] for r in res],
+          "beam_steps_world1": ref["steps"],
+          "launches": [r["launches"] for r in res],
+          "launches_world1": ref["launches"],
+          "bytes_world1": {"setup": ref["setup_bytes"], **ref["held"],
+                           "peak_decode": ref["peak_bytes"]},
+          "bytes_per_rank": [{"setup": r["setup_bytes"], **r["held"],
+                              "peak_decode": r["peak_bytes"]} for r in res],
+          "ms_per_batch": [r["ms_per_batch"] for r in res],
+          "ms_per_batch_world1": ref["ms_per_batch"],
+          "first_run_seconds": [r["seconds"] for r in res],
+          "first_run_seconds_world1": ref["seconds"],
+          "collective_ms_dev_split": [c["ms"] for c in coll],
+          "collective_mb_dev_split": [c["bytes"] / 1e6 for c in coll],
+          "collective_calls_dev_split": [c["calls"] for c in coll],
+          "timed_dev_split_s": [r["timed_dev_split_s"] for r in res],
+          "wall_seconds": wall})
+    print(f"tp_test: {identical} of {2 * n_utts} top-1 rows identical to "
+          "world 1", flush=True)
+    check(diff <= 1e-4, f"{name}: best score diff {diff}")
+    check(rows == [8 * n_utts] * 2, f"{name}: n-best rows {rows}")
+    check(all(n > 0 for n in steps) and all(
+        r["launches"]["beam_step_fused"] == n
+        and r["launches"]["loc_attention_fused"] == n
+        for r, n in zip(res, steps)),
+        f"{name}: K5 and K8 must launch once per beam step: steps {steps}, "
+        f"launches {[r['launches'] for r in res]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -4524,9 +4946,14 @@ def main():
                             "dist_train_w2,dist_pad,dist_entry,train_entry,"
                             "options_entry,"
                             "lm_scan,lm_train,lm_train_gru,flac_entry,"
-                            "lm_entry",
+                            "lm_entry,tp_train,tp_lm_train,tp_test",
                     help="comma list of phases after build (default: all "
                          "but scan_floor and mma_floor)")
+    ap.add_argument("--tp-layouts", default="1x2",
+                    help="comma list of D x M layouts the tp phases run "
+                         "(1x2: two ranks on one card under gloo; a layout "
+                         "of W ranks takes NCCL on W cards where there are "
+                         "that many)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -4769,6 +5196,13 @@ def main():
         phase_options_entry(args.seed)
     if "flac_entry" in phases or "lm_entry" in phases:
         phase_recipe_entry(args.seed, phases)
+    for layout in args.tp_layouts.split(","):
+        if "tp_train" in phases:
+            phase_tp_train("asr", args.seed, device, layout)
+        if "tp_lm_train" in phases:
+            phase_tp_train("lm", args.seed, device, layout)
+        if "tp_test" in phases:
+            phase_tp_test(args.seed, device, layout)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

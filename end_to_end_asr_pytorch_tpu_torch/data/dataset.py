@@ -77,10 +77,12 @@ class AudioBatchLoader:
                  seed: int = 0, cache_waves: bool = True, n_jobs: int = 0,
                  bucketing: bool = True,
                  cache_bytes: int = DEFAULT_CACHE_BYTES,
-                 rank: int = 0, world: int = 1):
+                 rank: int = 0, world: int = 1,
+                 multiple: Optional[int] = None):
         self.ds = dataset
         self.batch_size = batch_size
         self.rank, self.world = rank, world
+        self.multiple = world if multiple is None else multiple
         self.n_jobs = n_jobs
         self.frame_quantum = frame_quantum
         self.text_quantum = text_quantum
@@ -131,9 +133,9 @@ class AudioBatchLoader:
     def make_batch(self, ids: List[int]) -> Dict[str, Any]:
         """The batch of dataset rows ``ids``; over several ranks, this
         rank's rows of it (``_rank_rows``)."""
-        if self.world == 1:
+        if self.multiple == 1:
             return self._assemble(ids)
-        rows, lo, hi = _rank_rows(ids, self.rank, self.world)
+        rows, lo, hi = _rank_rows(ids, self.rank, self.world, self.multiple)
         s_max = max(self.ds.num_samples(i) for i in ids)
         u_max = max(len(self.ds.text_ids(i)) for i in ids)
         b = self._assemble(rows, s_max, u_max)
@@ -212,10 +214,12 @@ class AudioBatchLoader:
         return self.epoch_iter()
 
 
-def _rank_rows(ids: List[int], rank: int, world: int):
-    """(this rank's rows of ``ids`` padded to a multiple of ``world`` with
-    ``None`` dummies, as ``parallel/mesh.pad_batch_to`` pads, lo, hi)."""
-    padded = list(ids) + [None] * ((-len(ids)) % world)
+def _rank_rows(ids: List[int], rank: int, world: int, multiple: int):
+    """(rows ``[lo, hi)`` of data index ``rank`` of ``world`` in ``ids``
+    padded to a multiple of ``multiple`` (all the ranks, a multiple of
+    ``world``) with ``None`` dummies, as ``parallel/mesh.pad_batch_to``
+    pads, lo, hi)."""
+    padded = list(ids) + [None] * ((-len(ids)) % multiple)
     lo, hi = mesh.row_range(len(padded), rank, world)
     return padded[lo:hi], lo, hi
 
@@ -230,19 +234,22 @@ def _make_corpus(corpus_cfg: Dict[str, Any], splits, tokenizer) -> LibriDataset:
 def load_dataset(n_jobs: int, ascending: bool, corpus: Dict[str, Any],
                  audio: Dict[str, Any], text: Dict[str, Any],
                  mode: str = "train", frame_quantum: int = 64,
-                 rank: int = 0, world: int = 1):
+                 rank: int = 0, world: int = 1,
+                 multiple: Optional[int] = None):
     """``mode="train"``: (tr_set, dv_set, feat_dim, vocab_size, tokenizer,
     msg), ``ascending`` giving the train set curriculum order.
     ``mode="test"``: the dev and test splits in that place, both unshuffled
     (``corpus.test_split`` defaults to ``dev_split``). Over ``world``
     ranks, ``corpus.batch_size`` is the global batch and each loader
-    yields rank ``rank``'s rows of it."""
+    yields rank ``rank``'s rows of it, padded first to a multiple of
+    ``multiple`` (default ``world``; under tensor parallelism every rank,
+    ``world`` being the data ranks)."""
     tokenizer = load_text_encoder(text["mode"], text["vocab_file"])
     _, feat_dim = create_transform(audio)
     bs = int(corpus.get("batch_size", 8))
     bucketing = bool(corpus.get("bucketing", True))
     cache_bytes = int(corpus.get("cache_bytes", DEFAULT_CACHE_BYTES))
-    shard = dict(rank=rank, world=world)
+    shard = dict(rank=rank, world=world, multiple=multiple)
     if mode == "train":
         tr_ds = _make_corpus(corpus, corpus["train_split"], tokenizer)
         tr_set = AudioBatchLoader(tr_ds, bs, frame_quantum=frame_quantum,
@@ -278,9 +285,10 @@ class TextBatchLoader:
 
     def __init__(self, dataset, batch_size: int, text_quantum: int = 16,
                  shuffle: bool = True, seed: int = 0, rank: int = 0,
-                 world: int = 1):
+                 world: int = 1, multiple: Optional[int] = None):
         self.ds = dataset
         self.rank, self.world = rank, world
+        self.multiple = world if multiple is None else multiple
         self.batch_size = batch_size
         self.text_quantum = text_quantum
         self.shuffle = shuffle
@@ -298,10 +306,11 @@ class TextBatchLoader:
         as the audio batches carry it and the global batch's ``tokens``."""
         u_max = max(len(self.ds.text_ids(i)) for i in ids)
         out = {}
-        if self.world > 1:
+        if self.multiple > 1:
             out["tokens"] = sum(len(self.ds.text_ids(i)) for i in ids)
             n = len(ids)
-            ids, lo, hi = _rank_rows(ids, self.rank, self.world)
+            ids, lo, hi = _rank_rows(ids, self.rank, self.world,
+                                     self.multiple)
             out["rows"] = (lo, hi, n)
         texts = [[] if i is None else self.ds.text_ids(i) for i in ids]
         u_pad = _round_up(u_max, self.text_quantum)
@@ -362,18 +371,20 @@ def _make_textset(corpus_cfg: Dict[str, Any], splits, tokenizer):
 
 
 def load_textset(corpus: Dict[str, Any], text: Dict[str, Any],
-                 rank: int = 0, world: int = 1):
+                 rank: int = 0, world: int = 1,
+                 multiple: Optional[int] = None):
     """LM training data: (tr_set, dv_set, vocab_size, tokenizer, msg), the
     train set shuffled per epoch, the dev set in ascending order
     (``corpus.batch_size`` defaults to 32, the global batch over ``world``
-    ranks: each loader yields rank ``rank``'s rows)."""
+    ranks: each loader yields rank ``rank``'s rows, padded first to a
+    multiple of ``multiple`` as ``load_dataset``'s)."""
     tokenizer = load_text_encoder(text["mode"], text["vocab_file"])
     bs = int(corpus.get("batch_size", 32))
     tr_ds = _make_textset(corpus, corpus["train_split"], tokenizer)
     dv_ds = _make_textset(corpus, corpus["dev_split"], tokenizer)
     msg = [f"LM corpus | train {len(tr_ds)} / dev {len(dv_ds)} sentences | "
            f"vocab {tokenizer.vocab_size}"]
-    shard = dict(rank=rank, world=world)
+    shard = dict(rank=rank, world=world, multiple=multiple)
     return (TextBatchLoader(tr_ds, bs, **shard),
             TextBatchLoader(dv_ds, bs, shuffle=False, **shard),
             tokenizer.vocab_size, tokenizer, msg)

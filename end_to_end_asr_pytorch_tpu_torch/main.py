@@ -32,7 +32,14 @@ process per card, each mode as above:
 the losses are normalised over the global batch and the gradients summed
 (NCCL on the card, gloo on the CPU), so a step equals the one-process
 step. Rank 0 alone prints, logs and writes checkpoints and decode CSVs.
-``model_parallel > 1`` is not ported.
+
+Tensor parallel with ``model_parallel: M`` in the yaml (M dividing the
+number of processes N, else ``ValueError``), in all three modes: the N
+ranks form N / M data groups of M; the ranks of a model group decode or
+train the same rows, each holding 1/M of the vocabulary heads, the
+embeddings, the recurrent and attention weights and their optimizer
+slots (the JAX package's placement rule); checkpoints hold whole tensors
+and load at any M.
 """
 from __future__ import annotations
 

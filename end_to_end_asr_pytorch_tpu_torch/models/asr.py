@@ -6,7 +6,13 @@ are XLA devices that change no number and are not carried over). Under
 amp (bf16 activations, the weights rounded to bf16, ``ops/amp.py``) every
 product accumulates in f32, so the CTC and decoder logits are f32; a bf16
 encoder output keeps the attention cache and the training label scan's
-lookup table in bf16, as in the JAX package's amp training."""
+lookup table in bf16, as in the JAX package's amp training.
+
+Under tensor parallelism (``parallel/tp.py``) the CTC and attention heads
+compute the rank's vocabulary columns and join them, the embedding lookup
+sums the ranks' rows, and the decoding table is built from the rank's
+rows and joined; every other leaf is whole while the model computes
+(``tp.gathered``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..ops.amp import dot_f32, round_bf16
+from ..parallel import tp
 from ..utils.init import const, uniform
 from .attention import Attention, AttCache
 from .decoder import Decoder, DecoderState
@@ -66,7 +73,19 @@ class ASR(nn.Module):
 
     def ctc_logits(self, enc: torch.Tensor) -> torch.Tensor:
         """Raw CTC head logits, f32."""
-        return dot_f32(enc, self.ctc_w) + self.ctc_b
+        return tp.vocab_logits(enc, self.ctc_w, self.ctc_b,
+                               tp.split_dim(self, "ctc_w") is not None)
+
+    def char_logits(self, dec_out: torch.Tensor) -> torch.Tensor:
+        """The attention head's logits, f32."""
+        return tp.vocab_logits(dec_out, self.char_w, self.char_b,
+                               tp.split_dim(self, "char_w") is not None)
+
+    def embed_rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding of ``tokens``."""
+        if tp.split_dim(self, "embed") is None:
+            return self.embed[tokens.long()]
+        return tp.vocab_lookup(self.embed, tokens)
 
     def ctc_output(self, enc: torch.Tensor) -> torch.Tensor:
         return F.log_softmax(self.ctc_logits(enc), dim=-1)
@@ -79,7 +98,8 @@ class ASR(nn.Module):
         c0 = self.decoder.cells[0]
         E = self.dec_dim
         b = c0.b if self.decoder.module == "lstm" else c0.b_ih
-        t = dot_f32(self.embed, c0.w_ih[:E]) + b
+        t = tp.vocab_table(self.embed, c0.w_ih[:E], b,
+                           tp.split_dim(self, "embed") is not None)
         return {"emb_proj": round_bf16(t) if amp else t, "w_ctx": c0.w_ih[E:]}
 
     def init_decode(self, enc: torch.Tensor, enc_len: torch.Tensor):
@@ -109,14 +129,13 @@ class ASR(nn.Module):
             dec_out, state = self.decoder.step(state, x0_proj=x0, train=train,
                                                generator=generator)
         else:
-            emb = self.embed[prev_token.long()]
+            emb = self.embed_rows(prev_token)
             if train and self.emb_drop > 0:
                 emb = dropout(emb, self.emb_drop, generator)
             dec_out, state = self.decoder.step(
                 state, torch.cat([emb, context], dim=-1), train=train,
                 generator=generator)
-        logits = dot_f32(dec_out, self.char_w) + self.char_b
-        return logits, state, align, context
+        return self.char_logits(dec_out), state, align, context
 
     def forward(self, feat: torch.Tensor, feat_len: torch.Tensor,
                 decode_step: int, tf_rate: float = 1.0,
@@ -206,8 +225,7 @@ class ASR(nn.Module):
                   + dot_f32(context.reshape(BK, -1), tables["w_ctx"]))
             dec_out, state = self.decoder.step(state, x0_proj=x0)
         else:
-            emb = self.embed[prev_token]
+            emb = self.embed_rows(prev_token)
             dec_in = torch.cat([emb, context.reshape(BK, -1)], dim=-1)
             dec_out, state = self.decoder.step(state, dec_in)
-        logits = dot_f32(dec_out, self.char_w) + self.char_b
-        return logits, state, align, context
+        return self.char_logits(dec_out), state, align, context

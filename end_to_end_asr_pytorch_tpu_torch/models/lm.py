@@ -9,7 +9,12 @@ and K4b; without residuals under ``torch.no_grad``), with dropout on the
 embedding and between layers when training, its masks drawn from the
 caller's ``torch.Generator``. Under decode amp the state is bf16, the
 weights and the first-layer table are rounded to bf16, and every product
-accumulates in f32: the logits are f32.
+accumulates in f32: the logits are f32. Under tensor parallelism
+(``parallel/tp.py``) the output layer computes the rank's vocabulary
+columns (under ``emb_tying`` the rank's rows of ``embed``) and joins them,
+the embedding lookup sums the ranks' rows, and the first-layer table is
+built from the rank's rows and joined; the cells' weights are whole
+while the model computes (``tp.gathered``).
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch.nn.functional as F
 
 from ..ops import rnn as rnn_ops
 from ..ops.amp import dot_f32, round_bf16
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from ..utils.init import const, uniform
 from .encoder import dropout
 
@@ -65,21 +70,28 @@ class RNNLM(nn.Module):
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         w = self.embed.T if self.out_w is None else self.out_w
-        return dot_f32(h, w) + self.out_b
+        return tp.vocab_logits(h, w, self.out_b,
+                               tp.split_dim(self, "out_b") is not None)
+
+    def _embed_split(self) -> bool:
+        return tp.split_dim(self, "embed") is not None
 
     def emb_proj_table(self, amp: bool = False) -> torch.Tensor:
         """(V, gates) f32 first-layer input projection of every token's
         embedding, bias folded in (under ``amp`` rounded to bf16)."""
         w = self.cells[0]
         b = w.b if self.module == "lstm" else w.b_ih
-        t = dot_f32(self.embed, w.w_ih) + b
+        t = tp.vocab_table(self.embed, w.w_ih, b, self._embed_split())
         return round_bf16(t) if amp else t
 
     def step(self, state: LMState, token: torch.Tensor,
              emb_proj: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, LMState]:
         """token (B,) -> (logits (B, V), new state)."""
-        inp = None if emb_proj is not None else self.embed[token]
+        inp = None
+        if emb_proj is None:
+            inp = (tp.vocab_lookup(self.embed, token) if self._embed_split()
+                   else self.embed[token])
         hs, cs = [], []
         for i, w in enumerate(self.cells):
             if i == 0 and emb_proj is not None:
@@ -110,7 +122,8 @@ class RNNLM(nn.Module):
         drop = train and self.dropout > 0
         # F.embedding's backward sums each token's rows in parallel; the
         # index backward of embed[tokens] walks a token's repeats in turn
-        x = F.embedding(tokens, self.embed)
+        x = (tp.vocab_lookup(self.embed, tokens) if self._embed_split()
+             else F.embedding(tokens, self.embed))
         if drop:
             x = dropout(x, self.dropout, generator)
         mask = (torch.arange(U, device=tokens.device)[:, None]

@@ -14,12 +14,24 @@ clipping and the non-finite-gradient step skip, in optax's arithmetic:
 
 Every step runs on the device with no host synchronisation: the skip is a
 ``torch.where`` on a device flag.
+
+Under tensor parallelism (``parallel/tp.shard_slots`` sets ``split``, the
+parameters each rank holds a part of) the slots are parts as well, and the
+global norm and the non-finite flag sum the split leaves' squares and
+non-finite counts over the model group (replicated leaves count once), so
+every rank of a group clips by the world-1 norm and skips together. The
+replicated leaves take model index 0's gradient in the same all-reduce:
+the ranks of a group compute it from the same rows, but a backward whose
+sums run in no fixed order (cuDNN's convolution gradients use atomics)
+gives each rank other low bits, and the copies would drift apart.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping
 
 import torch
+
+from .parallel import mesh
 
 _SLOTS = {"adadelta": ("e_g", "e_x"), "adam": ("mu", "nu"),
           "adamw": ("mu", "nu"), "sgd": ("trace",)}
@@ -44,6 +56,7 @@ class Optimizer:
         self.grad_clip = float(grad_clip)
         self.count = None
         self.slots: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.split: Dict[str, int] = {}   # see the module docstring
 
     def init(self, params: Mapping[str, torch.Tensor]) -> None:
         dev = next(iter(params.values())).device
@@ -86,8 +99,12 @@ class Optimizer:
         if self.count is None:
             self.init(params)
         grads = {n: p.grad for n, p in params.items()}
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-        finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
+        if self.split:
+            gnorm, finite = self._norm_over_model(grads)
+        else:
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            finite = torch.stack([torch.isfinite(g).all()
+                                  for g in grads.values()]).all()
         clip = gnorm < self.grad_clip
         step_size = -self.lr_at(self.count)
         count_inc = self.count + 1
@@ -99,6 +116,32 @@ class Optimizer:
                 self.slots[n][s] = torch.where(finite, v, self.slots[n][s])
         self.count = torch.where(finite, count_inc, self.count)
         return gnorm
+
+    def _norm_over_model(self, grads):
+        """The global norm and the finite flag of the whole gradient, from
+        the rank's parts: one all-reduce over the model group of the split
+        leaves' squares and non-finite counts, and of the replicated
+        leaves' gradients from model index 0 (zeros from the others),
+        which replace every rank's own, in place."""
+        rep = [g for n, g in grads.items() if n not in self.split]
+        part = [g for n, g in grads.items() if n in self.split]
+        zero = torch.zeros((), device=part[0].device)
+        tot = torch.cat([torch.stack([
+            sum((torch.sum(g * g) for g in part), zero),
+            sum((torch.sum(~torch.isfinite(g)).float() for g in part),
+                zero)])] + [g.reshape(-1).float() for g in rep])
+        if mesh.model_index() != 0:
+            tot[2:] = 0
+        mesh.model_all_reduce(tot)
+        off = 2
+        for g in rep:
+            g.copy_(tot[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        sq = sum((torch.sum(g * g) for g in rep), zero) + tot[0]
+        finite = (torch.stack([torch.isfinite(g).all() for g in rep]).all()
+                  if rep else torch.ones((), dtype=torch.bool,
+                                         device=zero.device)) & (tot[1] == 0)
+        return torch.sqrt(sq), finite
 
     def state_dict(self) -> Dict[str, Any]:
         return {"optimizer": self.name, "count": self.count,

@@ -9,9 +9,13 @@ Logs go to ``<logdir>/<exp>/log.jsonl``, one JSON object per entry
 in place of the JAX package's TensorBoard writer.
 
 Under ``torchrun`` the solver joins the process group
-(``parallel/mesh.init``: ``self.rank`` of ``self.world``); only rank 0
-prints, logs and writes checkpoints (``save``, which every rank calls:
-a barrier follows the write).
+(``parallel/mesh.init``: ``self.rank`` of ``self.world``) and lays it out
+as ``model_parallel: M`` asks (``mesh.set_model_parallel``: a ``ValueError``
+when M does not divide the world); its loaders take the rows of its data
+index (``self.shard``). Only rank 0 prints, logs and writes checkpoints
+(``save``, which every rank calls: the split parameters and optimizer
+slots are gathered whole first, ``parallel/tp.whole``, and a barrier
+follows the write).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from pathlib import Path
 from typing import Any, Dict, Union
 
 from ..config import merge_hparas
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from ..utils.device import resolve_device
 from ..utils.torch_ckpt import save_checkpoint
 
@@ -44,6 +48,12 @@ class BaseSolver:
         self.device = resolve_device("cpu" if getattr(paras, "cpu", False)
                                      else None)
         self.rank, self.world = mesh.init(self.device)
+        self.model_parallel = mesh.set_model_parallel(
+            int(config.get("model_parallel", 1))).m
+        self.shard = dict(rank=mesh.data_index(), world=mesh.data_size(),
+                          multiple=self.world)
+        self.params: Dict[str, Any] = {}
+        self.split: Dict[str, int] = {}   # tp.shard_module's split leaves
         self.step = 0
         self.tokenizer = None   # load_data sets it
         self._log = None
@@ -75,12 +85,21 @@ class BaseSolver:
                                     "value": value}) + "\n")
         self._log.flush()
 
-    def save(self, name: str, model, **kw):
-        """``save_checkpoint`` to ``<ckpdir>/<name>`` on rank 0; every rank
-        waits for the write."""
-        if self.rank == 0:
-            save_checkpoint(self.ckpdir / name, model, **kw)
+    def save(self, name: str, model, optimizer=None, **kw):
+        """``save_checkpoint`` of the whole tensors to ``<ckpdir>/<name>`` on
+        rank 0; every rank takes part in the gather and waits for the
+        write."""
+        with tp.whole(self.params, self.split, optimizer):
+            if self.rank == 0:
+                save_checkpoint(self.ckpdir / name, model,
+                                optimizer=optimizer, **kw)
         mesh.barrier()
+
+    def parallel_msg(self) -> str:
+        """`` | tensor parallel DxM`` under tensor parallelism, else ""."""
+        m = self.model_parallel
+        return (f" | tensor parallel {self.world // m}x{m}" if m > 1
+                else "")
 
     def close(self):
         if self._log is not None:

@@ -5,7 +5,10 @@ global batch (``corpus.batch_size``, padded with zero-length rows to a
 multiple of the world, as the JAX package pads for its mesh); rank 0
 gathers every rank's hypotheses and n-best lists and writes them in the
 global row order, the dummy rows dropped, and the summary's WER / CER and
-K8 launches cover every rank.
+K8 launches cover every rank. With ``model_parallel: M`` the ASR and the
+LM are split as in training (``parallel/tp.py``), the ranks of a model
+group decode the same rows, and the gather goes over the data group, so
+every row is written once.
 
 The beam (``decode/beam.py``: joint CTC prefix / attention scores, shallow
 fusion of the RNN-LM from ``decode.lm_config`` / ``decode.lm_path`` when
@@ -34,7 +37,7 @@ from ..models.asr import ASR
 from ..models.lm import RNNLM
 from ..models.plugin import plugin_from_config
 from ..ops.audio import create_transform
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from ..utils.jax_ckpt import load_checkpoint
 from ..utils.metrics import edit_distance
 
@@ -44,15 +47,11 @@ class Solver(BaseSolver):
         super().__init__(config, paras, mode)
         self.decode_cfg = dict(config.get("decode", {}))
         self.lm_weight = float(self.decode_cfg.get("lm_weight", 0.0))
-        if int(config.get("model_parallel", 1)) > 1:
-            raise NotImplementedError("model_parallel > 1 (decoding sharded "
-                                      "over a device mesh) is not ported yet")
 
     def load_data(self):
         (self.dv_set, self.tt_set, self.feat_dim, self.vocab_size,
          self.tokenizer, msg) = load_dataset(self.paras.njobs, False,
-                                             mode="test", rank=self.rank,
-                                             world=self.world,
+                                             mode="test", **self.shard,
                                              **self.config["data"])
         self.verbose(msg)
 
@@ -79,6 +78,14 @@ class Solver(BaseSolver):
             load_checkpoint(self.decode_cfg["lm_path"], self.lm)
             self.verbose(f"Loaded LM ckpt for shallow fusion "
                          f"(weight {self.lm_weight})")
+        self.params = dict(self.model.named_parameters())
+        self.split = tp.shard_module(self.model)
+        if self.lm is not None:
+            self.params.update({f"lm.{n}": p
+                                for n, p in self.lm.named_parameters()})
+            self.split.update(tp.shard_module(self.lm, "lm."))
+        if self.split:
+            self.verbose("Decode" + self.parallel_msg())
         self.decoder = (BeamDecoder(self.model, self.decode_cfg, self.lm,
                                     plugin=self.plugin)
                         if self.model.enable_att else None)
@@ -164,6 +171,10 @@ class Solver(BaseSolver):
         return edit_distance(hs, rs) / len(rs)
 
     def _run_batch(self, batch):
+        with tp.gathered(self.params, self.split):
+            return self._decode_batch(batch)
+
+    def _decode_batch(self, batch):
         dev = self.device
         wave = torch.from_numpy(batch["wave"]).to(dev)
         wave_len = torch.from_numpy(batch["wave_len"]).to(dev)

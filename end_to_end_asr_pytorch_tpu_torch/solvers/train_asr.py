@@ -35,7 +35,11 @@ the global batch and takes the JAX sharded step's values: the losses
 divide by the global batch's counts, the random draws take its shape, the
 gradients are summed over the ranks before the clip, and validation
 gathers every rank's predictions, so every rank reaches the same rates and
-checkpoint decisions (rank 0 writes).
+checkpoint decisions (rank 0 writes). With ``model_parallel: M`` the ranks
+of a model group share their rows and each holds its part of the split
+parameters and their optimizer slots (``parallel/tp.py``); the sums and
+gathers above go over the data group, the clip's norm over the model
+group too, and ``--load`` cuts the whole checkpoint to the rank's parts.
 """
 from __future__ import annotations
 
@@ -58,7 +62,7 @@ from ..ops.augment import apply_masks, draw_masks
 from ..ops.audio import create_transform
 from ..ops.ctc import ctc_loss, ctc_loss_k3
 from ..optim import Optimizer
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from ..utils.metrics import cal_er
 from ..utils.jax_ckpt import load_checkpoint
 
@@ -119,16 +123,11 @@ def asr_loss(ctc_out, enc_len, att_out, text, text_len, ctc_weight: float,
 
 def check_supported(config) -> None:
     """Raise on the options whose parts are not ported yet."""
-    todo = []
-    if int(config.get("model_parallel", 1)) > 1:
-        todo.append("model_parallel > 1")
     fmt = config.get("ckpt_format", "native")
     if fmt == "orbax":
-        todo.append("ckpt_format: orbax")
-    elif fmt != "native":
+        raise NotImplementedError("not ported yet: ckpt_format: orbax")
+    if fmt != "native":
         raise ValueError(f"ckpt_format {fmt!r} (want native|orbax)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + ", ".join(todo))
 
 
 class Solver(BaseSolver):
@@ -152,7 +151,7 @@ class Solver(BaseSolver):
         (self.tr_set, self.dv_set, self.feat_dim, self.vocab_size,
          self.tokenizer, msg) = load_dataset(self.paras.njobs,
                                              self.curriculum > 0,
-                                             rank=self.rank, world=self.world,
+                                             **self.shard,
                                              **self.config["data"])
         self.verbose(msg)
 
@@ -187,13 +186,16 @@ class Solver(BaseSolver):
         self.verbose(f"ASR model | ctc_weight {self.ctc_weight} | params "
                      f"{n_params / 1e6:.2f}M | device {dev} | CTC "
                      f"{'K3' if use_k3 else 'plain'} | "
-                     f"{'amp (bf16)' if self.amp else 'f32'}")
+                     f"{'amp (bf16)' if self.amp else 'f32'}"
+                     f"{self.parallel_msg()}")
         if self.paras.load:
             ck = load_checkpoint(self.paras.load, self.model, self.plugin)
             if ck["optimizer"] is not None:
                 self.optimizer.load_state_dict(ck["optimizer"])
             self.step = ck["global_step"]
             self.verbose(f"Loaded ckpt {self.paras.load} @ step {self.step}")
+        self.split = tp.shard_module(self.model)
+        tp.shard_slots(self.optimizer, self.split)
 
     def tf_rate(self) -> float:
         frac = min(max(self.step / max(self.tf_step, 1), 0.0), 1.0)
@@ -223,19 +225,22 @@ class Solver(BaseSolver):
         batch's shape, the losses divide by the global counts
         (``train.counts``), and the gradients and the loss metrics are
         summed over the ranks before the optimizer (``train.all_reduce``),
-        so every rank takes the world-1 step."""
+        so every rank takes the world-1 step. Under tensor parallelism the
+        forward and the backward run on whole weights (``tp.gathered``)
+        and each rank keeps its part of their gradients."""
         tf_rate = self.tf_rate()
         counts = None
         if mesh.active():
             with record_function("train.counts"):
                 counts = global_counts(text, text_len)
-        with mesh.batch_rows(rows):
-            metrics, loss = self._forward_loss(wave, wave_len, text,
-                                               text_len, tf_rate, counts)
-        for p in self.params.values():
-            p.grad = None
-        with record_function("train.backward"):
-            loss.backward()
+        with tp.gathered(self.params, self.split):
+            with mesh.batch_rows(rows):
+                metrics, loss = self._forward_loss(wave, wave_len, text,
+                                                   text_len, tf_rate, counts)
+            for p in self.params.values():
+                p.grad = None
+            with record_function("train.backward"):
+                loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh.active():
             with record_function("train.all_reduce"):
@@ -356,8 +361,9 @@ class Solver(BaseSolver):
         losses = {"att": [], "ctc": []}
         shown = 0
         for batch in self.dv_set:
-            out = {k: v.cpu().numpy() for k, v in
-                   self.valid_batch(*self._to_device(batch)).items()}
+            with tp.gathered(self.params, self.split):
+                out = {k: v.cpu().numpy() for k, v in
+                       self.valid_batch(*self._to_device(batch)).items()}
             batch = mesh.gather_batch({**out, **{k: batch[k] for k in (
                 "text", "text_len", "text_raw")}})
             out = {k: batch[k] for k in out}

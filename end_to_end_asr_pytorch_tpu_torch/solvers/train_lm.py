@@ -13,7 +13,9 @@ K2 / K2b (LSTM) or K4 / K4b (GRU) on the card. Training runs in f32, as
 the JAX solver's does: ``--amp`` and ``hparas.amp`` are ignored. Under
 ``torchrun`` each rank trains on its rows of the global batch, the NLL
 divides by the global token count, the gradients are summed, and the dev
-perplexity sums every rank's NLL and tokens.
+perplexity sums every rank's NLL and tokens; with ``model_parallel: M``
+each rank holds its part of the split parameters and slots, as the ASR
+solver's (``parallel/tp.py``), and those sums go over the data group.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from .train_asr import check_supported
 from ..data.dataset import load_textset
 from ..models.lm import RNNLM
 from ..optim import Optimizer
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from ..utils.jax_ckpt import load_checkpoint
 from ..utils.text import EOS_IDX
 
@@ -67,8 +69,7 @@ class Solver(BaseSolver):
     def load_data(self):
         (self.tr_set, self.dv_set, self.vocab_size, self.tokenizer,
          msg) = load_textset(self.config["data"]["corpus"],
-                             self.config["data"]["text"], self.rank,
-                             self.world)
+                             self.config["data"]["text"], **self.shard)
         self.verbose(msg)
 
     def set_model(self):
@@ -85,13 +86,15 @@ class Solver(BaseSolver):
         n_params = sum(p.numel() for p in self.params.values())
         self.verbose(f"RNN-LM | {self.lm.module.upper()} x{self.lm.n_layers} "
                      f"dim {self.lm.dim} | params {n_params / 1e6:.2f}M | "
-                     f"device {dev}")
+                     f"device {dev}{self.parallel_msg()}")
         if self.paras.load:
             ck = load_checkpoint(self.paras.load, self.lm)
             if ck["optimizer"] is not None:
                 self.optimizer.load_state_dict(ck["optimizer"])
             self.step = ck["global_step"]
             self.verbose(f"Loaded ckpt {self.paras.load} @ step {self.step}")
+        self.split = tp.shard_module(self.lm)
+        tp.shard_slots(self.optimizer, self.split)
 
     def _to_device(self, batch):
         return (torch.from_numpy(batch["text"]).to(self.device, torch.int64),
@@ -111,14 +114,16 @@ class Solver(BaseSolver):
             count = mesh.all_reduce_sum(
                 (torch.arange(text.shape[1], device=text.device)[None, :]
                  < text_len[:, None]).sum().to(torch.float32))
-        with record_function("lm.forward"), mesh.batch_rows(rows):
-            total, local = lm_nll(self.lm, text, text_len, True, self.gen)
-            loss = total / torch.clamp(local if count is None else count,
-                                       min=1.0)
-        for p in self.params.values():
-            p.grad = None
-        with record_function("lm.backward"):
-            loss.backward()
+        with tp.gathered(self.params, self.split):
+            with record_function("lm.forward"), mesh.batch_rows(rows):
+                total, local = lm_nll(self.lm, text, text_len, True,
+                                      self.gen)
+                loss = total / torch.clamp(
+                    local if count is None else count, min=1.0)
+            for p in self.params.values():
+                p.grad = None
+            with record_function("lm.backward"):
+                loss.backward()
         loss = loss.detach()
         if mesh.active():
             with record_function("lm.all_reduce"):
@@ -158,7 +163,8 @@ class Solver(BaseSolver):
         improves and ``latest.pth`` always."""
         total, count = 0.0, 0.0
         for batch in self.dv_set:
-            t, c = lm_nll(self.lm, *self._to_device(batch))
+            with tp.gathered(self.params, self.split):
+                t, c = lm_nll(self.lm, *self._to_device(batch))
             if mesh.active():
                 t, c = mesh.all_reduce_sum(torch.stack([t, c]))
             total += float(t)

@@ -262,14 +262,14 @@ def test_test_mode_ignores_amp(setup, capsys):
 
 
 def test_test_mode_rejects_model_parallel(setup):
-    """``model_parallel > 1`` raises in ``main --test`` (the JAX solver
-    builds a device mesh from it), as it does in training, until
-    multi-device decoding is ported."""
+    """``model_parallel: 2`` in ``main --test`` at world 1 raises the JAX
+    package's ValueError (its ``make_mesh``: M must divide the devices;
+    here the processes), as it does in training."""
     path = _config(setup, "mp")
     cfg = yaml.safe_load(path.read_text())
     cfg["model_parallel"] = 2
     path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="model_parallel"):
+    with pytest.raises(ValueError, match="model_parallel"):
         port_main.main(["--config", str(path), "--test", "--cpu", "--load",
                         _ckpt(setup, "mp"), "--outdir",
                         str(setup["dir"] / "mp" / "out")])
