@@ -342,6 +342,30 @@ Phases, each printing one JSON line:
                 finite dev perplexity; then ... .main --test on the FLAC
                 tree with test_entry's settings and decode.lm_path on that
                 best_ppx.pth (the LibriSpeech recipe's chain)
+  trained_entry - the experiment's chain on trained weights: python -m
+                end_to_end_asr_pytorch_tpu_torch.data.make_synthetic (512
+                / 64 / 64 utterances), then ... .main on
+                config/synthetic/las.yaml pointed at that corpus with
+                ckpt_format: orbax, until max_step 4000 or 150 s of
+                training steps (a wrapper on Solver.train_step ends the
+                loop, which then validates and saves): K1, K2, K2b, K3
+                launched; every event file read back through
+                utils/tensorboard.read_events (each CRC checked) with the
+                loss, speed, tf_rate, wer, cer, hyp_i, ref_i and align_i
+                tags, each align_i a PNG of its alignment's (T', U);
+                best_att.pth/, best_ctc.pth/ and latest.pth/ complete
+                orbax directories (trained_train: steps, dev CER / WER of
+                both heads). Then main --test's Solver on best_att.pth/
+                over the 64 test utterances (LM weight 0) through the
+                default route (amp auto: K2-bf16), amp off with K8's tail,
+                amp off with attention.use_pallas (K5 and K8), and the
+                plain versions (USE_KERNELS = False) with amp auto and off:
+                per route the CER, the share of rows with the top-1 of
+                the plain route, the largest best-score gap (within 1e-2
+                of its own plain route) and the differing rows, those
+                above 1e-3 listed as not near ties (trained_test); one
+                test batch of the default route under utils/profiler.trace
+                with benchmark's ms and device_memory (trained_profile)
   tp_train    - tensor parallelism (model_parallel: 2, parallel/tp.py):
                 config/synthetic/las_sub16k.yaml's model at full width
                 (V=16384) with attention.use_pallas_train, B=32 waves of 7 s,
@@ -3623,6 +3647,277 @@ def phase_options_entry(seed, n_utts=16):
 
 # the RNN-LM's scan shapes: config/libri/lm_example.yaml's batch of 64 at two
 # padded text lengths, and a ragged last batch of an epoch
+TRAINED_MAX_STEP = 4000
+TRAINED_BUDGET_S = 150.0    # wall seconds of training steps
+TRAINED_ROUTES = {          # name: (decode.amp, attention.use_pallas, kernels)
+    "default": ("auto", False, True),        # amp auto = bf16: K2-bf16
+    "default_plain": ("auto", False, False),
+    "k8": (False, False, True),              # f32: K2, K8 a beam step
+    "k5": (False, True, True),               # f32: K2, K5 and K8 a step
+    "plain": (False, False, False)}          # f32, every plain version
+TRAINED_EXPECT = {"default": ("fbank_fused", "lstm_scan_bf16"),
+                  "k8": ("fbank_fused", "lstm_scan_fused", "beam_step_fused"),
+                  "k5": ("fbank_fused", "lstm_scan_fused", "beam_step_fused",
+                         "loc_attention_fused")}
+
+
+def trained_events(logdir, align_shape, n_examples):
+    """Every event file under ``logdir`` read back through the port's own
+    reader (each record's CRCs checked): {tag: [(step, value)]} with the
+    scalars' values, the texts and each image's PNG size; each ``align_i``
+    must be a PNG of the alignment's (T', U), its IHDR as its summary
+    says."""
+    from end_to_end_asr_pytorch_tpu_torch.utils.png import png_size
+    from end_to_end_asr_pytorch_tpu_torch.utils.tensorboard import read_events
+    tags, files = {}, sorted(Path(logdir).rglob("events.out.tfevents.*"))
+    for f in files:
+        run = str(f.parent.relative_to(logdir))
+        for ev in read_events(f):
+            for v in ev.get("values", []):
+                tag = v["tag"] if run == "." else f"{v['tag']}:{run}"
+                if "image" in v:
+                    im = v["image"]
+                    hw = png_size(im["png"])
+                    check(hw == (im["height"], im["width"]) == align_shape,
+                          f"{tag} at step {ev['step']}: PNG {hw}, summary "
+                          f"{im['height']}x{im['width']}, alignment "
+                          f"{align_shape}")
+                    val = hw
+                else:
+                    val = v.get("simple_value",
+                                v.get("tensor", {}).get("string_val"))
+                tags.setdefault(tag, []).append((ev["step"], val))
+    main_tags = {t.split(":")[0].split("/")[0] for t in tags}
+    want = {"loss", "speed", "tf_rate", "wer", "cer"} | {
+        f"{k}_{i}" for k in ("hyp", "ref", "align") for i in range(n_examples)}
+    check(want <= main_tags, f"event files lack tags {want - main_tags}")
+    return tags, len(files)
+
+
+def trained_top1(a, b):
+    """Two routes' beam outputs over the same batches: the share of rows
+    with identical top-1 tokens, the largest best-score gap, and each row
+    whose top-1 differs with its gap (those above 1e-3: not near ties)."""
+    import torch
+    gaps, differ = [], []
+    for oa, ob in zip(a, b):
+        for i in range(oa.scores.shape[0]):
+            gap = float((oa.scores[i, 0] - ob.scores[i, 0]).abs())
+            if not (bool(oa.lengths[i, 0] == ob.lengths[i, 0])
+                    and torch.equal(oa.tokens[i, 0, :oa.lengths[i, 0]],
+                                    ob.tokens[i, 0, :ob.lengths[i, 0]])):
+                differ.append([len(gaps), gap])
+            gaps.append(gap)
+    return {"top1_identical_share": 1.0 - len(differ) / len(gaps),
+            "best_score_max_abs_diff": max(gaps), "rows_differing": differ,
+            "not_near_ties": [r for r in differ if r[1] > 1e-3]}
+
+
+def phase_trained_entry(seed, budget_s=TRAINED_BUDGET_S):
+    """The experiment's chain on trained weights: the corpus CLI, main
+    --config training with TensorBoard events and orbax checkpoints, main
+    --test on the trained best_att.pth/ through four routes, one test
+    batch profiled (see the module docstring)."""
+    import torch
+    import yaml
+    from end_to_end_asr_pytorch_tpu_torch import main as port_main
+    from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
+    from end_to_end_asr_pytorch_tpu_torch.solvers import test_asr, train_asr
+    from end_to_end_asr_pytorch_tpu_torch.utils import profiler
+    from end_to_end_asr_pytorch_tpu_torch.utils.orbax import read_orbax
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = Path(d)
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "end_to_end_asr_pytorch_tpu_torch.data.make_synthetic",
+             "--out", str(d / "synth"), "--n_train", "512", "--n_dev", "64",
+             "--n_test", "64", "--seed", str(seed)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        corpus_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"make_synthetic exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        cfg = yaml.safe_load((ROOT / "config/synthetic/las.yaml").read_text())
+        cfg["data"]["corpus"]["path"] = str(d / "synth")
+        cfg["data"]["text"]["vocab_file"] = str(d / "synth" / "vocab.txt")
+        cfg["hparas"]["max_step"] = TRAINED_MAX_STEP
+        cfg["ckpt_format"] = "orbax"
+        (d / "las.yaml").write_text(yaml.safe_dump(cfg))
+        exp = f"las_sd{seed}"
+        # the wall budget: past it, the step in hand is the last one (the
+        # loop then validates and saves, as it does at max_step)
+        train_step, valid_batch = (train_asr.Solver.train_step,
+                                   train_asr.Solver.valid_batch)
+        deadline, align_shapes = [], []
+
+        def budgeted(self, *a, **k):
+            if not deadline:
+                deadline.append(time.perf_counter() + budget_s)
+            m = train_step(self, *a, **k)
+            if time.perf_counter() > deadline[0]:
+                self.max_step = self.step + 1
+            return m
+
+        def recorded(self, *a, **k):
+            out = valid_batch(self, *a, **k)
+            align_shapes.append(tuple(out["att_align"].shape))
+            return out
+
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        train_asr.Solver.train_step = budgeted
+        train_asr.Solver.valid_batch = recorded
+        t0 = time.perf_counter()
+        try:
+            best = port_main.main(["--config", str(d / "las.yaml"), "--seed",
+                                   str(seed), "--logdir", str(d / "log"),
+                                   "--ckpdir", str(d / "ckpt")])
+        finally:
+            train_asr.Solver.train_step = train_step
+            train_asr.Solver.valid_batch = valid_batch
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = {k: fn.launches for k, fn in counters.items()
+                          if fn.launches}
+        for k in ("fbank_fused", "lstm_scan_fused", "lstm_bwd_fused",
+                  "ctc_loss_fused"):
+            check(train_launches.get(k, 0) > 0,
+                  f"trained_entry: training launched no {k}: "
+                  f"{train_launches}")
+        ckpts = {}
+        for name in ("best_att.pth", "best_ctc.pth", "latest.pth"):
+            p = d / "ckpt" / exp / name
+            check(p.is_dir() and (p / "meta.json").is_file()
+                  and (p / "model" / "_METADATA").is_file()
+                  and (p / "port_optimizer" / "_METADATA").is_file(),
+                  f"{p} is not a complete orbax directory")
+            ck = read_orbax(p)
+            ckpts[name] = {"global_step": ck["global_step"],
+                           "metrics": ck["metrics"],
+                           "leaves": len(ck["model"]),
+                           "bytes": sum(f.stat().st_size
+                                        for f in p.rglob("*") if f.is_file())}
+        steps = ckpts["latest.pth"]["global_step"]
+        # U and T' of the first dev batch, the one the figures come from
+        _, u, _, t_enc = align_shapes[0]
+        tags, n_files = trained_events(d / "log" / exp, (t_enc, u), 4)
+        dev_cer = {h: tags[f"cer:cer/dv_{h}"][-1][1] for h in ("att", "ctc")}
+        dev_wer = {h: tags[f"wer:wer/dv_{h}"][-1][1] for h in ("att", "ctc")}
+        emit({"phase": "trained_train", "steps": steps,
+              "budget_s": budget_s, "train_seconds": train_s,
+              "corpus_seconds": corpus_s,
+              "steps_per_s": steps / train_s, "dev_cer": dev_cer,
+              "dev_wer": dev_wer, "best_wer": best,
+              "checkpoints": ckpts, "event_files": n_files,
+              "tags": {t: len(v) for t, v in sorted(tags.items())},
+              "align_png": [t_enc, u], "launches": train_launches,
+              "card": CARD})
+
+        # main --test's Solver on best_att.pth/, each route in turn
+        outs, rates, routes = {}, {}, {}
+        for name, (amp, pallas, kernels) in TRAINED_ROUTES.items():
+            tcfg = {**cfg, "decode": {**cfg["decode"], "amp": amp,
+                                      "lm_weight": 0.0}}
+            tcfg["model"] = {**cfg["model"], "attention": {
+                **cfg["model"]["attention"], "use_pallas": pallas}}
+            (d / f"{name}.yaml").write_text(yaml.safe_dump(tcfg))
+            paras = port_main.build_parser().parse_args(
+                ["--config", str(d / f"{name}.yaml"), "--test", "--load",
+                 str(d / "ckpt" / exp / "best_att.pth"), "--outdir",
+                 str(d / "out"), "--seed", str(seed), "--no-msg"])
+            solver = test_asr.Solver(tcfg, paras)
+            solver.load_data()
+            solver.set_model()
+            forward, got = solver.decoder.forward, []
+
+            def capture(*a, _f=forward, _got=got, **k):
+                out = _f(*a, **k)
+                _got.append(out)
+                return out
+
+            solver.decoder.forward = capture
+            cuda_kernels.USE_KERNELS = kernels
+            for fn in counters.values():
+                fn.launches = 0
+            try:
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    rates[name] = solver._decode_set("test", solver.tt_set)
+                torch.cuda.synchronize()
+                rates[name]["seconds"] = time.perf_counter() - t0
+            finally:
+                cuda_kernels.USE_KERNELS = True
+            launches = {k: fn.launches for k, fn in counters.items()
+                        if fn.launches}
+            for k in TRAINED_EXPECT.get(name, ()):
+                check(launches.get(k, 0) > 0, f"trained_entry {name}: no "
+                      f"{k} launch: {launches}")
+            check(kernels or not launches,
+                  f"trained_entry {name}: launches on the plain route "
+                  f"{launches}")
+            rates[name].update(launches=launches,
+                               amp=solver.decoder.last_amp,
+                               fused=solver.decoder.last_fused)
+            outs[name] = got
+            routes[name] = solver
+        check(sum(o.scores.shape[0] for o in outs["plain"]) == 64,
+              "trained_entry: the test split is not 64 utterances")
+        rows = {}
+        for name, ref in (("default", "default_plain"), ("default", "plain"),
+                          ("default_plain", "plain"), ("k8", "plain"),
+                          ("k5", "plain")):
+            check(all(bool(torch.isfinite(o.scores[:, 0]).all())
+                      for o in outs[name]), f"trained_entry {name}: top-1")
+            cmp = trained_top1(outs[name], outs[ref])
+            rows.setdefault(name, {})[f"vs_{ref}"] = cmp
+            # a kernel route against its own plain route: compare_top1's
+            # bound, as phase_slice holds it
+            if name != "default_plain" and (name, ref) != ("default",
+                                                           "plain"):
+                check(cmp["best_score_max_abs_diff"] <= 1e-2,
+                      f"trained_entry {name}: best score vs {ref} {cmp}")
+        emit({"phase": "trained_test", "utts": 64,
+              "routes": {k: {**rates[k], **rows.get(k, {})}
+                         for k in TRAINED_ROUTES}, "card": CARD})
+
+        # one test batch of the default route under the profiler
+        solver = routes["default"]
+        batch = next(iter(solver.tt_set))
+        dev = solver.device
+        wave = torch.from_numpy(batch["wave"]).to(dev)
+        wave_len = torch.from_numpy(batch["wave_len"]).to(dev)
+
+        def decode():
+            with torch.no_grad():
+                return solver.decoder.forward(*solver.frontend(wave,
+                                                               wave_len))
+
+        torch.cuda.reset_peak_memory_stats()
+        with profiler.trace(str(d / "trace")) as trace_path:
+            decode()
+            torch.cuda.synchronize()
+        bench = profiler.benchmark(decode, iters=5, warmup=1,
+                                   batch_utts=int(wave.shape[0]),
+                                   audio_seconds=float(wave_len.float().mean())
+                                   / 16000.0)
+        mem = profiler.device_memory()
+        check(trace_path.is_file() and trace_path.stat().st_size > 0,
+              "profiler.trace wrote no trace")
+        with open(trace_path) as f:
+            trace = json.load(f)
+        kernels_in_trace = sum(1 for e in trace.get("traceEvents", [])
+                               if e.get("cat") == "kernel")
+        check(kernels_in_trace > 0, "the trace holds no kernel event")
+        emit({"phase": "trained_profile", "batch": int(wave.shape[0]),
+              "trace_bytes": trace_path.stat().st_size,
+              "trace_kernel_events": kernels_in_trace, **bench,
+              "device_memory": mem,
+              "phase_seconds": time.perf_counter() - t_phase, "card": CARD})
+
+
 LM_SCAN_SHAPES = ((64, 400), (64, 592), (13, 112))
 # config/libri/lm_example.yaml's model and optimizer at full width
 LM_TRAIN_CFG = {"module": "LSTM", "dim": 512, "emb_dim": 512, "layer": 2,
@@ -4946,7 +5241,8 @@ def main():
                             "dist_train_w2,dist_pad,dist_entry,train_entry,"
                             "options_entry,"
                             "lm_scan,lm_train,lm_train_gru,flac_entry,"
-                            "lm_entry,tp_train,tp_lm_train,tp_test",
+                            "lm_entry,trained_entry,tp_train,tp_lm_train,"
+                            "tp_test",
                     help="comma list of phases after build (default: all "
                          "but scan_floor and mma_floor)")
     ap.add_argument("--tp-layouts", default="1x2",
@@ -5196,6 +5492,8 @@ def main():
         phase_options_entry(args.seed)
     if "flac_entry" in phases or "lm_entry" in phases:
         phase_recipe_entry(args.seed, phases)
+    if "trained_entry" in phases:
+        phase_trained_entry(args.seed)
     for layout in args.tp_layouts.split(","):
         if "tp_train" in phases:
             phase_tp_train("asr", args.seed, device, layout)

@@ -12,6 +12,7 @@ default_hparas: Dict[str, Any] = {
     "GRAD_CLIP": 5.0,        # global-norm gradient clipping
     "PROGRESS_STEP": 100,    # console progress every N steps
     "DEV_N_EXAMPLE": 4,      # dev examples logged during validation
+    "TB_FLUSH_FREQ": 180,    # seconds between TensorBoard flushes
 }
 
 

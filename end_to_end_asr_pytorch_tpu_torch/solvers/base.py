@@ -2,11 +2,20 @@
 ``solvers/base.py``: hparas merged over the framework defaults, experiment
 name ``<config stem or --name>_sd<seed>``, log and checkpoint directories
 (``mode="train"``) or the decode output directory (``mode="test"``),
-``verbose`` / ``progress`` / ``write_log``.
+``verbose`` / ``progress`` / ``write_log``, and the checkpoint format
+(``ckpt_format: native | orbax``, checked at start-up).
 
-Logs go to ``<logdir>/<exp>/log.jsonl``, one JSON object per entry
-(``{"step", "name", "value"}``, the value a dict of scalars or a text),
-in place of the JAX package's TensorBoard writer.
+``write_log`` sends each entry to TensorBoard event files under
+``<logdir>/<exp>/`` as the JAX package's tensorboardX writer does
+(``utils/tensorboard.py``: a dict of scalars through ``add_scalars``, a
+text through ``add_text``, an image array, ``utils/util.feat_to_fig``'s
+heatmap, through ``add_figure``), and the scalars and texts also to
+``<logdir>/<exp>/log.jsonl``, one JSON object per entry (``{"step",
+"name", "value"}``).
+
+``save`` writes the reference layout's torch file (``ckpt_format:
+native``, the default; ``utils/torch_ckpt.py``) or a directory in the JAX
+package's orbax layout (``orbax``; ``utils/orbax.py``).
 
 Under ``torchrun`` the solver joins the process group
 (``parallel/mesh.init``: ``self.rank`` of ``self.world``) and lays it out
@@ -23,10 +32,15 @@ import json
 from pathlib import Path
 from typing import Any, Dict, Union
 
+import numpy as np
+
 from ..config import merge_hparas
 from ..parallel import mesh, tp
 from ..utils.device import resolve_device
+from ..utils.orbax import save_orbax
+from ..utils.tensorboard import SummaryWriter
 from ..utils.torch_ckpt import save_checkpoint
+from ..utils.util import Timer, human_format
 
 
 class BaseSolver:
@@ -56,7 +70,14 @@ class BaseSolver:
         self.split: Dict[str, int] = {}   # tp.shard_module's split leaves
         self.step = 0
         self.tokenizer = None   # load_data sets it
+        self.timer = Timer()
         self._log = None
+        self._writer = None
+        # a typo fails at start-up, not at the first validation's save
+        self.ckpt_format = config.get("ckpt_format", "native")
+        if self.ckpt_format not in ("native", "orbax"):
+            raise ValueError(
+                f"ckpt_format {self.ckpt_format!r} (want native|orbax)")
 
     def quiet(self) -> bool:
         return getattr(self.paras, "no_msg", False) or self.rank != 0
@@ -68,10 +89,20 @@ class BaseSolver:
 
     def progress(self, msg: str):
         if not self.quiet():
-            print(f"[{self.step}] {msg}", flush=True)
+            print(f"[{human_format(self.step)}] {msg}", flush=True)
 
-    def write_log(self, log_name: str, value: Union[Dict[str, float], str]):
-        """A dict of scalars or a text, as one line of log.jsonl (rank 0
+    @property
+    def log(self) -> SummaryWriter:
+        """The TensorBoard writer, made at its first use."""
+        if self._writer is None:
+            self._writer = SummaryWriter(self.logdir,
+                                         flush_secs=self.TB_FLUSH_FREQ)
+        return self._writer
+
+    def write_log(self, log_name: str,
+                  value: Union[Dict[str, float], str, np.ndarray]):
+        """A dict of scalars, a text or an (H, W, 3) uint8 image to
+        TensorBoard, the first two also as a line of log.jsonl (rank 0
         only)."""
         if self.rank != 0:
             return
@@ -79,6 +110,12 @@ class BaseSolver:
             value = {k: float(v) for k, v in value.items() if v is not None}
             if not value:
                 return
+            self.log.add_scalars(log_name, value, self.step)
+        elif isinstance(value, str):
+            self.log.add_text(log_name, value, self.step)
+        else:
+            self.log.add_figure(log_name, value, self.step)
+            return
         if self._log is None:
             self._log = open(self.logdir / "log.jsonl", "a", encoding="utf-8")
         self._log.write(json.dumps({"step": self.step, "name": log_name,
@@ -86,13 +123,13 @@ class BaseSolver:
         self._log.flush()
 
     def save(self, name: str, model, optimizer=None, **kw):
-        """``save_checkpoint`` of the whole tensors to ``<ckpdir>/<name>`` on
-        rank 0; every rank takes part in the gather and waits for the
-        write."""
+        """The whole tensors to ``<ckpdir>/<name>`` on rank 0, as a torch
+        file or an orbax directory (``ckpt_format``); every rank takes part
+        in the gather and waits for the write."""
+        write = save_orbax if self.ckpt_format == "orbax" else save_checkpoint
         with tp.whole(self.params, self.split, optimizer):
             if self.rank == 0:
-                save_checkpoint(self.ckpdir / name, model,
-                                optimizer=optimizer, **kw)
+                write(self.ckpdir / name, model, optimizer=optimizer, **kw)
         mesh.barrier()
 
     def parallel_msg(self) -> str:
@@ -105,6 +142,9 @@ class BaseSolver:
         if self._log is not None:
             self._log.close()
             self._log = None
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
 
     def load_data(self):
         raise NotImplementedError

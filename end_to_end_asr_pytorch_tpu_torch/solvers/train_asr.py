@@ -5,13 +5,16 @@ Scheduled teacher forcing (linear ``tf_start -> tf_end`` over ``tf_step``),
 loss ``ctc_weight * CTC + (1 - ctc_weight) * CE(ignore pad 0)`` with the
 zero-infinity rule (a row whose CTC NLL is ~1e30, no feasible alignment,
 adds nothing), curriculum epochs in ascending length order, periodic
-``validate()`` with greedy decoding and WER / CER for both heads, and
-``best_att.pth`` / ``best_ctc.pth`` / ``latest.pth`` in the reference
-layout. The CTC term goes through K3 on the card (``use_pallas_ctc:
-auto | true``) or the plain autograd CTC (``false``, and ``auto`` on the
-CPU); the encoder's LSTMs through K2 / K2b (GRUs through K4 / K4b). The
-step runs eagerly, one batch at a time, with no host synchronisation
-between progress prints.
+``validate()`` with greedy decoding and WER / CER for both heads, the
+first ``DEV_N_EXAMPLE`` hypotheses, references and attention alignments
+(``align_i`` figures, from the teacher-forced pass) logged to
+TensorBoard, and ``best_att.pth`` / ``best_ctc.pth`` / ``latest.pth`` in
+the reference layout (directories in the JAX package's orbax layout under
+``ckpt_format: orbax``). The CTC term goes through K3 on the card
+(``use_pallas_ctc: auto | true``) or the plain autograd CTC (``false``,
+and ``auto`` on the CPU); the encoder's LSTMs through K2 / K2b (GRUs
+through K4 / K4b). The step runs eagerly, one batch at a time, with no
+host synchronisation between progress prints.
 
 ``hparas.amp`` or ``--amp`` runs the step's model in bf16, as the JAX
 solver's amp ``loss_fn`` does: the f32 front end (K1) feeds features cast
@@ -65,6 +68,7 @@ from ..optim import Optimizer
 from ..parallel import mesh, tp
 from ..utils.metrics import cal_er
 from ..utils.jax_ckpt import load_checkpoint
+from ..utils.util import feat_to_fig
 
 DEV_STEP_RATIO = 1.2  # decode-step headroom during validation
 
@@ -121,19 +125,9 @@ def asr_loss(ctc_out, enc_len, att_out, text, text_len, ctc_weight: float,
     return total, metrics
 
 
-def check_supported(config) -> None:
-    """Raise on the options whose parts are not ported yet."""
-    fmt = config.get("ckpt_format", "native")
-    if fmt == "orbax":
-        raise NotImplementedError("not ported yet: ckpt_format: orbax")
-    if fmt != "native":
-        raise ValueError(f"ckpt_format {fmt!r} (want native|orbax)")
-
-
 class Solver(BaseSolver):
     def __init__(self, config, paras):
         super().__init__(config, paras)
-        check_supported(config)
         self.best_wer = {"att": 3.0, "ctc": 3.0}
         h = config["hparas"]
         self.max_step = int(h.get("max_step", 1000))
@@ -323,9 +317,10 @@ class Solver(BaseSolver):
     # ------------------------------------------------------------- validate
     @torch.no_grad()
     def valid_batch(self, wave, wave_len, text, text_len) -> Dict[str, torch.Tensor]:
-        """Greedy predictions and losses of one dev batch; under a process
-        group the losses divide by the global batch's counts (the ranks'
-        sum to the global loss)."""
+        """Greedy predictions, losses and the teacher-forced pass's
+        alignments (``att_align`` (B, U, H, T')) of one dev batch; under a
+        process group the losses divide by the global batch's counts (the
+        ranks' sum to the global loss)."""
         model = self.model
         counts = global_counts(text, text_len)
         feat, feat_len = self.frontend(wave, wave_len)
@@ -346,9 +341,12 @@ class Solver(BaseSolver):
             out["att_pred"] = att_greedy(model, enc, enc_len,
                                          int(math.ceil(U * DEV_STEP_RATIO)),
                                          amp=self.amp, plugin=self.plugin)
-            _, _, att_out, _, _ = model(feat, feat_len, U, 1.0, teacher=text)
+            # the teacher-forced pass: the attention loss and the figures
+            _, _, att_out, att_align, _ = model(feat, feat_len, U, 1.0,
+                                                teacher=text)
             out["att_loss"] = masked_ce(att_out, text,
                                         None if counts is None else counts[1])
+            out["att_align"] = att_align
         return out
 
     def validate(self):
@@ -362,8 +360,10 @@ class Solver(BaseSolver):
         shown = 0
         for batch in self.dv_set:
             with tp.gathered(self.params, self.split):
-                out = {k: v.cpu().numpy() for k, v in
-                       self.valid_batch(*self._to_device(batch)).items()}
+                out = self.valid_batch(*self._to_device(batch))
+            if shown >= self.DEV_N_EXAMPLE:
+                out.pop("att_align", None)     # no figure left to draw
+            out = {k: v.cpu().numpy() for k, v in out.items()}
             batch = mesh.gather_batch({**out, **{k: batch[k] for k in (
                 "text", "text_len", "text_raw")}})
             out = {k: batch[k] for k in out}
@@ -384,6 +384,9 @@ class Solver(BaseSolver):
                                             ignore_repeat=("att_pred" not in out))
                 self.write_log(f"hyp_{shown}", hyp or "<empty>")
                 self.write_log(f"ref_{shown}", batch["text_raw"][i])
+                if "att_align" in out:
+                    self.write_log(f"align_{shown}",
+                                   feat_to_fig(out["att_align"][i, :, 0, :]))
                 shown += 1
         msg = []
         for head in ("att", "ctc"):

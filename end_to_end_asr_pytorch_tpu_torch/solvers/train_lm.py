@@ -29,7 +29,6 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from .base import BaseSolver
-from .train_asr import check_supported
 from ..data.dataset import load_textset
 from ..models.lm import RNNLM
 from ..optim import Optimizer
@@ -58,7 +57,6 @@ def lm_nll(lm: RNNLM, text: torch.Tensor, text_len: torch.Tensor,
 class Solver(BaseSolver):
     def __init__(self, config, paras):
         super().__init__(config, paras)
-        check_supported(config)
         h = config["hparas"]
         self.max_step = int(h.get("max_step", 1000))
         self.valid_step = int(h.get("valid_step", 500))

@@ -16,8 +16,11 @@ modules.
 
 ``load_checkpoint`` sniffs the format as the JAX package's does: a torch
 pickle (zip archive or a bare pickle stream) goes to ``utils/torch_ckpt``,
-a native file to the reader here, and an orbax directory raises
-``NotImplementedError`` (orbax is a JAX library the port may not use).
+a native file to the reader here, and a directory to ``utils/orbax.py``
+(the uncompressed orbax layout the port writes; the JAX package's own
+OCDBT directories raise ``NotImplementedError``). A missing path first
+promotes a complete ``.tmp`` / ``.old`` sibling that an interrupted orbax
+save left (``orbax.recover_sibling``).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import numpy as np
 import torch.nn as nn
 
 from ..models.lm import RNNLM
+from .orbax import read_orbax, recover_sibling
 from .torch_ckpt import load_lm_checkpoint, load_torch_checkpoint
 from .weights import load_arrays
 
@@ -160,12 +164,17 @@ def load_checkpoint(path: str, module: nn.Module,
     format, and ``plugin`` (an ASR's embedding plugin) from it as well:
     from a native plugin solver's {'asr', 'plugin'} tree (a plugin part is
     skipped without ``plugin``), or by suffix from a torch checkpoint
-    (``utils/torch_ckpt.py``). Returns {'optimizer' (a torch checkpoint's
-    saved port optimizer state, else None), 'global_step', 'format'}."""
+    (``utils/torch_ckpt.py``), or from an orbax directory's JAX tree.
+    Returns {'optimizer' (the port optimizer state a torch checkpoint or
+    an orbax directory saved, else None), 'global_step', 'format'}."""
     p = Path(path)
+    if not p.exists():
+        p = recover_sibling(p)
     if p.is_dir():
-        raise NotImplementedError(
-            f"{path}: orbax checkpoint directories are not ported yet")
+        ck = read_orbax(p)
+        load_arrays(module, ck["model"], plugin)
+        return {"optimizer": ck["optimizer"],
+                "global_step": ck["global_step"], "format": "orbax"}
     if is_torch_checkpoint(str(p)):
         ck = (load_lm_checkpoint(str(p), module) if isinstance(module, RNNLM)
               else load_torch_checkpoint(str(p), module, plugin))

@@ -10,7 +10,9 @@ the location conv (k, 1, F) -> (F, 1, k). The JAX plugin solver's tree
 ``{'asr': ASRParams, 'plugin': PluginParams}`` (``['asr'].encoder...``,
 ``['plugin'].w_proj``) splits into the ASR's arrays and the embedding
 plugin's, whose ``w_proj`` (dec, emb) becomes ``nn.Linear``'s (emb, dec).
-This module imports no JAX: the caller flattens the tree.
+This module imports no JAX: the caller flattens the tree. ``jax_arrays``
+goes the other way, from the port's modules to arrays at the JAX paths in
+the JAX layout (what ``utils/orbax.py`` writes).
 """
 from __future__ import annotations
 
@@ -38,6 +40,31 @@ def _to_port_layout(name: str, a: np.ndarray) -> np.ndarray:
     if re.search(r"(^|\.)loc_conv$", name):
         return a.transpose(2, 1, 0)
     return a
+
+
+def _to_jax_layout(name: str, a: np.ndarray) -> np.ndarray:
+    """The inverse of ``_to_port_layout``."""
+    if re.search(r"(^|\.)prenet\.k\d$", name):
+        return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.transpose(2, 1, 0)
+    if re.search(r"(^|\.)loc_conv$", name):
+        return a.transpose(2, 1, 0)
+    return a
+
+
+def jax_arrays(module: nn.Module, plugin: Optional[nn.Module] = None
+               ) -> Dict[str, np.ndarray]:
+    """{dotted JAX path: array in the JAX layout} of ``module`` (an ASR or
+    an RNNLM), the inverse of ``load_arrays``; with ``plugin`` the JAX
+    plugin solver's tree: the ASR under ``asr.``, the plugin's
+    ``plugin.w_proj`` (dec, emb) and ``plugin.b_proj``."""
+    out = {n: _to_jax_layout(n, t.detach().cpu().numpy())
+           for n, t in module.state_dict().items()}
+    if plugin is None:
+        return out
+    out = {f"asr.{n}": a for n, a in out.items()}
+    out["plugin.w_proj"] = plugin.w_proj.detach().cpu().numpy().T
+    out["plugin.b_proj"] = plugin.b_proj.detach().cpu().numpy()
+    return out
 
 
 def assign(module: nn.Module, arrays: Dict[str, np.ndarray],

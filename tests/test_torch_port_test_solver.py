@@ -241,8 +241,13 @@ def test_msgpack_decoder_matches_the_msgpack_package():
 
 
 def test_orbax_directories_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax"):
-        jax_ckpt.load_checkpoint(str(tmp_path), RNNLM(5, LM_MODEL))
+    """An orbax directory the JAX package wrote (OCDBT, zstd-compressed)
+    raises, naming both; the port reads only the layout it writes itself
+    (tests/test_torch_port_orbax.py)."""
+    params = JaxLM(5, LM_MODEL).init(jax.random.PRNGKey(0))
+    save_checkpoint(tmp_path / "lm.pth", params, None, 3, fmt="orbax")
+    with pytest.raises(NotImplementedError, match="OCDBT.*zstd"):
+        jax_ckpt.load_checkpoint(str(tmp_path / "lm.pth"), RNNLM(5, LM_MODEL))
 
 
 def test_test_mode_ignores_amp(setup, capsys):

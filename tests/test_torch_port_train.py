@@ -313,12 +313,13 @@ def _set_option(tmp_path, where, key, value):
 
 
 @pytest.mark.parametrize("where,key,value", [
-    ("root", "model_parallel", 2), ("root", "ckpt_format", "orbax")])
+    ("root", "model_parallel", 2), ("root", "ckpt_format", "orbx")])
 def test_unported_training_options_raise(tmp_path, where, key, value):
-    """orbax raises as not ported; model_parallel 2 at world 1 raises the
-    JAX package's ValueError (M must divide the processes)."""
-    exc = ValueError if key == "model_parallel" else NotImplementedError
-    with pytest.raises(exc, match=key.lstrip("-")):
+    """model_parallel 2 at world 1 raises the JAX package's ValueError (M
+    must divide the processes); a ckpt_format other than native / orbax
+    raises its ValueError at start-up, as the JAX BaseSolver's does (orbax
+    trains: tests/test_torch_port_orbax.py)."""
+    with pytest.raises(ValueError, match=key.lstrip("-")):
         train.main(_set_option(tmp_path, where, key, value))
 
 
