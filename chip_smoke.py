@@ -216,7 +216,7 @@ Phases, each printing one JSON line:
                 batch with psi_kernel off launches it never; then the batch
                 in f32 with K8 (once per step) and with its plain version:
                 best-score difference, host split and device busy side by
-                side; breakdowns of all four
+                side; breakdowns of the first and the two f32 runs
   slice_gru   - the slice with the GRU family (bench.py's model and LM
                 with module GRU: 3x BiGRU-512 encoder, GRU-512 decoder and
                 LM), amp pinned off: each batch must launch K1 once, K4
@@ -224,7 +224,8 @@ Phases, each printing one JSON line:
                 step, and no other kernel
   slice_gru_amp - the same with decode.amp at auto (bf16 on the card): K4's
                 bf16 variant six times per batch; top-1 share and best-score
-                difference against the same batch with amp off
+                difference against the same batch with amp off; no
+                breakdown, cut to keep the script within its limit
   slice_plugin - the slice's batch and weights with the embedding plugin
                 fused (a hash table of dim 256, fuse 0.3, temp 1.0) and
                 the default step tail: K8 must never launch (its scope
@@ -240,8 +241,9 @@ Phases, each printing one JSON line:
   slice_sub5k_f32_cand - slice_sub5k_f32 with ctc_candidates 128: K8 never
                 (its scope is the full vocabulary)
                 (each of these six: ms per batch, launches per step by
-                kernel, a breakdown, best-score difference and top-1 share
-                against the plain route and against the phase it extends)
+                kernel, best-score difference and top-1 share against the
+                plain route and against the phase it extends; no breakdown,
+                cut to keep the script within its limit)
   entry       - python -m end_to_end_asr_pytorch_tpu_torch.transcribe on
                 two WAVs with a reference-layout checkpoint (amp off)
   entry_gru   - the same with slice_gru's model (a reference-layout nn.GRU
@@ -291,6 +293,9 @@ Phases, each printing one JSON line:
   train_plugin - train_att with the embedding plugin (a hash table of
                 dim 256 for V=31, weight 1.0): K7 96 + 96 launches a step;
                 kernel vs plain total loss and emb_loss within rel 1e-5
+                (train_att, train_gru_amp, train_att_amp, train_aug and
+                train_plugin take no profiled step, cut to keep the script
+                within its limit)
   dist_train  - data parallelism (parallel/mesh.py): a world-1 NCCL group
                 in this process, 3 Solver.train_steps of train's batch
                 against a solver with no group (deterministic cuDNN and
@@ -366,6 +371,22 @@ Phases, each printing one JSON line:
                 above 1e-3 listed as not near ties (trained_test); one
                 test batch of the default route under utils/profiler.trace
                 with benchmark's ms and device_memory (trained_profile)
+  jax_orbax_entry - a checkpoint the JAX package wrote with its own
+                save_checkpoint(fmt="orbax") (OCDBT, zstd-compressed
+                chunks): the committed fixture tests/fixtures/jax_orbax_las
+                (config/synthetic/las.yaml's model at seed 0, made by
+                tests/make_jax_orbax_fixture.py on the CPU), read by the
+                port's own OCDBT and zstd decoders, then main --test's
+                Solver with --load on it (amp off, attention.use_pallas,
+                beam 4, CTC 0.3, no LM) on the fixture's three waves: K1,
+                K2, K5 and K8 launched; encoder output, CTC log-probs and
+                the beam's best score held within 1e-4 (absolute) to
+                the JAX package's recorded outputs, the identical top-1
+                rows counted, and the same for the plain versions
+                (USE_KERNELS = False); read_orbax's seconds and
+                utils/zstd.decompress's MB/s over the fixture's chunks
+                (best of 5, compressed and decompressed bytes) beside the
+                host's CPU name
   tp_train    - tensor parallelism (model_parallel: 2, parallel/tp.py):
                 config/synthetic/las_sub16k.yaml's model at full width
                 (V=16384) with attention.use_pallas_train, B=32 waves of 7 s,
@@ -2757,11 +2778,12 @@ FUSED_EXPECT = {**SLICE_EXPECT, "beam_step_fused": "steps"}
 
 def phase_slice(frontend, batch, seed, device, name="slice",
                 model_cfg=MODEL_CFG, decode_cfg=UNFUSED_CFG, vocab=V_CHAR,
-                expect=SLICE_EXPECT, n_batches=1, lm_cfg=LM_CFG):
+                expect=SLICE_EXPECT, n_batches=1, lm_cfg=LM_CFG,
+                breakdown=True):
     """Decode batches of bench.py's model (random weights from ``seed``):
     ``n_batches`` timed ones whose launches must be ``expect``'s, one with
-    the plain versions (compared), then a breakdown of one batch. Returns
-    what a comparison with another decode config needs."""
+    the plain versions (compared), then (``breakdown``) a breakdown of one
+    batch. Returns what a comparison with another decode config needs."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.decode.beam import BeamDecoder
     from end_to_end_asr_pytorch_tpu_torch.models.asr import ASR
@@ -2829,7 +2851,8 @@ def phase_slice(frontend, batch, seed, device, name="slice",
           "best_score_max_abs_diff": score_err, "top1_identical_share": same,
           "batches": n_batches, "utts_per_s": batch / dt,
           "seconds_per_batch": dt, "launches": launches})
-    bd = slice_breakdown(frontend, model, decoder, wave, wave_len, name)
+    bd = (slice_breakdown(frontend, model, decoder, wave, wave_len, name)
+          if breakdown else None)
     return {"model": model, "lm": lm, "wave": wave, "wave_len": wave_len,
             "out": out_k, "launches": launches, "amp": decoder.last_amp,
             "fused": decoder.last_fused, "breakdown": bd,
@@ -3129,7 +3152,7 @@ def launch_counters():
 
 
 def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
-                n_steps=5, amp=False, augment=None):
+                n_steps=5, amp=False, augment=None, breakdown=True):
     """Training steps of bench.py's model at full width (the train main
     path; ``amp``: ``hparas.amp``, the scans through their bf16 training
     variants): one warm-up step, ``n_steps`` timed steps with the kernels
@@ -3140,7 +3163,8 @@ def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
     bf16 value moves the sums after it, rel 1e-3 and 1e-2; with the
     embedding plugin the total loss and emb_loss within rel 1e-5).
     ``augment``: SpecAugment's masks of the last step are checked against
-    their bounds (``check_masks``)."""
+    their bounds (``check_masks``). ``breakdown``: whether the profiled
+    step is taken."""
     import torch
     from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
@@ -3188,7 +3212,8 @@ def phase_train(batch, seed, device, name="train", model_cfg=MODEL_CFG,
           "launches_per_step": {k: n / n_steps for k, n in launches.items()},
           "metrics_last_step": metrics,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    train_breakdown(solver, data, name)
+    if breakdown:
+        train_breakdown(solver, data, name)
     compare = {tf: train_compare(solver, data, tf, cuda_kernels)
                for tf in (1.0, TRAIN_HPARAS["tf_start"])}
     emit({"phase": f"{name}_compare",
@@ -3645,8 +3670,6 @@ def phase_options_entry(seed, n_utts=16):
               "card": CARD})
 
 
-# the RNN-LM's scan shapes: config/libri/lm_example.yaml's batch of 64 at two
-# padded text lengths, and a ragged last batch of an epoch
 TRAINED_MAX_STEP = 4000
 TRAINED_BUDGET_S = 150.0    # wall seconds of training steps
 TRAINED_ROUTES = {          # name: (decode.amp, attention.use_pallas, kernels)
@@ -3918,6 +3941,161 @@ def phase_trained_entry(seed, budget_s=TRAINED_BUDGET_S):
               "phase_seconds": time.perf_counter() - t_phase, "card": CARD})
 
 
+JAX_ORBAX_FIXTURE = ROOT / "tests" / "fixtures" / "jax_orbax_las"
+# the fixture's outputs against the JAX package's on the CPU, absolute:
+# encoder output, CTC log-probs and the beam's best score (random weights
+# leave near ties, so the top-1 tokens are counted, not required); an H100
+# gave 3.1e-7, 4.8e-7 and 2.4e-7 on the kernel route, 3.6e-7, 4.8e-7 and
+# 4.8e-7 on the plain route
+JAX_ORBAX_TOL = {"enc": 1e-4, "ctc_log_probs": 1e-4, "best_score": 1e-4}
+JAX_ORBAX_EXPECT = ("fbank_fused", "lstm_scan_fused", "loc_attention_fused",
+                    "beam_step_fused")
+
+
+def unpack(d):
+    """An array that tests/make_jax_orbax_fixture.py packed."""
+    import base64
+    return np.frombuffer(base64.b64decode(d["b64"]),
+                         np.dtype(d["dtype"])).reshape(d["shape"])
+
+
+def cpu_name():
+    """The host CPU as /proc/cpuinfo names it (vendor, family and model
+    where the model name is withheld) and the cores this process sees."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for ln in f:
+            k, _, v = ln.partition(":")
+            info.setdefault(k.strip(), v.strip())
+            if not ln.strip():
+                break
+    name = info.get("model name", "unknown")
+    if name in ("", "unknown"):
+        name = (f"{info.get('vendor_id', '?')} family "
+                f"{info.get('cpu family', '?')} model {info.get('model', '?')}"
+                " (model name withheld)")
+    return f"{name}, {len(os.sched_getaffinity(0))} cores"
+
+
+def phase_jax_orbax_entry(seed):
+    """A checkpoint the JAX package wrote (OCDBT, zstd; the committed
+    fixture of tests/make_jax_orbax_fixture.py) through main --test's
+    Solver on the card, held to the JAX package's outputs (module
+    docstring)."""
+    import torch
+    import yaml
+    from end_to_end_asr_pytorch_tpu_torch import main as port_main
+    from end_to_end_asr_pytorch_tpu_torch.ops import cuda as cuda_kernels
+    from end_to_end_asr_pytorch_tpu_torch.solvers import test_asr
+    from end_to_end_asr_pytorch_tpu_torch.utils import zstd
+    from end_to_end_asr_pytorch_tpu_torch.utils.ocdbt import read_ocdbt
+    from end_to_end_asr_pytorch_tpu_torch.utils.orbax import read_orbax
+    t_phase = time.perf_counter()
+    ref = json.loads((JAX_ORBAX_FIXTURE / "outputs.json").read_text())
+    ckpt = JAX_ORBAX_FIXTURE / "best_att.pth"
+    check((ckpt / "model" / "manifest.ocdbt").is_file(),
+          f"{ckpt} is not an OCDBT directory")
+
+    # the decoder on the fixture's chunks (host; the library built first)
+    zstd.get_lib()
+    t0 = time.perf_counter()
+    ck = read_orbax(ckpt)
+    read_s = time.perf_counter() - t0
+    store = read_ocdbt(ckpt / "model")
+    chunks = [v for k, v in store.items() if not k.endswith(b".zarray")]
+    comp = sum(len(c) for c in chunks)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        raw = sum(len(zstd.decompress(c)) for c in chunks)
+        times.append(time.perf_counter() - t0)
+    dec_s = min(times)
+
+    cfg = yaml.safe_load((ROOT / ref["config"]).read_text())
+    cfg["decode"] = {**ref["decode"], "amp": False}
+    cfg["model"]["attention"]["use_pallas"] = True       # K5 a beam step
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = Path(d)
+        (d / "las.yaml").write_text(yaml.safe_dump(cfg))
+        paras = port_main.build_parser().parse_args(
+            ["--config", str(d / "las.yaml"), "--test", "--load", str(ckpt),
+             "--outdir", str(d / "out"), "--seed", str(seed), "--no-msg"])
+        solver = test_asr.Solver(cfg, paras)
+        solver.feat_dim, solver.vocab_size = ref["feat_dim"], ref["vocab_size"]
+        solver.tokenizer = None
+        solver.set_model()
+    dev = solver.device
+    wave = torch.from_numpy(unpack(ref["pcm16"]).astype(np.float32)
+                            / 32768.0).to(dev)
+    wave_len = torch.tensor(ref["wave_len"], dtype=torch.int32, device=dev)
+
+    def run():
+        with torch.no_grad():
+            feat, feat_len = solver.frontend(wave, wave_len)
+            enc, enc_len = solver.model.encode(feat, feat_len)
+            lp = solver.model.ctc_output(enc)
+            out = solver.decoder.forward(feat, feat_len)
+        torch.cuda.synchronize()
+        return enc, enc_len, lp, out
+
+    def held(enc, enc_len, lp, out):
+        check(enc_len.tolist() == ref["enc_len"],
+              f"jax_orbax_entry: encoder lengths {enc_len.tolist()}, JAX "
+              f"{ref['enc_len']}")
+        errs = {"enc": 0.0, "ctc_log_probs": 0.0, "best_score": 0.0}
+        same = 0
+        for b, u in enumerate(ref["utts"]):
+            n = ref["enc_len"][b]
+            for key, got in (("enc", enc), ("ctc_log_probs", lp)):
+                g = got[b, :n].float().cpu().numpy()
+                check(np.isfinite(g).all(), f"jax_orbax_entry: {key} "
+                      f"of utterance {b} not finite")
+                errs[key] = max(errs[key], float(np.abs(g - unpack(u[key])
+                                                        ).max()))
+            errs["best_score"] = max(errs["best_score"], abs(
+                float(out.scores[b, 0]) - u["beam_scores"][0]))
+            L = int(out.lengths[b, 0])
+            same += out.tokens[b, 0, :L].tolist() == u["beam_tokens"][0]
+        return errs, same
+
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    enc, enc_len, lp, out = run()
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    for k in JAX_ORBAX_EXPECT:
+        check(launches.get(k, 0) > 0, f"jax_orbax_entry: no {k} launch: "
+              f"{launches}")
+    errs, same = held(enc, enc_len, lp, out)
+    cuda_kernels.USE_KERNELS = False
+    try:
+        plain_errs, plain_same = held(*run())
+    finally:
+        cuda_kernels.USE_KERNELS = True
+    for key, tol in JAX_ORBAX_TOL.items():
+        check(errs[key] <= tol, f"jax_orbax_entry: {key} differs from the "
+              f"JAX package's by {errs[key]} (tolerance {tol})")
+        check(plain_errs[key] <= tol, f"jax_orbax_entry: the plain route's "
+              f"{key} differs from the JAX package's by {plain_errs[key]}")
+    emit({"phase": "jax_orbax_entry", "leaves": len(ck["model"]),
+          "global_step": ck["global_step"],
+          "checkpoint_bytes": sum(f.stat().st_size for f in ckpt.rglob("*")
+                                  if f.is_file()),
+          "read_orbax_s": read_s, "zstd_chunks": len(chunks),
+          "zstd_in_bytes": comp, "zstd_out_bytes": raw,
+          "zstd_s": dec_s, "zstd_in_mb_s": comp / dec_s / 1e6,
+          "zstd_out_mb_s": raw / dec_s / 1e6, "cpu": cpu_name(),
+          "utts": len(ref["utts"]), "launches": launches,
+          "max_abs_err": errs, "top1_identical": same,
+          "plain_max_abs_err": plain_errs, "plain_top1_identical": plain_same,
+          "tolerance": JAX_ORBAX_TOL, "run_s": run_s,
+          "phase_seconds": time.perf_counter() - t_phase, "card": CARD})
+
+
+# the RNN-LM's scan shapes: config/libri/lm_example.yaml's batch of 64 at its
+# two padded text lengths, and a ragged last batch of an epoch
 LM_SCAN_SHAPES = ((64, 400), (64, 592), (13, 112))
 # config/libri/lm_example.yaml's model and optimizer at full width
 LM_TRAIN_CFG = {"module": "LSTM", "dim": 512, "emb_dim": 512, "layer": 2,
@@ -5241,8 +5419,8 @@ def main():
                             "dist_train_w2,dist_pad,dist_entry,train_entry,"
                             "options_entry,"
                             "lm_scan,lm_train,lm_train_gru,flac_entry,"
-                            "lm_entry,trained_entry,tp_train,tp_lm_train,"
-                            "tp_test",
+                            "lm_entry,trained_entry,jax_orbax_entry,"
+                            "tp_train,tp_lm_train,tp_test",
                     help="comma list of phases after build (default: all "
                          "but scan_floor and mma_floor)")
     ap.add_argument("--tp-layouts", default="1x2",
@@ -5342,7 +5520,7 @@ def main():
                     generator=torch.Generator().manual_seed(args.seed + 7),
                     device=device)
             r = phase_slice_other(frontend, sl, DECODE_CFG, "slice_plugin",
-                                  SLICE_EXPECT, breakdown=True, plugin=plugin,
+                                  SLICE_EXPECT, plugin=plugin,
                                   against_plain=True)
             check(r["decoder"].last_fused is False,
                   "slice_plugin took K8's route")
@@ -5359,7 +5537,7 @@ def main():
             r = phase_slice_other(frontend, sl, {**DECODE_CFG,
                                                  "approx_topk": 0.95},
                                   "slice_fused_atk", FUSED_EXPECT,
-                                  breakdown=True, against_plain=True)
+                                  against_plain=True)
             check(torch.equal(r["out"].tokens, sl["out"].tokens)
                   and torch.equal(r["out"].lengths, sl["out"].lengths),
                   "slice_fused_atk: tokens differ from slice_fused's")
@@ -5388,8 +5566,7 @@ def main():
                          expect={**amp_expect, "psi_fused": "steps"})
         record(sl["launches"], ("psi_fused",))
         phase_slice_other(frontend, sl, {**sub_cfg, "psi_kernel": False},
-                          "slice_sub5k_no_psi_kernel", amp_expect,
-                          breakdown=True)
+                          "slice_sub5k_no_psi_kernel", amp_expect)
         # f32 at V=5120: K8 (a cluster of 16 blocks per utterance)
         # against its plain version, end to end
         f32 = [phase_slice_other(frontend, sl, cfg, name, exp, breakdown=True)
@@ -5412,7 +5589,7 @@ def main():
         for name, (cfg, exp) in options.items():
             if name in phases:
                 r = phase_slice_other(frontend, sl, cfg, name, exp,
-                                      breakdown=True, against_plain=True)
+                                      against_plain=True)
                 check(r["decoder"].last_fused is False,
                       f"{name} took K8's route")
                 if name == "slice_sub5k_q8":
@@ -5436,7 +5613,8 @@ def main():
     if "slice_gru_amp" in phases:
         sl = phase_slice(frontend, args.batch, args.seed, device,
                          "slice_gru_amp", decode_cfg=auto_cfg,
-                         expect={"fbank_fused": 1, "gru_scan_bf16": 6}, **gru)
+                         expect={"fbank_fused": 1, "gru_scan_bf16": 6},
+                         breakdown=False, **gru)
         check(sl["amp"] is True, "decode.amp: auto did not resolve to bf16 "
               "on the card (GRU)")
         record(sl["launches"], ("gru_scan_bf16",))
@@ -5451,16 +5629,17 @@ def main():
         record(launches, ("lstm_bwd_fused", "ctc_loss_fused"))
     if "train_aug" in phases:
         phase_train(args.batch, args.seed, device, "train_aug",
-                    augment=AUG_CFG)
+                    augment=AUG_CFG, breakdown=False)
     if "train_att" in phases:
         launches = phase_train(args.batch, args.seed, device, "train_att",
-                               with_attention(use_pallas_train=True))
+                               with_attention(use_pallas_train=True),
+                               breakdown=False)
         record(launches, ("loc_att_fwd_fused", "loc_att_bwd_fused"))
     if "train_plugin" in phases:
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
             phase_train(args.batch, args.seed, device, "train_plugin",
                         {**with_attention(use_pallas_train=True),
-                         "plugin": plugin_config(Path(d))})
+                         "plugin": plugin_config(Path(d))}, breakdown=False)
     if "train_gru" in phases:
         launches = phase_train(args.batch, args.seed, device, "train_gru",
                                GRU_MODEL_CFG)
@@ -5471,12 +5650,12 @@ def main():
         record(launches, ("lstm_train_bf16", "lstm_bwd_bf16"))
     if "train_gru_amp" in phases:
         launches = phase_train(args.batch, args.seed, device, "train_gru_amp",
-                               GRU_MODEL_CFG, amp=True)
+                               GRU_MODEL_CFG, amp=True, breakdown=False)
         record(launches, ("gru_train_bf16", "gru_bwd_bf16"))
     if "train_att_amp" in phases:
         launches = phase_train(args.batch, args.seed, device, "train_att_amp",
                                with_attention(use_pallas_train=True),
-                               amp=True)
+                               amp=True, breakdown=False)
         record(launches, ("loc_att_fwd_bf16", "loc_att_bwd_bf16"))
     if "dist_train" in phases:
         phase_dist_train(args.batch, args.seed, device)
@@ -5494,6 +5673,8 @@ def main():
         phase_recipe_entry(args.seed, phases)
     if "trained_entry" in phases:
         phase_trained_entry(args.seed)
+    if "jax_orbax_entry" in phases:
+        phase_jax_orbax_entry(args.seed)
     for layout in args.tp_layouts.split(","):
         if "tp_train" in phases:
             phase_tp_train("asr", args.seed, device, layout)

@@ -17,8 +17,8 @@ modules.
 ``load_checkpoint`` sniffs the format as the JAX package's does: a torch
 pickle (zip archive or a bare pickle stream) goes to ``utils/torch_ckpt``,
 a native file to the reader here, and a directory to ``utils/orbax.py``
-(the uncompressed orbax layout the port writes; the JAX package's own
-OCDBT directories raise ``NotImplementedError``). A missing path first
+(the orbax layout the port writes, and the JAX package's own OCDBT,
+zstd-compressed directories). A missing path first
 promotes a complete ``.tmp`` / ``.old`` sibling that an interrupted orbax
 save left (``orbax.recover_sibling``).
 """

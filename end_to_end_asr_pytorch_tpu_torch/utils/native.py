@@ -1,8 +1,9 @@
-"""The port's binding of the host C++ FLAC decoder, the repository root's
-``native/flac_decoder.cc`` (the same source the JAX package builds into
-``native/libasrnative.so``).
+"""The port's host C++ libraries, built at first use: the FLAC decoder,
+the repository root's ``native/flac_decoder.cc`` (the same source the JAX
+package builds into ``native/libasrnative.so``), bound here, and the zstd
+decoder of ``utils/zstd.py``.
 
-The source is compiled on its own with ``g++ -O3 -fPIC -std=c++17 -shared``
+A source is compiled on its own with ``g++ -O3 -fPIC -std=c++17 -shared``
 at first use into ``build/torch_native/<name>-<hash>.so`` (the hash covers
 the source and the flags, so an edited source rebuilds), through a
 temporary file renamed into place, under a lock on the build directory
@@ -33,36 +34,46 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _target() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"{SOURCE.stem}-{h.hexdigest()[:16]}.so"
+def _target(source: Path) -> Path:
+    h = hashlib.sha256(source.read_bytes() + " ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """The decoder's shared library, compiled first if there is none for
-    this source and these flags."""
-    out = _target()
+def build(source: Path) -> Path:
+    """The shared library of ``source``, compiled first if there is none
+    for this source and these flags."""
+    out = _target(source)
     if out.exists():
         return out
     with dir_lock(BUILD_DIR):
         if not out.exists():
-            _compile(out)
+            _compile(out, source)
     return out
 
 
-def _compile(out: Path) -> None:
+def _compile(out: Path, source: Path) -> None:
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError(f"g++ not found: the FLAC decoder ({SOURCE}) is "
-                           "compiled at first use")
+        raise RuntimeError(f"g++ not found: {source} is compiled at first "
+                           "use")
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for {SOURCE} (exit "
+        raise RuntimeError(f"g++ failed for {source} (exit "
                            f"{proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
+
+
+def load(source: Path, what: str) -> ctypes.CDLL:
+    """Build ``source`` if need be and load it; ``what`` names it in the
+    error a library that does not load raises."""
+    path = build(source)
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"cannot load the {what} {path}: {e}") from e
 
 
 def get_lib() -> ctypes.CDLL:
@@ -71,12 +82,7 @@ def get_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = build()
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as e:
-                raise RuntimeError(f"cannot load the FLAC decoder {path}: "
-                                   f"{e}") from e
+            lib = load(SOURCE, "FLAC decoder")
             lib.flac_decode.restype = ctypes.c_int
             lib.flac_decode.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),

@@ -26,13 +26,24 @@ aside to ``.old``, promotes the ``.tmp`` and removes the ``.old``; after a
 preemption in any of those windows ``recover_sibling`` promotes the
 complete sibling back (the JAX package's ``_recover_orbax_sibling``).
 
-``read_orbax`` reads this layout only. The directories the JAX package
-writes are OCDBT (``manifest.ocdbt``), every file zstd-compressed; they,
-and any leaf whose ``.zarray`` names a compressor, raise
-``NotImplementedError``.
+``read_orbax`` reads these directories and the ones the JAX package
+writes through orbax with its defaults: ``model/`` an OCDBT database
+(``manifest.ocdbt``, ``ocdbt.process_<i>/``; ``utils/ocdbt.py``) holding a
+zarr v2 ``.zarray`` and zstd-compressed chunks a leaf. ``read_item`` takes
+zarr v2 leaves, compressed with zstd or not, in OCDBT or in a directory a
+leaf: arrays split into several chunks, chunks missing from the store (the
+fill value), scalars, and bf16 leaves (returned as float32 of the same
+values, an exact widening). Chunks are decompressed by the port's own zstd
+decoder (``utils/zstd.py``). A zarr v3 leaf (``zarr.json``, orbax's
+``use_zarr3``, which the JAX package does not set) raises. The JAX
+package's ``optimizer/`` item (optax state) is not read: a resume from
+such a directory takes the model and the step and starts the port's
+optimizer afresh, as from a JAX native checkpoint, and says so in one
+line.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import shutil
 import time
@@ -43,6 +54,8 @@ import numpy as np
 import torch
 
 from ..models.lm import RNNLM
+from . import zstd
+from .ocdbt import read_ocdbt
 from .weights import jax_arrays
 
 Keys = Tuple[str, ...]
@@ -127,40 +140,120 @@ def write_item(d: Path, leaves: Dict[Keys, Optional[np.ndarray]],
         "custom_metadata": custom_metadata or {}}))
 
 
-def _written_by_jax(d: Path, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{d}: {why}, as the JAX package writes its orbax directories "
-        "(OCDBT, zstd-compressed); the port reads only the uncompressed, "
-        "non-OCDBT layout it writes itself (ckpt_format: orbax in the port)")
+def _fill(value, dtype: np.dtype, bf16: bool, what: str):
+    """A zarr v2 ``fill_value`` as a scalar of ``dtype`` (bf16: its bits):
+    null, which orbax writes, is zero, as tensorstore reads it."""
+    if value is None:
+        return dtype.type(0)
+    if not isinstance(value, (int, float)):
+        raise NotImplementedError(f"{what}: fill_value {value!r}")
+    if bf16:
+        return np.uint16(np.array(value, np.float32).view(np.uint32) >> 16)
+    return dtype.type(value)
+
+
+def _dtype(name: str, what: str) -> Tuple[np.dtype, bool]:
+    """(the stored dtype, whether it is bf16) of a zarr v2 ``dtype``. bf16
+    is read as its bits (uint16)."""
+    if name == "bfloat16":
+        return np.dtype("<u2"), True
+    try:
+        dt = np.dtype(name)
+    except TypeError:
+        raise NotImplementedError(f"{what}: data type {name!r}") from None
+    if dt.kind not in "biufc":
+        raise NotImplementedError(f"{what}: data type {name!r}")
+    return dt, False
+
+
+def _widen(a: np.ndarray, bf16: bool) -> np.ndarray:
+    """Native byte order; bf16 bits widened to the float32 of the same
+    value (exact: a bf16 is a float32's upper half)."""
+    a = a.astype(a.dtype.newbyteorder("="), copy=False)
+    if bf16:
+        return (a.astype(np.uint32) << 16).view(np.float32)
+    return a
+
+
+def _grid(shape, chunks, what: str):
+    """Each chunk's grid index and the slices of the array it covers."""
+    if len(chunks) != len(shape) or any(c <= 0 for c in chunks):
+        raise ValueError(f"{what}: chunk shape {chunks} for shape {shape}")
+    counts = [-(-s // c) for s, c in zip(shape, chunks)]
+    for idx in itertools.product(*[range(n) for n in counts]):
+        yield idx, tuple(slice(i * c, min((i + 1) * c, s))
+                         for i, c, s in zip(idx, chunks, shape))
+
+
+def _read_v2(z: Dict[str, Any], get, name: str, what: str) -> np.ndarray:
+    """A zarr v2 array (``.zarray`` ``z``) whose chunk ``key`` is
+    ``get(f"{name}/{key}")`` (None: missing, the fill value)."""
+    if z.get("zarr_format") != 2:
+        raise NotImplementedError(f"{what}: zarr_format "
+                                  f"{z.get('zarr_format')} in a .zarray")
+    comp = z.get("compressor")
+    if comp is not None and comp.get("id") != "zstd":
+        raise NotImplementedError(f"{what}: compressor {comp.get('id')!r}; "
+                                  "the port reads zstd and none")
+    if z.get("filters"):
+        raise NotImplementedError(f"{what}: filters {z['filters']}")
+    if z.get("order", "C") != "C":
+        raise NotImplementedError(f"{what}: order {z['order']!r}; orbax "
+                                  "writes C")
+    dt, bf16 = _dtype(z["dtype"], what)
+    shape, chunks = list(z["shape"]), list(z["chunks"])
+    sep = z.get("dimension_separator", ".")
+    out = np.full(shape, _fill(z.get("fill_value"), dt, bf16, what), dt)
+    for idx, where in _grid(shape, chunks, what):
+        raw = get(f"{name}/{sep.join(map(str, idx)) or '0'}")
+        if raw is None:
+            continue
+        if comp is not None:
+            raw = zstd.decompress(raw)
+        if len(raw) != dt.itemsize * int(np.prod(chunks)):
+            raise ValueError(f"{what}: chunk {idx} holds {len(raw)} bytes "
+                             f"for {chunks} of {z['dtype']}")
+        chunk = np.frombuffer(raw, dt).reshape(chunks)
+        out[where] = chunk[tuple(slice(0, w.stop - w.start) for w in where)]
+    return _widen(out, bf16)
+
+
+def read_array(get, name: str, what: str) -> np.ndarray:
+    """The array ``name`` of a store (``get(key)``: its bytes, or None),
+    from its zarr v2 ``.zarray``."""
+    meta = get(f"{name}/.zarray")
+    if meta is not None:
+        return _read_v2(json.loads(meta), get, name, what)
+    if get(f"{name}/zarr.json") is not None:
+        raise NotImplementedError(f"{what}: a zarr v3 leaf (zarr.json); the "
+                                  "port reads the zarr v2 leaves the JAX "
+                                  "package writes")
+    raise FileNotFoundError(f"{what}: no .zarray")
 
 
 def read_item(d: Path) -> Tuple[Dict[Keys, np.ndarray], Dict[str, Any]]:
-    """({key path: array}, the custom metadata) of an item ``write_item``
-    wrote."""
+    """({key path: array}, the custom metadata) of an orbax
+    ``StandardCheckpointer`` item: OCDBT (``utils/ocdbt.py``) or a
+    directory a leaf, zarr v2, compressed with zstd or not (module
+    docstring). bf16 leaves come back as float32 of the same values."""
     meta = json.loads((d / "_METADATA").read_text())
-    if meta.get("use_ocdbt", True) or (d / "manifest.ocdbt").exists():
-        raise _written_by_jax(d, "an OCDBT directory")
+    ocdbt = meta.get("use_ocdbt", True) or (d / "manifest.ocdbt").exists()
+    if ocdbt:
+        store = read_ocdbt(d)
+
+        def get(key: str) -> Optional[bytes]:
+            return store.get(key.encode())
+    else:
+        def get(key: str) -> Optional[bytes]:
+            p = d / key
+            return p.read_bytes() if p.is_file() else None
     out = {}
     for entry in meta["tree_metadata"].values():
         if entry["value_metadata"]["value_type"] == "None":
             continue
         keys = tuple(k["key"] for k in entry["key_metadata"])
-        leaf = d / ".".join(keys)
-        z = json.loads((leaf / ".zarray").read_text())
-        if z.get("compressor") is not None or z.get("filters"):
-            raise _written_by_jax(
-                leaf, f"a leaf compressed with {z['compressor'].get('id')}"
-                if z.get("compressor") else "a filtered leaf")
-        if z["chunks"] != z["shape"] or z.get("order", "C") != "C":
-            raise NotImplementedError(
-                f"{leaf}: {z['chunks']} chunks of a {z['shape']} array; "
-                "the port reads one C-order chunk a leaf")
-        dtype = np.dtype(z["dtype"])
-        data = (leaf / (".".join("0" * len(z["shape"])) or "0")).read_bytes()
-        if len(data) != dtype.itemsize * int(np.prod(z["shape"])):
-            raise ValueError(f"{leaf}: {len(data)} bytes for shape "
-                             f"{z['shape']} of {dtype}")
-        out[keys] = np.frombuffer(data, dtype).reshape(z["shape"]).copy()
+        name = ".".join(keys)
+        out[keys] = read_array(get, name, str(d / name))
     custom = json.loads((d / "_CHECKPOINT_METADATA").read_text())
     return out, custom.get("custom_metadata") or {}
 
@@ -229,11 +322,13 @@ def read_orbax(path) -> Dict[str, Any]:
     optimizer ``state_dict`` or None, 'global_step', 'metrics'} of an
     orbax directory."""
     path = Path(path)
-    if (path / "model" / "manifest.ocdbt").exists():
-        raise _written_by_jax(path / "model", "an OCDBT directory")
     meta = json.loads((path / "meta.json").read_text())
     model, _ = read_item(path / "model")
     opt = None
+    if (path / "optimizer").is_dir() and not (path / "port_optimizer"
+                                              ).is_dir():
+        print(f"[INFO] {path}: the JAX package's optimizer/ (optax state) "
+              "is not read; the optimizer starts afresh", flush=True)
     if (path / "port_optimizer").is_dir():
         leaves, custom = read_item(path / "port_optimizer")
         slots: Dict[str, Dict[str, torch.Tensor]] = {}

@@ -286,10 +286,13 @@ def test_transcribe_matches_root_tool(tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    """Every module of the port and chip_smoke.py: no jax / flax / optax and
-    nothing of end_to_end_asr_pytorch_tpu (matched as a whole name, since
-    the port's own name extends it)."""
-    banned = {"jax", "jaxlib", "flax", "optax", "end_to_end_asr_pytorch_tpu"}
+    """Every module of the port and chip_smoke.py: no jax / flax / optax,
+    no orbax / tensorstore / zstd package, and nothing of
+    end_to_end_asr_pytorch_tpu (matched as a whole name, since the port's
+    own name extends it)."""
+    banned = {"jax", "jaxlib", "flax", "optax", "end_to_end_asr_pytorch_tpu",
+              "orbax", "tensorstore", "zstandard", "zstd", "numcodecs",
+              "zarr"}
     files = sorted((ROOT / "end_to_end_asr_pytorch_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
@@ -300,7 +303,8 @@ def test_port_imports_no_jax_and_no_jax_package():
             "ops/cuda/beam_step_kernel.py", "utils/jax_ckpt.py",
             "utils/torch_ckpt.py", "solvers/train_lm.py", "data/flac.py",
             "utils/native.py", "ops/augment.py", "models/plugin.py",
-            "utils/bert_embedding.py"} <= rel
+            "utils/bert_embedding.py", "utils/orbax.py", "utils/ocdbt.py",
+            "utils/zstd.py"} <= rel
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):

@@ -4,7 +4,7 @@ directories in the JAX package's orbax layout with neither JAX nor orbax
 bit for bit, the port reads them back (model, its own optimizer state,
 step), ``main`` resumes from them as from its torch file, an interrupted
 save recovers as the JAX package's does, and the directories the JAX
-package writes itself (OCDBT, zstd) raise.
+package writes itself (OCDBT, zstd) are read bit for bit.
 
 Weights come from the JAX package's init through the port's weight
 bridge; every comparison is exact."""
@@ -350,15 +350,17 @@ def test_an_orbax_save_replaces_a_torch_file(tmp_path):
 
 
 @pytest.mark.parametrize("layout", ["ocdbt", "zstd_leaf"])
-def test_directories_the_jax_package_writes_raise_naming_zstd(tmp_path,
-                                                               layout):
+def test_directories_the_jax_package_writes_are_read_bit_for_bit(tmp_path,
+                                                                  layout):
     """The JAX package's own orbax directories: OCDBT (its default), or
-    a non-OCDBT one whose leaves orbax compressed with zstd."""
-    jp, _, _ = _models("vgg_lstm", tmp_path)
+    a non-OCDBT one whose leaves orbax compressed with zstd; the port
+    loads every leaf as the JAX package's ``load_checkpoint`` restores it
+    (``tests/test_torch_port_orbax_jax.py`` covers the formats in full)."""
+    jp, model, _ = _models("vgg_lstm", tmp_path)
     path = tmp_path / "jax.pth"
     if layout == "ocdbt":
         jax_save(path, jp, None, 5, fmt="orbax")
-        match = "an OCDBT directory, as the JAX package writes.*zstd"
+        assert (path / "model" / "manifest.ocdbt").is_file()
     else:
         path.mkdir()
         ckptr = ocp.Checkpointer(ocp.StandardCheckpointHandler(
@@ -366,10 +368,19 @@ def test_directories_the_jax_package_writes_raise_naming_zstd(tmp_path,
         ckptr.save(path / "model", args=ocp.args.StandardSave(jp))
         ckptr.close()
         (path / "meta.json").write_text('{"global_step": 5, "metrics": {}}')
-        match = "compressed with zstd, as the JAX package writes"
-    with pytest.raises(NotImplementedError, match=match):
-        jax_ckpt.load_checkpoint(str(path), ASR(40, VOCAB, ASR_CFG,
-                                                device="cpu"))
+        z = json.loads((path / "model" / "ctc_w" / ".zarray").read_text())
+        assert z["compressor"]["id"] == "zstd"
+    want = jax_arrays(jax_load(path, _zeros(jp))["model"])
+    got = orbax.read_orbax(path)["model"]
+    assert sorted(got) == sorted(port_name(k) for k in want)
+    for k, w in want.items():
+        assert got[port_name(k)].dtype == w.dtype
+        np.testing.assert_array_equal(got[port_name(k)], w, err_msg=k)
+    fresh = ASR(40, VOCAB, ASR_CFG, device="cpu")
+    ck = jax_ckpt.load_checkpoint(str(path), fresh)
+    assert ck["global_step"] == 5 and ck["format"] == "orbax"
+    for k, v in model.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k
 
 
 def test_none_leaves_follow_the_jax_trees_fields():

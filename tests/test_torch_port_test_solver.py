@@ -10,6 +10,7 @@ in idx / rank / hyp with scores within 1e-4 (4 printed decimals of f32
 scores summed in another order)."""
 import copy
 import functools
+import json
 import sys
 from collections import OrderedDict
 from pathlib import Path
@@ -34,7 +35,8 @@ from end_to_end_asr_pytorch_tpu.utils.torch_ckpt import (
 from end_to_end_asr_pytorch_tpu_torch import main as port_main
 from end_to_end_asr_pytorch_tpu_torch.models.asr import ASR
 from end_to_end_asr_pytorch_tpu_torch.models.lm import RNNLM
-from end_to_end_asr_pytorch_tpu_torch.utils import jax_ckpt, torch_ckpt
+from end_to_end_asr_pytorch_tpu_torch.utils import (jax_ckpt, orbax,
+                                                  torch_ckpt)
 from end_to_end_asr_pytorch_tpu_torch.utils.weights import (asr_from_arrays,
                                                             lm_from_arrays)
 from tests.test_e2e_train import _paras
@@ -242,12 +244,31 @@ def test_msgpack_decoder_matches_the_msgpack_package():
 
 def test_orbax_directories_raise(tmp_path):
     """An orbax directory the JAX package wrote (OCDBT, zstd-compressed)
-    raises, naming both; the port reads only the layout it writes itself
-    (tests/test_torch_port_orbax.py)."""
+    now loads into the port's LM bit for bit; a directory the port cannot
+    read raises, naming why: an OCDBT manifest whose CRC fails, a leaf
+    compressed with a codec other than zstd
+    (tests/test_torch_port_orbax_jax.py covers the formats)."""
     params = JaxLM(5, LM_MODEL).init(jax.random.PRNGKey(0))
     save_checkpoint(tmp_path / "lm.pth", params, None, 3, fmt="orbax")
-    with pytest.raises(NotImplementedError, match="OCDBT.*zstd"):
+    lm = RNNLM(5, LM_MODEL)
+    ck = jax_ckpt.load_checkpoint(str(tmp_path / "lm.pth"), lm)
+    assert ck["global_step"] == 3 and ck["format"] == "orbax"
+    ref = lm_from_arrays(5, LM_MODEL, jax_arrays(params), "cpu")
+    for k, v in ref.state_dict().items():
+        assert torch.equal(lm.state_dict()[k], v), k
+    manifest = tmp_path / "lm.pth" / "model" / "manifest.ocdbt"
+    damaged = bytearray(manifest.read_bytes())
+    damaged[-1] ^= 0xFF
+    manifest.write_bytes(bytes(damaged))
+    with pytest.raises(ValueError, match="CRC-32C mismatch"):
         jax_ckpt.load_checkpoint(str(tmp_path / "lm.pth"), RNNLM(5, LM_MODEL))
+    orbax.save_orbax(tmp_path / "port.pth", ref, global_step=1)
+    zarray = tmp_path / "port.pth" / "model" / "embed" / ".zarray"
+    z = json.loads(zarray.read_text())
+    zarray.write_text(json.dumps({**z, "compressor": {"id": "blosc"}}))
+    with pytest.raises(NotImplementedError, match="compressor 'blosc'"):
+        jax_ckpt.load_checkpoint(str(tmp_path / "port.pth"),
+                                 RNNLM(5, LM_MODEL))
 
 
 def test_test_mode_ignores_amp(setup, capsys):
