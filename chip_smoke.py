@@ -387,6 +387,28 @@ Phases, each printing one JSON line:
                 utils/zstd.decompress's MB/s over the fixture's chunks
                 (best of 5, compressed and decompressed bytes) beside the
                 host's CPU name
+  jax_resume_entry - training resumed across the two packages with the
+                optimizer state (utils/optax_state.py). (a) The committed
+                fixture tests/fixtures/jax_orbax_lm_resume (made by
+                tests/make_jax_resume_fixture.py on the CPU: the JAX
+                package's config/synthetic/lm.yaml LM, emb 64, one LSTM
+                of 64, V=31, dropout 0, Adam lr 1e-3, after 3 steps, saved
+                as OCDBT + zstd with its optax optimizer/): the port's LM
+                Solver with --load on it takes the next 3 steps on the
+                recorded batches through K2 and K2b; each loss within
+                1e-4 (relative) of the JAX package's, every leaf's L2 norm
+                after them within 1e-4, the count exactly 6; a control
+                that starts the optimizer afresh must miss those bounds.
+                (b) config/synthetic/las.yaml's ASR at its widths, 16
+                waves of 7 s a batch, teacher forcing 1, deterministic
+                algorithms: 3 steps, ckpt_format orbax writes optimizer/
+                as the optax tree, a fresh Solver with --load on it takes
+                2 more steps through K1, K2, K2b and K3, held to the same
+                solver's 2 steps after the save (the 5 steps
+                uninterrupted): losses and every parameter within 1e-5
+                (relative; a parameter's max difference over its max
+                magnitude), with the fresh-optimizer control's gaps beside
+                (jax_resume_lm, jax_resume_asr lines)
   tp_train    - tensor parallelism (model_parallel: 2, parallel/tp.py):
                 config/synthetic/las_sub16k.yaml's model at full width
                 (V=16384) with attention.use_pallas_train, B=32 waves of 7 s,
@@ -3815,7 +3837,7 @@ def phase_trained_entry(seed, budget_s=TRAINED_BUDGET_S):
             p = d / "ckpt" / exp / name
             check(p.is_dir() and (p / "meta.json").is_file()
                   and (p / "model" / "_METADATA").is_file()
-                  and (p / "port_optimizer" / "_METADATA").is_file(),
+                  and (p / "optimizer" / "_METADATA").is_file(),
                   f"{p} is not a complete orbax directory")
             ck = read_orbax(p)
             ckpts[name] = {"global_step": ck["global_step"],
@@ -4092,6 +4114,181 @@ def phase_jax_orbax_entry(seed):
           "plain_max_abs_err": plain_errs, "plain_top1_identical": plain_same,
           "tolerance": JAX_ORBAX_TOL, "run_s": run_s,
           "phase_seconds": time.perf_counter() - t_phase, "card": CARD})
+
+
+JAX_RESUME_FIXTURE = ROOT / "tests" / "fixtures" / "jax_orbax_lm_resume"
+JAX_RESUME_LM_TOL = 1e-4      # loss and leaf norms, relative
+JAX_RESUME_ASR_TOL = 1e-5     # loss and parameters, relative
+JAX_RESUME_ASR_B = 16
+
+
+def resume_solver(kind, cfg, workdir, seed, load=None):
+    """The port's training solver (``kind`` asr or lm) on ``cfg``, set up
+    as ``main`` sets it up with ``--load load`` but without a corpus."""
+    from types import SimpleNamespace
+    from end_to_end_asr_pytorch_tpu_torch.solvers import train_asr, train_lm
+    paras = SimpleNamespace(config=f"resume_{kind}.yaml", name=None,
+                            seed=seed, logdir=str(workdir / "log"),
+                            ckpdir=str(workdir / "ckpt"),
+                            load=None if load is None else str(load),
+                            njobs=0, no_msg=True, cpu=False, amp=False)
+    if kind == "lm":
+        solver = train_lm.Solver(cfg, paras)
+        solver.vocab_size = V_CHAR
+    else:
+        solver = train_asr.Solver(cfg, paras)
+        solver.feat_dim, solver.vocab_size = 40, V_CHAR
+    solver.set_model()
+    return solver
+
+
+def resume_steps(solver, batches):
+    """One train step a batch: the losses (synchronised at the end)."""
+    import torch
+    out = [solver.train_step(*b)["loss"] for b in batches]
+    torch.cuda.synchronize()
+    return [float(v) for v in out]
+
+
+def rel_gaps(got, ref):
+    """Each tensor's max |got - ref| over its max |ref|."""
+    return {k: float((got[k].detach().float() - v.float()).abs().max()
+                     / v.float().abs().max().clamp_min(1e-30))
+            for k, v in ref.items()}
+
+
+def phase_jax_resume_entry(seed):
+    """Training resumed with the optimizer state: the JAX-written LM
+    checkpoint of tests/fixtures/jax_orbax_lm_resume continued on the card
+    and held to the JAX package's next steps, and an ASR round trip
+    through an orbax optimizer/ held to the uninterrupted run (module
+    docstring); each beside the control that starts the optimizer
+    afresh."""
+    import torch
+    import yaml
+    from end_to_end_asr_pytorch_tpu_torch.utils.orbax import read_orbax
+    t_phase = time.perf_counter()
+    counters = launch_counters()
+
+    # (a) the JAX package's LM, resumed from its optax state
+    ref = json.loads((JAX_RESUME_FIXTURE / "outputs.json").read_text())
+    ckpt = JAX_RESUME_FIXTURE / "latest.pth"
+    check((ckpt / "optimizer" / "manifest.ocdbt").is_file(),
+          f"{ckpt}/optimizer is not an OCDBT directory")
+    lm_cfg = {"data": {"corpus": {"name": "none"},
+                       "text": {"mode": "character"}},
+              "model": ref["model"], "hparas": dict(ref["hparas"])}
+    batches = [tuple(torch.from_numpy(unpack(b[k]).astype(np.int64)).cuda()
+                     for k in ("text", "text_len")) for b in ref["batches"]]
+    want = [st["loss"] for st in ref["steps"]]
+    lm = {}
+    for route in ("resumed", "control"):
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            solver = resume_solver("lm", lm_cfg, Path(d), seed, ckpt)
+        check(solver.step == ref["saved_at"], f"jax_resume_entry: --load "
+              f"took step {solver.step}, the fixture {ref['saved_at']}")
+        if route == "control":            # what --load did before: afresh
+            solver.optimizer.init(solver.params)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses = resume_steps(solver, batches)
+        run_s = time.perf_counter() - t0
+        norms = {n: float(p.detach().double().norm())
+                 for n, p in solver.params.items()}
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        norm_gap = max(abs(norms[n] - v) / v
+                       for n, v in ref["leaf_norms"].items())
+        count = int(solver.optimizer.count)
+        lm[route] = {"losses": losses, "loss_rel_gap": loss_gap,
+                     "leaf_norm_rel_gap": norm_gap, "count": count,
+                     "within": bool(loss_gap <= JAX_RESUME_LM_TOL
+                                    and norm_gap <= JAX_RESUME_LM_TOL
+                                    and count == 2 * ref["saved_at"]),
+                     "launches": {k: fn.launches for k, fn in
+                                  counters.items() if fn.launches},
+                     "steps_s": run_s}
+    r = lm["resumed"]
+    for k in ("lstm_scan_fused", "lstm_bwd_fused"):
+        check(r["launches"].get(k, 0) > 0,
+              f"jax_resume_entry: the LM resume launched no {k}: "
+              f"{r['launches']}")
+    check(r["within"], f"jax_resume_entry: the resumed LM is off the JAX "
+          f"package's steps: {r}")
+    check(not lm["control"]["within"], "jax_resume_entry: the control "
+          f"(optimizer afresh) is within the bounds: {lm['control']}")
+    emit({"phase": "jax_resume_lm", "fixture": str(
+        JAX_RESUME_FIXTURE.relative_to(ROOT)), "jax_losses": want,
+        "tolerance": JAX_RESUME_LM_TOL, **lm, "card": CARD,
+        "t_s": time.perf_counter() - T_START})
+
+    # (b) the ASR: 3 steps, orbax optimizer/, a fresh Solver's --load, 2
+    # more; against the same solver's 2 steps after its save
+    las = yaml.safe_load((ROOT / "config/synthetic/las.yaml").read_text())
+    asr_cfg = {"data": {"corpus": {"name": "none"},
+                        "audio": las["data"]["audio"],
+                        "text": {"mode": "character"}},
+               "model": las["model"],
+               "hparas": {**las["hparas"], "tf_end": 1.0},
+               "ckpt_format": "orbax"}
+    data = [train_batch(JAX_RESUME_ASR_B, seed + 40 + i, torch.device("cuda"))
+            for i in range(5)]
+    deterministic(True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            d = Path(d)
+            base = resume_solver("asr", asr_cfg, d, seed)
+            resume_steps(base, data[:3])
+            base.step = 3
+            base.save("resume.pth", base.model, optimizer=base.optimizer,
+                      global_step=3)
+            path = base.ckpdir / "resume.pth"
+            ck = read_orbax(path)
+            check(ck["optimizer"] is not None
+                  and ck["optimizer"]["optimizer"] == "adadelta"
+                  and int(ck["optimizer"]["count"]) == 3,
+                  f"jax_resume_entry: {path}/optimizer is not the optax "
+                  "state of 3 Adadelta steps")
+            whole = resume_steps(base, data[3:])
+            ref_params = {n: p.detach().clone()
+                          for n, p in base.params.items()}
+            asr = {}
+            for route in ("resumed", "control"):
+                solver = resume_solver("asr", asr_cfg, d, seed, path)
+                if route == "control":
+                    solver.optimizer.init(solver.params)
+                for fn in counters.values():
+                    fn.launches = 0
+                losses = resume_steps(solver, data[3:])
+                gaps = rel_gaps(dict(solver.params), ref_params)
+                worst = max(gaps, key=gaps.get)
+                loss_gap = max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, whole))
+                asr[route] = {
+                    "losses": losses, "loss_rel_gap": loss_gap,
+                    "worst_param": worst, "param_rel_gap": gaps[worst],
+                    "count": int(solver.optimizer.count),
+                    "within": bool(loss_gap <= JAX_RESUME_ASR_TOL
+                                   and gaps[worst] <= JAX_RESUME_ASR_TOL),
+                    "launches": {k: fn.launches for k, fn in
+                                 counters.items() if fn.launches}}
+    finally:
+        deterministic(False)
+    r = asr["resumed"]
+    for k in ("fbank_fused", "lstm_scan_fused", "lstm_bwd_fused",
+              "ctc_loss_fused"):
+        check(r["launches"].get(k, 0) > 0,
+              f"jax_resume_entry: the ASR resume launched no {k}: "
+              f"{r['launches']}")
+    check(r["within"] and r["count"] == 5, "jax_resume_entry: the resumed "
+          f"ASR is off the uninterrupted run: {r}")
+    emit({"phase": "jax_resume_asr", "batch": JAX_RESUME_ASR_B, "secs": SECS,
+          "uninterrupted_losses": whole, "tolerance": JAX_RESUME_ASR_TOL,
+          **asr, "card": CARD})
+    emit({"phase": "jax_resume_entry", "ok": True,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "t_s": time.perf_counter() - T_START, "card": CARD})
+    return {"lm": lm["resumed"]["launches"], "asr": r["launches"]}
 
 
 # the RNN-LM's scan shapes: config/libri/lm_example.yaml's batch of 64 at its
@@ -5420,7 +5617,7 @@ def main():
                             "options_entry,"
                             "lm_scan,lm_train,lm_train_gru,flac_entry,"
                             "lm_entry,trained_entry,jax_orbax_entry,"
-                            "tp_train,tp_lm_train,tp_test",
+                            "jax_resume_entry,tp_train,tp_lm_train,tp_test",
                     help="comma list of phases after build (default: all "
                          "but scan_floor and mma_floor)")
     ap.add_argument("--tp-layouts", default="1x2",
@@ -5675,6 +5872,8 @@ def main():
         phase_trained_entry(args.seed)
     if "jax_orbax_entry" in phases:
         phase_jax_orbax_entry(args.seed)
+    if "jax_resume_entry" in phases:
+        phase_jax_resume_entry(args.seed)
     for layout in args.tp_layouts.split(","):
         if "tp_train" in phases:
             phase_tp_train("asr", args.seed, device, layout)

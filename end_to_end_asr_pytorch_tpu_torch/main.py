@@ -15,8 +15,11 @@ splits with the ``decode:`` block (beam search with CTC prefix scoring and
 RNN-LM shallow fusion from ``decode.lm_config`` / ``decode.lm_path`` when
 ``lm_weight > 0``; greedy CTC for a CTC-only model) and writes
 ``<outdir>/<name>_sd<seed>/{dev,test}_{output,beam}.csv``. ``--load`` takes a
-reference-layout torch checkpoint or one the JAX package wrote (training
-resumes the latter's weights and step, not its optax state). Runs on the
+reference-layout torch checkpoint or one the JAX package wrote (its native
+file or its orbax directory); training resumes the weights, the optimizer
+state (optax's, mapped by ``utils/optax_state.py``) and the step of either
+package's checkpoints, and ``ckpt_format: orbax`` writes the optimizer as
+the optax tree the JAX package resumes from. Runs on the
 card unless ``--cpu`` is given (no card is an error). ``--amp`` trains the
 ASR in bf16 (as ``hparas.amp: True``; ``--test`` and ``--lm`` ignore it, as
 the JAX package's decode and LM solvers do). ``--cudnn-ctc`` and
@@ -61,7 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--logdir", default="log/", help="log directory")
     ap.add_argument("--ckpdir", default="ckpt/", help="checkpoint directory")
     ap.add_argument("--outdir", default="result/", help="decode output dir")
-    ap.add_argument("--load", default=None, help="checkpoint to load/resume")
+    ap.add_argument("--load", default=None,
+                    help="checkpoint to load/resume (weights, optimizer "
+                         "state and step, from either package's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cudnn-ctc", action="store_true",
                     help="(compatibility flag, ignored)")

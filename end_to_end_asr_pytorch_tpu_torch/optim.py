@@ -13,7 +13,12 @@ clipping and the non-finite-gradient step skip, in optax's arithmetic:
   optax's ``trace`` with ``momentum`` (default 0).
 
 Every step runs on the device with no host synchronisation: the skip is a
-``torch.where`` on a device flag.
+``torch.where`` on a device flag. ``apply_if_finite``'s three counters
+(``notfinite_count``, ``last_finite``, ``total_notfinite``) are kept as
+device scalars and updated as optax updates them; with its
+``max_consecutive_errors`` of 1e8 they never change a step, and they are
+kept so that the optax state (``utils/optax_state.py``) goes from the JAX
+package to the port and back unchanged.
 
 Under tensor parallelism (``parallel/tp.shard_slots`` sets ``split``, the
 parameters each rank holds a part of) the slots are parts as well, and the
@@ -33,8 +38,17 @@ import torch
 
 from .parallel import mesh
 
+# apply_if_finite's counters, in the state_dict as in optax's state
+COUNTERS = ("notfinite_count", "last_finite", "total_notfinite")
+_INT32_MAX = 2 ** 31 - 1
 _SLOTS = {"adadelta": ("e_g", "e_x"), "adam": ("mu", "nu"),
           "adamw": ("mu", "nu"), "sgd": ("trace",)}
+
+
+def _safe_increment(n: torch.Tensor) -> torch.Tensor:
+    """optax's ``numerics.safe_increment``: +1, saturating at int32's
+    largest value."""
+    return torch.where(n < _INT32_MAX, n + 1, n)
 
 
 class Optimizer:
@@ -55,12 +69,17 @@ class Optimizer:
         self.warmup = int(hparas.get("warmup_step", 4000))
         self.grad_clip = float(grad_clip)
         self.count = None
+        # apply_if_finite's counters (module docstring)
+        self.notfinite_count = self.last_finite = self.total_notfinite = None
         self.slots: Dict[str, Dict[str, torch.Tensor]] = {}
         self.split: Dict[str, int] = {}   # see the module docstring
 
     def init(self, params: Mapping[str, torch.Tensor]) -> None:
         dev = next(iter(params.values())).device
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.last_finite = torch.ones((), dtype=torch.bool, device=dev)
+        self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
         self.slots = {n: {s: torch.zeros_like(p) for s in _SLOTS[self.name]}
                       for n, p in params.items()}
 
@@ -115,6 +134,13 @@ class Optimizer:
             for s, v in new.items():
                 self.slots[n][s] = torch.where(finite, v, self.slots[n][s])
         self.count = torch.where(finite, count_inc, self.count)
+        self.notfinite_count = torch.where(
+            finite, torch.zeros_like(self.notfinite_count),
+            _safe_increment(self.notfinite_count))
+        self.last_finite = finite
+        self.total_notfinite = torch.where(
+            finite, self.total_notfinite,
+            _safe_increment(self.total_notfinite))
         return gnorm
 
     def _norm_over_model(self, grads):
@@ -145,6 +171,7 @@ class Optimizer:
 
     def state_dict(self) -> Dict[str, Any]:
         return {"optimizer": self.name, "count": self.count,
+                **{k: getattr(self, k) for k in COUNTERS},
                 "slots": self.slots}
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
@@ -158,5 +185,8 @@ class Optimizer:
                            f"{sorted(set(sd['slots']) ^ set(self.slots))[:10]}")
         dev = self.count.device
         self.count = sd["count"].to(dev)
+        for k in COUNTERS:          # a state saved before they were kept
+            if k in sd:
+                setattr(self, k, sd[k].to(dev))
         self.slots = {n: {s: v.to(dev) for s, v in d.items()}
                       for n, d in sd["slots"].items()}

@@ -67,7 +67,7 @@ from ..ops.ctc import ctc_loss, ctc_loss_k3
 from ..optim import Optimizer
 from ..parallel import mesh, tp
 from ..utils.metrics import cal_er
-from ..utils.jax_ckpt import load_checkpoint
+from ..utils.jax_ckpt import load_checkpoint, resumed
 from ..utils.util import feat_to_fig
 
 DEV_STEP_RATIO = 1.2  # decode-step headroom during validation
@@ -187,7 +187,8 @@ class Solver(BaseSolver):
             if ck["optimizer"] is not None:
                 self.optimizer.load_state_dict(ck["optimizer"])
             self.step = ck["global_step"]
-            self.verbose(f"Loaded ckpt {self.paras.load} @ step {self.step}")
+            self.verbose(f"Loaded ckpt {self.paras.load} @ step {self.step}"
+                         f"{resumed(ck['optimizer'])}")
         self.split = tp.shard_module(self.model)
         tp.shard_slots(self.optimizer, self.split)
 

@@ -33,7 +33,7 @@ from ..data.dataset import load_textset
 from ..models.lm import RNNLM
 from ..optim import Optimizer
 from ..parallel import mesh, tp
-from ..utils.jax_ckpt import load_checkpoint
+from ..utils.jax_ckpt import load_checkpoint, resumed
 from ..utils.text import EOS_IDX
 
 
@@ -90,7 +90,8 @@ class Solver(BaseSolver):
             if ck["optimizer"] is not None:
                 self.optimizer.load_state_dict(ck["optimizer"])
             self.step = ck["global_step"]
-            self.verbose(f"Loaded ckpt {self.paras.load} @ step {self.step}")
+            self.verbose(f"Loaded ckpt {self.paras.load} @ step {self.step}"
+                         f"{resumed(ck['optimizer'])}")
         self.split = tp.shard_module(self.lm)
         tp.shard_slots(self.optimizer, self.split)
 

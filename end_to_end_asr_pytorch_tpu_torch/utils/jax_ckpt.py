@@ -6,13 +6,14 @@ little-endian header length, a JSON header (``global_step``, ``metrics``,
 ``model_bytes``, ``opt_bytes``), then the model's and the optimizer's
 ``flax.serialization.to_bytes`` blobs. A blob is msgpack: the parameter tree
 as nested maps (a NamedTuple by field name, a tuple or list by ``"0"``,
-``"1"``, ...; ``None`` as nil), each array as msgpack extension type 1
-whose payload is itself msgpack ``(shape, dtype name, C-order bytes)``
-(type 3: a numpy scalar the same way). The decoder below covers the
-msgpack format in full, since the card's machine is not promised the
-``msgpack`` package. The restored tree's paths are the JAX
-parameter-tree paths, which ``utils/weights.py`` maps onto the port's
-modules.
+``"1"``, ...; ``None`` as nil; an optax ``EmptyState`` as an empty map),
+each array as msgpack extension type 1 whose payload is itself msgpack
+``(shape, dtype name, C-order bytes)`` (type 3: a numpy scalar the same
+way). The decoder below covers the msgpack format in full, since the
+card's machine is not promised the ``msgpack`` package. The restored
+tree's paths are the JAX parameter-tree paths, which ``utils/weights.py``
+maps onto the port's modules; the optimizer's blob is optax's state tree,
+which ``utils/optax_state.py`` maps onto the port's optimizer.
 
 ``load_checkpoint`` sniffs the format as the JAX package's does: a torch
 pickle (zip archive or a bare pickle stream) goes to ``utils/torch_ckpt``,
@@ -33,6 +34,7 @@ import numpy as np
 import torch.nn as nn
 
 from ..models.lm import RNNLM
+from .optax_state import from_optax
 from .orbax import read_orbax, recover_sibling
 from .torch_ckpt import load_lm_checkpoint, load_torch_checkpoint
 from .weights import load_arrays
@@ -121,20 +123,23 @@ def _ext(code: int, payload: bytes) -> Any:
 
 
 def read_native(path: str) -> Dict[str, Any]:
-    """The JAX package's native checkpoint: {'model': tree, 'global_step'}
-    (the optimizer blob, optax state, is not read)."""
+    """The JAX package's native checkpoint: {'model': tree, 'optimizer':
+    the optax state's tree (None when the file holds none),
+    'global_step'}."""
     with open(path, "rb") as f:
         hlen = int.from_bytes(f.read(8), "little")
         header = json.loads(f.read(hlen).decode())
         model_b = f.read(header["model_bytes"])
+        opt_b = f.read(header.get("opt_bytes", 0))
     return {"model": msgpack_unpack(model_b),
+            "optimizer": msgpack_unpack(opt_b) if opt_b else None,
             "global_step": int(header["global_step"])}
 
 
 def tree_arrays(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
-    """{port parameter name: array} of a restored tree, None leaves
-    dropped: the JAX path ``encoder.layers[0].fwd.w_ih`` is stored as
-    ``encoder / layers / 0 / fwd / w_ih``."""
+    """{dotted path: array} of a restored tree, None leaves and empty
+    nodes dropped: the JAX path ``encoder.layers[0].fwd.w_ih`` is stored
+    as ``encoder / layers / 0 / fwd / w_ih``."""
     if isinstance(tree, dict):
         out: Dict[str, np.ndarray] = {}
         for k, v in tree.items():
@@ -165,8 +170,10 @@ def load_checkpoint(path: str, module: nn.Module,
     from a native plugin solver's {'asr', 'plugin'} tree (a plugin part is
     skipped without ``plugin``), or by suffix from a torch checkpoint
     (``utils/torch_ckpt.py``), or from an orbax directory's JAX tree.
-    Returns {'optimizer' (the port optimizer state a torch checkpoint or
-    an orbax directory saved, else None), 'global_step', 'format'}."""
+    Returns {'optimizer' (the port's ``Optimizer.state_dict()``: the one a
+    torch checkpoint saved, or the optax state of a native file or an
+    orbax directory through ``utils/optax_state.from_optax``; None where
+    the checkpoint holds none), 'global_step', 'format'}."""
     p = Path(path)
     if not p.exists():
         p = recover_sibling(p)
@@ -182,5 +189,15 @@ def load_checkpoint(path: str, module: nn.Module,
                 "global_step": ck["global_step"], "format": "torch"}
     ck = read_native(str(p))
     load_arrays(module, tree_arrays(ck["model"]), plugin)
-    return {"optimizer": None, "global_step": ck["global_step"],
-            "format": "native"}
+    opt = ck["optimizer"]
+    return {"optimizer": None if opt is None else from_optax(tree_arrays(opt)),
+            "global_step": ck["global_step"], "format": "native"}
+
+
+def resumed(optimizer: Optional[Dict[str, Any]]) -> str:
+    """What a resume took of the optimizer (``load_checkpoint``'s
+    'optimizer'), for the solvers' load line."""
+    if optimizer is None:
+        return " (no optimizer state: the optimizer starts afresh)"
+    return (f" (optimizer state: {optimizer['optimizer']}, count "
+            f"{int(optimizer['count'])})")

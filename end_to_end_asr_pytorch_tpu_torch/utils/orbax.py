@@ -12,12 +12,12 @@ A checkpoint ``<path>/`` holds what the JAX package's
   one chunk (``0.0`` for a matrix, ``0`` for a scalar) holds the raw
   C-order bytes. The JAX package's ``load_checkpoint`` restores it into
   its template.
-- ``port_optimizer/``: the port's own optimizer state
-  (``Optimizer.state_dict``: ``count`` and ``slots.<parameter>.<slot>``;
-  the optimizer's name in ``_CHECKPOINT_METADATA``'s custom metadata), in
-  the same layout. It is not ``optimizer/``, which the JAX package
-  restores into an optax template: that package resumes the model and the
-  step from such a directory, and starts its optimizer afresh.
+- ``optimizer/``: the optimizer's state as the JAX package's optax tree
+  (``utils/optax_state.to_optax``: ``apply_if_finite``'s counters, the
+  slots at the parameters' JAX paths and layout, the step counts), in the
+  same layout, its ``EmptyState`` nodes and the parameter tree's None
+  leaves recorded in ``_METADATA`` as ``None`` values. The JAX package's
+  ``load_checkpoint`` restores it into ``Optimizer(...).init(params)``.
 - ``meta.json``: ``global_step`` and ``metrics``, written last, so a
   directory that holds it is complete.
 
@@ -27,19 +27,19 @@ preemption in any of those windows ``recover_sibling`` promotes the
 complete sibling back (the JAX package's ``_recover_orbax_sibling``).
 
 ``read_orbax`` reads these directories and the ones the JAX package
-writes through orbax with its defaults: ``model/`` an OCDBT database
-(``manifest.ocdbt``, ``ocdbt.process_<i>/``; ``utils/ocdbt.py``) holding a
-zarr v2 ``.zarray`` and zstd-compressed chunks a leaf. ``read_item`` takes
-zarr v2 leaves, compressed with zstd or not, in OCDBT or in a directory a
-leaf: arrays split into several chunks, chunks missing from the store (the
-fill value), scalars, and bf16 leaves (returned as float32 of the same
-values, an exact widening). Chunks are decompressed by the port's own zstd
+writes through orbax with its defaults: ``model/`` and ``optimizer/``
+OCDBT databases (``manifest.ocdbt``, ``ocdbt.process_<i>/``;
+``utils/ocdbt.py``) holding a zarr v2 ``.zarray`` and zstd-compressed
+chunks a leaf. ``read_item`` takes zarr v2 leaves, compressed with zstd or
+not, in OCDBT or in a directory a leaf: arrays split into several chunks,
+chunks missing from the store (the fill value), scalars (int32 and bool
+among them), and bf16 leaves (returned as float32 of the same values, an
+exact widening). Chunks are decompressed by the port's own zstd
 decoder (``utils/zstd.py``). A zarr v3 leaf (``zarr.json``, orbax's
-``use_zarr3``, which the JAX package does not set) raises. The JAX
-package's ``optimizer/`` item (optax state) is not read: a resume from
-such a directory takes the model and the step and starts the port's
-optimizer afresh, as from a JAX native checkpoint, and says so in one
-line.
+``use_zarr3``, which the JAX package does not set) raises. ``optimizer/``
+is read in both layouts and mapped onto the port's optimizer by
+``utils/optax_state.from_optax``, so a resume takes the model, the
+optimizer state and the step of a directory either package wrote.
 """
 from __future__ import annotations
 
@@ -51,11 +51,11 @@ from pathlib import Path
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..models.lm import RNNLM
 from . import zstd
 from .ocdbt import read_ocdbt
+from .optax_state import from_optax, to_optax
 from .weights import jax_arrays
 
 Keys = Tuple[str, ...]
@@ -101,8 +101,7 @@ def _key_metadata(keys: Keys) -> list:
     return [{"key": k, "key_type": 1 if k.isdigit() else 2} for k in keys]
 
 
-def write_item(d: Path, leaves: Dict[Keys, Optional[np.ndarray]],
-               custom_metadata: Optional[Dict[str, Any]] = None) -> None:
+def write_item(d: Path, leaves: Dict[Keys, Optional[np.ndarray]]) -> None:
     """One orbax ``StandardCheckpointer`` item at ``d`` in the non-OCDBT,
     uncompressed layout; a None leaf is recorded in the metadata only."""
     d.mkdir(parents=True)
@@ -113,7 +112,7 @@ def write_item(d: Path, leaves: Dict[Keys, Optional[np.ndarray]],
                                "value_metadata": {"value_type": "None",
                                                   "skip_deserialize": True}}
             continue
-        a = np.ascontiguousarray(a)
+        a = np.asarray(a, order="C")          # a scalar stays 0-d
         leaf = d / ".".join(keys)
         leaf.mkdir()
         (leaf / ".zarray").write_text(json.dumps({
@@ -137,7 +136,7 @@ def write_item(d: Path, leaves: Dict[Keys, Optional[np.ndarray]],
                          "StandardCheckpointHandler",
         "metrics": {}, "performance_metrics": {},
         "init_timestamp_nsecs": now, "commit_timestamp_nsecs": now,
-        "custom_metadata": custom_metadata or {}}))
+        "custom_metadata": {}}))
 
 
 def _fill(value, dtype: np.dtype, bf16: bool, what: str):
@@ -276,22 +275,21 @@ def save_orbax(path, model, optimizer=None, global_step: int = 0,
                metrics: Optional[Dict[str, float]] = None,
                plugin=None) -> None:
     """Write ``model`` (an ASR or an RNNLM; an ASR's embedding ``plugin``
-    in the plugin solver's tree), the port's ``optimizer`` state, the step
-    and ``metrics`` as the orbax directory ``path`` (module docstring)."""
+    in the plugin solver's tree), ``optimizer``'s state as optax's tree,
+    the step and ``metrics`` as the orbax directory ``path`` (module
+    docstring)."""
     path = Path(path).absolute()
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(path.suffix + ".tmp")
     old = path.with_suffix(path.suffix + ".old")
     shutil.rmtree(tmp, ignore_errors=True)
-    write_item(tmp / "model", model_leaves(model, plugin))
+    leaves = model_leaves(model, plugin)
+    write_item(tmp / "model", leaves)
     if optimizer is not None:
-        sd = optimizer.state_dict()
-        leaves = {("count",): sd["count"].detach().cpu().numpy()}
-        for name, slots in sd["slots"].items():
-            for slot, t in slots.items():
-                leaves[("slots", name, slot)] = t.detach().cpu().numpy()
-        write_item(tmp / "port_optimizer", leaves,
-                   {"optimizer": sd["optimizer"]})
+        opt = to_optax(optimizer.state_dict(),
+                       [".".join(k) for k, a in leaves.items() if a is None])
+        write_item(tmp / "optimizer",
+                   {tuple(k.split(".")): a for k, a in opt.items()})
     (tmp / "meta.json").write_text(json.dumps(
         {"global_step": int(global_step),
          "metrics": {k: float(v) for k, v in (metrics or {}).items()}}))
@@ -319,25 +317,15 @@ def recover_sibling(p: Path) -> Path:
 
 def read_orbax(path) -> Dict[str, Any]:
     """{'model': {dotted JAX path: array}, 'optimizer': the port's
-    optimizer ``state_dict`` or None, 'global_step', 'metrics'} of an
-    orbax directory."""
+    optimizer ``state_dict`` of its ``optimizer/`` (optax's tree), or None,
+    'global_step', 'metrics'} of an orbax directory."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
     model, _ = read_item(path / "model")
     opt = None
-    if (path / "optimizer").is_dir() and not (path / "port_optimizer"
-                                              ).is_dir():
-        print(f"[INFO] {path}: the JAX package's optimizer/ (optax state) "
-              "is not read; the optimizer starts afresh", flush=True)
-    if (path / "port_optimizer").is_dir():
-        leaves, custom = read_item(path / "port_optimizer")
-        slots: Dict[str, Dict[str, torch.Tensor]] = {}
-        for keys, a in leaves.items():
-            if keys[0] == "slots":
-                slots.setdefault(keys[1], {})[keys[2]] = torch.from_numpy(a)
-        opt = {"optimizer": custom["optimizer"],
-               "count": torch.from_numpy(leaves[("count",)]),
-               "slots": slots}
+    if (path / "optimizer").is_dir():
+        leaves, _ = read_item(path / "optimizer")
+        opt = from_optax({".".join(k): a for k, a in leaves.items()})
     return {"model": {".".join(k): a for k, a in model.items()},
             "optimizer": opt, "global_step": int(meta["global_step"]),
             "metrics": meta.get("metrics", {})}

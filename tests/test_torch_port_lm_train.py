@@ -318,7 +318,8 @@ def test_main_lm_writes_checkpoints_that_jax_and_the_decoder_read(
 
 def test_load_resumes_a_jax_native_lm_checkpoint(tmp_path, corpus):
     """A checkpoint the JAX package wrote in its native format: the port
-    resumes its weights and step (its optax state is not read)."""
+    resumes its weights and step; this one holds no optax state, so the
+    optimizer starts afresh."""
     path, cfg = _lm_yaml(tmp_path, corpus, max_step=3, valid_step=10)
     jlm = JaxLM(30, cfg["model"])
     jp = jlm.init(jax.random.PRNGKey(5))

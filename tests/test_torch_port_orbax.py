@@ -1,8 +1,8 @@
 """``ckpt_format: orbax`` on the CPU: the port writes checkpoint
 directories in the JAX package's orbax layout with neither JAX nor orbax
 (``utils/orbax.py``), the JAX package's ``load_checkpoint`` restores them
-bit for bit, the port reads them back (model, its own optimizer state,
-step), ``main`` resumes from them as from its torch file, an interrupted
+bit for bit, the port reads them back (model, its optimizer state as
+optax's tree, step), ``main`` resumes from them as from its torch file, an interrupted
 save recovers as the JAX package's does, and the directories the JAX
 package writes itself (OCDBT, zstd) are read bit for bit.
 
@@ -27,6 +27,8 @@ from end_to_end_asr_pytorch_tpu.models.asr import ASR as JaxASR  # noqa: E402
 from end_to_end_asr_pytorch_tpu.models.lm import RNNLM as JaxLM  # noqa: E402
 from end_to_end_asr_pytorch_tpu.models.plugin import \
     EmbeddingRegularizer as JaxPlugin  # noqa: E402
+from end_to_end_asr_pytorch_tpu.optim import \
+    Optimizer as JaxOptimizer  # noqa: E402
 from end_to_end_asr_pytorch_tpu.utils.checkpoint import (  # noqa: E402
     load_checkpoint as jax_load, save_checkpoint as jax_save)
 from end_to_end_asr_pytorch_tpu_torch import main as port_main  # noqa: E402
@@ -130,7 +132,7 @@ def _stepped_optimizer(params, name="Adam"):
 
 @pytest.mark.parametrize("case", ["vgg_lstm", "plugin", "lm"])
 def test_port_reads_back_the_model_and_its_optimizer(tmp_path, case):
-    _, model, plugin = _models(case, tmp_path)
+    jp, model, plugin = _models(case, tmp_path)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     if plugin is not None:
@@ -138,8 +140,15 @@ def test_port_reads_back_the_model_and_its_optimizer(tmp_path, case):
     opt = _stepped_optimizer(params)
     orbax.save_orbax(tmp_path / "latest.pth", model, opt, global_step=7,
                      metrics={"ppx": 3.5}, plugin=plugin)
-    assert (tmp_path / "latest.pth" / "port_optimizer" / "_METADATA").is_file()
-    assert not (tmp_path / "latest.pth" / "optimizer").exists()
+    assert (tmp_path / "latest.pth" / "optimizer" / "_METADATA").is_file()
+    assert not (tmp_path / "latest.pth" / "port_optimizer").exists()
+    # optimizer/ is optax's tree: the JAX package restores it into its
+    # optimizer's template, every leaf and empty node in place
+    jtemplate = JaxOptimizer({"optimizer": "Adam", "lr": 1e-3}).init(jp)
+    jck = jax_load(tmp_path / "latest.pth", _zeros(jp), jtemplate)
+    assert jax.tree.structure(jck["optimizer"]) == jax.tree.structure(
+        jtemplate)
+    assert int(jck["optimizer"].inner_state[1][0].count) == 1
     fresh = (RNNLM(VOCAB, {**LM_CFG, "layer": 2}, device="cpu")
              if case == "lm" else ASR(40, VOCAB, ASR_CFG, device="cpu"))
     fresh_plugin = None if plugin is None else EmbeddingRegularizer(
@@ -204,7 +213,7 @@ def test_main_writes_complete_orbax_directories(trained):
         p = exp / name
         assert p.is_dir(), name
         for f in ("meta.json", "model/_METADATA",
-                  "model/_CHECKPOINT_METADATA", "port_optimizer/_METADATA"):
+                  "model/_CHECKPOINT_METADATA", "optimizer/_METADATA"):
             assert (p / f).is_file(), (name, f)
     assert sorted(q.name for q in exp.iterdir()) == [
         "best_att.pth", "best_ctc.pth", "latest.pth"]       # no .tmp, .old

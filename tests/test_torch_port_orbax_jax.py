@@ -8,9 +8,10 @@ fmt="orbax")``; the oracles are the JAX package's ``load_checkpoint``
 (orbax's restore), tensorstore's ``ocdbt`` kvstore and ``ocdbt.dump``, and
 tensorstore's zarr arrays for compressed chunks. Every comparison of
 arrays and bytes is exact. The entry points (``main --test``,
-``transcribe``, ``main --load``, ``decode.lm_path``) are held to the same
-weights carried across as a torch checkpoint (``utils/weights.py``,
-``utils/torch_ckpt.py``). The decoder is built with ``g++`` at first use,
+``transcribe``, ``decode.lm_path``) are held to the same weights carried
+across as a torch checkpoint (``utils/weights.py``,
+``utils/torch_ckpt.py``), and ``main --load`` to the JAX package's solver
+resuming from the same directory. The decoder is built with ``g++`` at first use,
 as the FLAC decoder's tests build theirs."""
 import copy
 import json
@@ -47,7 +48,8 @@ from end_to_end_asr_pytorch_tpu_torch.utils import (  # noqa: E402
 from end_to_end_asr_pytorch_tpu_torch.utils.tensorboard import \
     crc32c  # noqa: E402
 from end_to_end_asr_pytorch_tpu_torch.utils.weights import (  # noqa: E402
-    asr_from_arrays, lm_from_arrays, load_plugin_arrays, port_name)
+    _to_port_layout, asr_from_arrays, lm_from_arrays, load_plugin_arrays,
+    port_name)
 from tests.torch_port_fixtures import jax_arrays  # noqa: E402
 
 torch.set_num_threads(1)
@@ -583,43 +585,57 @@ def test_main_test_and_transcribe_take_a_jax_directory(corpus_run,
 def test_main_load_resumes_a_jax_directory_at_its_step(corpus_run,
                                                        tmp_path, capsys):
     """``main --load jax.pth/`` (a directory with the JAX package's
-    ``optimizer/``): the model and step 5 are taken, the optax state is
-    not read (one line says so), the port's optimizer starts afresh; step
-    6 takes the loss, and reaches the weights, that resuming from the torch
-    checkpoint of the same weights (no optimizer state) does."""
-    from optax import adadelta
-    d = corpus_run["dir"]
+    ``optimizer/``: its Adadelta state after 5 steps, OCDBT, zstd): the
+    model, the optax state and step 5 are taken (the load line names the
+    state); step 6 takes the loss the JAX package's solver takes after its
+    own ``--load`` of the directory and reaches its weights, and the
+    count is 6."""
+    from end_to_end_asr_pytorch_tpu.optim import Optimizer as JaxOptimizer
+    from tests.test_torch_port_optax_state import (
+        PARAM_TOL, _jax_solver, _jax_steps, _random_like,
+        _record_port_steps)
     jp = corpus_run["jp"]
+    c = copy.deepcopy(corpus_run["cfg"])
+    c["hparas"].update(max_step=6, tf_end=1.0)     # tf 1: no random coins
+    jopt = JaxOptimizer(c["hparas"], grad_clip=5.0)
+    state, step = jopt.init(jp), jax.jit(jopt.step)
+    for s in range(5):
+        jp, state = step(_random_like(jp, 20 + s, 0.5), state, jp)
     with_opt = tmp_path / "jax_opt.pth"
-    jax_save(str(with_opt), jp, adadelta(1.0).init(jp), 5, fmt="orbax")
-    assert (with_opt / "optimizer").is_dir()
-    runs = {}
-    for name, load in (("jax", with_opt), ("port", d / "port.pth")):
-        c = copy.deepcopy(corpus_run["cfg"])
-        c["hparas"]["max_step"] = 6
-        cfg = tmp_path / f"{name}.yaml"
-        cfg.write_text(yaml.safe_dump(c))
-        capsys.readouterr()
+    jax_save(str(with_opt), jp, state, 5, fmt="orbax")
+    assert (with_opt / "optimizer" / "manifest.ocdbt").is_file()
+    cfg = tmp_path / "jax.yaml"
+    cfg.write_text(yaml.safe_dump(c))
+    mp = pytest.MonkeyPatch()
+    seen = _record_port_steps(mp, "asr")
+    capsys.readouterr()
+    try:
         train.main(["--config", str(cfg), "--cpu", "--logdir",
                     str(tmp_path / "log"), "--ckpdir", str(tmp_path / "ckpt"),
-                    "--load", str(load)])
-        said = capsys.readouterr().out
-        log = [json.loads(ln) for ln in (tmp_path / "log" / f"{name}_sd0" /
-                                         "log.jsonl").read_text().splitlines()]
-        ck = torch.load(str(tmp_path / "ckpt" / f"{name}_sd0" / "latest.pth"),
-                        weights_only=True)
-        runs[name] = {"said": said, "ck": ck, "loss": [
-            e["value"] for e in log if e["name"] == "loss"
-            and "tr_loss" in e["value"]]}
-    assert "optimizer/ (optax state) is not read" in runs["jax"]["said"]
-    assert "@ step 5" in runs["jax"]["said"]
-    for r in runs.values():
-        assert r["ck"]["global_step"] == 6
-        assert int(r["ck"]["optimizer"]["count"]) == 1
-    assert [e for e in log if e["step"] == 6]
-    assert runs["jax"]["loss"] == runs["port"]["loss"] != []
-    for k, v in runs["port"]["ck"]["model"].items():
-        assert torch.equal(runs["jax"]["ck"]["model"][k], v), k
+                    "--load", str(with_opt)])
+    finally:
+        mp.undo()
+    said = capsys.readouterr().out
+    assert "@ step 5 (optimizer state: adadelta, count 5)" in said
+    assert "not read" not in said and "afresh" not in said
+    ck = torch.load(str(tmp_path / "ckpt" / "jax_sd0" / "latest.pth"),
+                    weights_only=True)
+    assert ck["global_step"] == 6 and int(ck["optimizer"]["count"]) == 6
+    solver = _jax_solver("asr", c, cfg, corpus_run["vocab"], with_opt,
+                         tmp_path)
+    assert solver.step == 5
+    assert len(seen) == 1
+    losses = _jax_steps(solver, "asr", [seen[0][0]])
+    np.testing.assert_allclose(seen[0][1], losses[0], rtol=1e-5)
+    model = ASR(40, corpus_run["vocab"], c["model"], device="cpu")
+    jax_ckpt.load_checkpoint(str(tmp_path / "ckpt" / "jax_sd0" /
+                                 "latest.pth"), model)
+    got = model.state_dict()
+    for path, w in jax_arrays(solver.params).items():
+        name = port_name(path)
+        np.testing.assert_allclose(got[name].numpy(),
+                                   _to_port_layout(name, w), err_msg=name,
+                                   **PARAM_TOL)
 
 
 def test_lm_path_takes_a_jax_lm_directory(corpus_run, tmp_path):

@@ -66,16 +66,17 @@ def run_world(fn, world, tmp, *args, timeout=120.0):
 
 # ----------------------------------------------------- what the ranks run
 def make_solver(cfg, hparas, workdir, seed=0, vocab=12, feat_dim=40,
-                model_parallel=1, load=None):
+                model_parallel=1, load=None, ckpt_format="native"):
     """The port's ASR training solver on ``cfg``'s model, set up as
     ``main`` sets it up but without a corpus (``load``: a checkpoint to
-    start from, cut to the rank's parts at ``model_parallel`` > 1)."""
+    start from, cut to the rank's parts at ``model_parallel`` > 1;
+    ``ckpt_format``: how ``save`` writes)."""
     from end_to_end_asr_pytorch_tpu_torch.solvers.train_asr import Solver
     config = {"data": {"corpus": {"name": "none"},
                        "audio": copy.deepcopy(cfg["audio"]),
                        "text": {"mode": "character"}},
               "model": copy.deepcopy(cfg["model"]), "hparas": dict(hparas),
-              "model_parallel": model_parallel}
+              "model_parallel": model_parallel, "ckpt_format": ckpt_format}
     paras = SimpleNamespace(config="dist.yaml", name=None, seed=seed,
                             logdir=f"{workdir}/log", ckpdir=f"{workdir}/ckpt",
                             load=load, njobs=0, no_msg=True, cpu=True)
@@ -164,13 +165,13 @@ def tp_state(solver):
 
 
 def tp_asr_steps(rank, world, m, cfg, hparas, batches, workdir, load=None,
-                 save=None):
+                 save=None, ckpt_format="native"):
     """Train steps of ``make_solver(cfg, hparas)`` at ``model_parallel: m``
     from the checkpoint ``load`` on this rank's rows of each global batch:
     the step metrics and ``tp_state``; ``save``: a checkpoint name the
-    solver then writes (rank 0) under ``workdir``."""
+    solver then writes (rank 0) under ``workdir`` in ``ckpt_format``."""
     solver = make_solver(cfg, hparas, workdir, vocab=cfg["vocab"],
-                         model_parallel=m, load=load)
+                         model_parallel=m, load=load, ckpt_format=ckpt_format)
     losses = []
     for b in batches:
         t, rows = rank_batch(b, rank, world, m)
