@@ -296,6 +296,28 @@ Phases, each printing one JSON line:
                 (train_att, train_gru_amp, train_att_amp, train_aug and
                 train_plugin take no profiled step, cut to keep the script
                 within its limit)
+  prefetch    - the input pipeline (parallel/mesh.py prefetch_to_device:
+                a worker thread pins each batch and copies it on a side
+                stream; main, main --lm and main --test take every batch
+                through it, so the *_entry phases run it too) at train's
+                shapes: (a) 16 loader batches of 32 int16 waves of 7 s, the
+                compute stream held back before each is read: every
+                prefetched tensor equal to the inline copy
+                (torch.from_numpy(a).to(dev), labels int64); (b) the
+                staging pinned, and a short trace (K1 and the encoder's K2
+                on 3 prefetched batches) with the host-to-device copies on
+                streams other than K1's and K2's; (d) an epoch of 50
+                batches abandoned after 2: within 2 s the worker and the
+                loader's pool threads are gone and the allocated device
+                bytes are back where they were; (e) a source that raises
+                after one batch, and a batch that cannot be staged, raise
+                in the consumer (prefetch_check, prefetch_abandon lines);
+                (c) in turns, 3 alternations of 20 train steps through the
+                prefetcher and through inline copies, for train's model
+                and lm_train's LM (B=64): ms per step, data.wait ms per
+                step, and in the last alternation one profiled step each
+                with the device idle share (prefetch_turns_asr,
+                prefetch_turns_lm lines)
   dist_train  - data parallelism (parallel/mesh.py): a world-1 NCCL group
                 in this process, 3 Solver.train_steps of train's batch
                 against a solver with no group (deterministic cuDNN and
@@ -4742,6 +4764,331 @@ def phase_recipe_entry(seed, phases, n_utts=32):
 
 
 # ------------------------------------------------------------ data parallel
+# --------------------------------------------------------- input pipeline
+PREFETCH_BATCHES = 16        # (a): batches held bit for bit
+PREFETCH_ABANDON = 50        # (d): the epoch abandoned after 2 batches
+PREFETCH_TURNS = 3           # (c): alternations of prefetch and inline
+PREFETCH_STEPS = 20          # (c): timed steps a run
+PREFETCH_SLEEP = 20_000_000  # (a): cycles the compute stream is held back
+PREFETCH_CLOSE_S = 2.0       # (d): the longest the threads may outlive close
+
+
+class WaveSet:
+    """``n`` utterances with the loader's dataset interface (LibriDataset's,
+    ascending by size): int16 waves of 60-100% of SECS drawn from ``seed``
+    and the index, labels in [3, V_CHAR) proportional to the length (the
+    longest U_TRAIN)."""
+
+    def __init__(self, n, seed):
+        rng = np.random.RandomState(seed)
+        s = int(SECS * 16000)
+        self.seed = seed
+        self.lens = np.sort(rng.randint(int(0.6 * s), s + 1, size=n))
+        self.texts = [rng.randint(3, V_CHAR, size=max(1, round(
+            U_TRAIN * int(n_s) / s))).tolist() for n_s in self.lens]
+
+    def __len__(self):
+        return len(self.lens)
+
+    def num_samples(self, i):
+        return int(self.lens[i])
+
+    def load_wave(self, i):
+        return np.random.RandomState(self.seed * 100_003 + i).randint(
+            -3000, 3000, size=int(self.lens[i])).astype(np.int16)
+
+    def text_ids(self, i):
+        return self.texts[i]
+
+    def utt_id(self, i):
+        return f"utt{i}"
+
+    def text_raw(self, i):
+        return ""
+
+
+def wave_loader(n_batches, seed, batch=32):
+    """The port's loader over a ``WaveSet`` of ``n_batches`` batches, two
+    assembling threads, no wave cache."""
+    from end_to_end_asr_pytorch_tpu_torch.data.dataset import AudioBatchLoader
+    return AudioBatchLoader(WaveSet(n_batches * batch, seed), batch,
+                            n_jobs=2, cache_bytes=0)
+
+
+def inline_copy(batch, keys, device):
+    """The copy the solvers made on the step's thread before the
+    prefetcher: ``torch.from_numpy(a).to(device)``, labels as int64."""
+    import torch
+    dtypes = {"text": torch.int64, "text_len": torch.int64}
+    return {k: torch.from_numpy(batch[k]).to(device, dtypes.get(k))
+            for k in keys if k in batch}
+
+
+def host_train_batch(batch, seed):
+    """train_batch's waves and labels as the loader hands them: int16
+    waves, int32 lengths and labels."""
+    w, wl = make_waves(batch, seed)
+    rng = np.random.RandomState(seed)
+    lab_len = np.maximum(1, np.round(U_TRAIN * wl / wl.max())).astype(np.int32)
+    text = rng.randint(3, V_CHAR, size=(batch, U_TRAIN)).astype(np.int32)
+    text[np.arange(U_TRAIN)[None, :] >= lab_len[:, None]] = 0
+    return {"wave": np.clip(np.round(w * 32768.0), -32768,
+                            32767).astype(np.int16),
+            "wave_len": wl, "text": text, "text_len": lab_len}
+
+
+def host_lm_batch(seed, B=LM_B, lo=96, hi=400):
+    """lm_batch's sentences as the loader hands them (int32)."""
+    text, lens = (t.numpy() for t in lm_batch(seed, "cpu", B, lo, hi))
+    return {"text": text.astype(np.int32), "text_len": lens.astype(np.int32)}
+
+
+def trace_streams(prof, d):
+    """(streams of the host-to-device copies, their names, streams of K1's
+    and K2's kernels, the number of ``data.wait`` ranges) in ``prof``'s
+    chrome trace."""
+    path = Path(d) / "prefetch_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    stream = lambda e: (e.get("args") or {}).get("stream", e.get("tid"))
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and any(k in e.get("name", "") for k in ("fbank_kernel",
+                                                         "tc_scan_kernel"))]
+    waits = sum(e.get("name") == "data.wait" and e.get("ph") == "X"
+                and e.get("cat") == "user_annotation" for e in events)
+    return ({stream(e) for e in copies}, sorted({e["name"] for e in copies}),
+            {stream(e) for e in kernels}, waits)
+
+
+def turn_run(step, batches, keys, device, mode, n_steps, profiled):
+    """One run of (c): ``n_steps`` steps of ``step`` on ``batches`` (host
+    batches, cycled) through the prefetcher or through inline copies
+    (``mode``), timed on the host clock, the span each step waited for its
+    input (``data.wait``) beside; then, with ``profiled``, one more step
+    under the profiler (device activity alone: a step's host events take
+    seconds to sum): its device idle share and host-to-device copies."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    source = (batches[i % len(batches)] for i in range(n_steps + 1))
+    if mode == "prefetch":
+        it = mesh.prefetch_to_device(source, device, keys=keys)
+        take = lambda: next(it)[0]
+    else:
+        def take():
+            with record_function("data.wait"):
+                return inline_copy(next(source), keys, device)
+    torch.cuda.synchronize()
+    wait, losses = 0.0, []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        t1 = time.perf_counter()
+        dev = take()
+        wait += time.perf_counter() - t1
+        losses.append(step(*(dev[k] for k in keys))["loss"])
+    torch.cuda.synchronize()
+    out = {"mode": mode, "ms_per_step": (time.perf_counter() - t0) * 1e3
+           / n_steps, "data_wait_ms_per_step": wait * 1e3 / n_steps}
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"{mode} losses {losses}")
+    if profiled:
+        ranges = TRAIN_RANGES + LM_RANGES + ("data.wait",)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+            t0 = time.perf_counter()
+            dev = take()
+            wait = time.perf_counter() - t0
+            step(*(dev[k] for k in keys))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(0.1)
+        dev_t = lambda e: getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0.0))
+        avgs = prof.key_averages()
+        busy = sum(dev_t(e) for e in avgs
+                   if e.device_type == DeviceType.CUDA and dev_t(e) > 0
+                   and e.key not in ranges
+                   and not getattr(e, "is_user_annotation", False)) / 1e3
+        out.update(profiled_step_ms=ms, device_busy_ms=busy,
+                   device_idle_share=1.0 - busy / ms,
+                   profiled_data_wait_ms=wait * 1e3,
+                   copies={e.key: e.count for e in avgs
+                           if e.key.startswith("Memcpy HtoD")})
+    if mode == "prefetch":
+        it.close()
+    return out
+
+
+def phase_prefetch(batch, seed, device):
+    """The input pipeline (parallel/mesh.py prefetch_to_device) at train's
+    shapes: (a) 16 batches of the loader (32 int16 waves of 7 s, U up to
+    96), the compute stream held back before each is read: every prefetched
+    tensor equal to the inline copy; (b) the staging pinned, and a short
+    trace (K1 and the encoder's K2 on 3 prefetched batches) with the
+    host-to-device copies on streams other than K1's and K2's and the
+    consumer's waits as data.wait ranges; (d) an
+    epoch of 50 batches abandoned after 2: within 2 s the worker and the
+    loader's pool threads are gone and the allocated device bytes are back
+    where they were; (e) a source that raises after one batch, and a batch
+    that cannot be staged, raise in the consumer; (c) in turns,
+    PREFETCH_TURNS alternations of PREFETCH_STEPS train steps through the
+    prefetcher and through inline copies, for train's model and for
+    lm_train's LM (B=64): ms per step, data.wait ms per step, and in the
+    last alternation one profiled step each (device idle share)."""
+    import gc
+    import threading
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from end_to_end_asr_pytorch_tpu_torch.parallel import mesh
+    from end_to_end_asr_pytorch_tpu_torch.solvers.train_lm import LM_KEYS
+    t_phase = time.perf_counter()
+    keys = mesh.ASR_KEYS
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        solvers = {"asr": make_solver(device, seed, Path(d)),
+                   "lm": make_lm_solver(device, seed, Path(d), "LSTM")}
+    frontend, model = solvers["asr"].frontend, solvers["asr"].model
+    dtypes = {"wave": torch.int16, "wave_len": torch.int32,
+              "text": torch.int64, "text_len": torch.int64}
+    # (a) bit equality, the compute stream held back so that a block the
+    # side stream took back too early would be overwritten before it is read
+    loader = wave_loader(PREFETCH_BATCHES, seed + 40, batch)
+    hosts, seen = [], []
+    for dev, host in mesh.prefetch_to_device(
+            loader.epoch_iter(shuffle=True), device):
+        got = {k: (v.dtype, v.device.type) for k, v in dev.items()}
+        check(got == {k: (t, "cuda") for k, t in dtypes.items()},
+              f"prefetch: device batch {got}")
+        torch.cuda._sleep(PREFETCH_SLEEP)
+        seen.append({k: v.clone() for k, v in dev.items()})
+        hosts.append(host)
+    torch.cuda.synchronize()
+    check(len(seen) == PREFETCH_BATCHES, f"prefetch: {len(seen)} batches")
+    unequal = [(i, k) for i, (got, host) in enumerate(zip(seen, hosts))
+               for k, ref in inline_copy(host, keys, device).items()
+               if got[k].dtype != ref.dtype or not torch.equal(got[k], ref)]
+    check(not unequal, f"prefetch: tensors differ from the inline copy "
+          f"{unequal}")
+    del seen
+    # (b) pinned staging, copies on a side stream
+    stream = torch.cuda.Stream(device)
+    dev, staged, event = mesh.stage_batch(hosts[0], keys, device, stream)
+    event.synchronize()
+    pinned = {k: t.is_pinned() for k, t in staged.items()}
+    check(all(pinned.values()), f"prefetch: staging not pinned {pinned}")
+    check(all(torch.equal(dev[k], v) for k, v in
+              inline_copy(hosts[0], keys, device).items()),
+          "prefetch: stage_batch differs from the inline copy")
+    del dev, staged, event, hosts
+    with torch.no_grad():
+        for dev, _ in mesh.prefetch_to_device(              # warm-up
+                wave_loader(1, seed + 41, batch), device):
+            model.encode(*frontend(dev["wave"], dev["wave_len"]))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for dev, _ in mesh.prefetch_to_device(
+                    wave_loader(3, seed + 42, batch), device):
+                model.encode(*frontend(dev["wave"], dev["wave_len"]))
+            torch.cuda.synchronize()
+    del dev
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        copy_streams, copy_names, kernel_streams, waits = trace_streams(
+            prof, d)
+    check(copy_streams and kernel_streams,
+          f"prefetch: the trace lacks copies {copy_streams} or kernels "
+          f"{kernel_streams}")
+    check(not copy_streams & kernel_streams,
+          f"prefetch: copies on the kernels' streams {copy_streams} "
+          f"{kernel_streams}")
+    check(all("Pinned" in n for n in copy_names),
+          f"prefetch: copies not from pinned memory {copy_names}")
+    check(waits >= 3, f"prefetch: {waits} data.wait ranges in the trace")
+    emit({"phase": "prefetch_check", "batches": PREFETCH_BATCHES,
+          "batch": batch, "bit_equal": True, "pinned": pinned,
+          "copy_streams": sorted(copy_streams), "copy_names": copy_names,
+          "kernel_streams": sorted(kernel_streams), "data_wait_ranges": waits})
+    # (d) abandon after 2 of 50 batches
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    threads = set(threading.enumerate())
+    it = mesh.prefetch_to_device(
+        wave_loader(PREFETCH_ABANDON, seed + 43, batch).epoch_iter(), device)
+    got = [next(it) for _ in range(2)]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    started = [t.name for t in set(threading.enumerate()) - threads]
+    del got
+    t0 = time.perf_counter()
+    it.close()
+    del it
+    left = lambda: [t.name for t in set(threading.enumerate()) - threads]
+    while left() and time.perf_counter() - t0 < PREFETCH_CLOSE_S:
+        time.sleep(0.01)
+    gone_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated() - base
+    check(not left(), f"prefetch: threads left {PREFETCH_CLOSE_S} s after "
+          f"close: {left()}")
+    check(after == 0, f"prefetch: {after} device bytes left after close")
+    check(held > 0 and "prefetch_to_device" in started,
+          f"prefetch: abandon held {held} bytes, threads {started}")
+
+    # (e) errors raise in the consumer
+    def bad():
+        yield host_lm_batch(seed)
+        raise RuntimeError("prefetch smoke: corrupt utterance")
+
+    errors = {}
+    for name, src in (("source", bad()),
+                      ("staging", iter([{"text": np.array([object()])}]))):
+        it = mesh.prefetch_to_device(src, device, keys=LM_KEYS)
+        try:
+            if name == "source":
+                next(it)
+            next(it)
+        except (RuntimeError, TypeError) as e:
+            errors[name] = f"{type(e).__name__}: {e}"
+        it.close()
+    check(set(errors) == {"source", "staging"}
+          and "corrupt utterance" in errors["source"],
+          f"prefetch: errors did not reach the consumer: {errors}")
+    emit({"phase": "prefetch_abandon", "batches": PREFETCH_ABANDON,
+          "taken": 2, "held_bytes": held, "threads_started": sorted(started),
+          "threads_gone_s": gone_s, "bytes_after_close": after,
+          "errors": errors})
+
+    # (c) in turns: train's model, then lm_train's LM
+    cells = {"asr": ([host_train_batch(batch, seed + 44 + i)
+                      for i in range(4)], keys),
+             "lm": ([host_lm_batch(seed + 48 + i) for i in range(4)],
+                    LM_KEYS)}
+    for cell, (batches, cell_keys) in cells.items():
+        step = solvers.pop(cell).train_step
+        turn_run(step, batches, cell_keys, device, "inline", 1,
+                 False)                                    # warm-up
+        runs = []
+        for r in range(PREFETCH_TURNS):
+            order = (("inline", "prefetch") if r % 2 == 0
+                     else ("prefetch", "inline"))
+            for mode in order:
+                runs.append({"turn": r, **turn_run(
+                    step, batches, cell_keys, device, mode, PREFETCH_STEPS,
+                    r == PREFETCH_TURNS - 1)})
+        med = {m: float(np.median([x["ms_per_step"] for x in runs
+                                   if x["mode"] == m]))
+               for m in ("inline", "prefetch")}
+        emit({"phase": f"prefetch_turns_{cell}", "card": CARD,
+              "batch": len(batches[0]["text"]), "steps": PREFETCH_STEPS,
+              "runs": runs, "median_ms_per_step": med})
+        del step
+    emit({"phase": "prefetch", "seconds": time.perf_counter() - t_phase})
+
+
 DIST_STEPS = 3
 # dist_train_w2's model: train's with encoder dropout 0.1 (and SpecAugment)
 W2_MODEL_CFG = {**MODEL_CFG, "encoder": {**MODEL_CFG["encoder"],
@@ -5612,7 +5959,8 @@ def main():
                             "slice_gru,entry_gru,slice_gru_amp,test_entry,"
                             "train,train_aug,train_att,train_plugin,"
                             "train_gru,train_amp,"
-                            "train_gru_amp,train_att_amp,dist_train,"
+                            "train_gru_amp,train_att_amp,prefetch,"
+                            "dist_train,"
                             "dist_train_w2,dist_pad,dist_entry,train_entry,"
                             "options_entry,"
                             "lm_scan,lm_train,lm_train_gru,flac_entry,"
@@ -5854,6 +6202,8 @@ def main():
                                with_attention(use_pallas_train=True),
                                amp=True, breakdown=False)
         record(launches, ("loc_att_fwd_bf16", "loc_att_bwd_bf16"))
+    if "prefetch" in phases:
+        phase_prefetch(args.batch, args.seed, device)
     if "dist_train" in phases:
         phase_dist_train(args.batch, args.seed, device)
     if "dist_train_w2" in phases:

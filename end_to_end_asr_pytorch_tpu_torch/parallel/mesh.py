@@ -44,18 +44,26 @@ all-reduces (``model_all_reduce``, and ``model_all_gather`` as an
 all-reduce of a zero-filled whole buffer in which each rank wrote its
 part): gloo has only ``broadcast`` and ``all_reduce`` for CUDA tensors, and
 the one route runs on gloo and NCCL alike.
+
+The input pipeline (``prefetch_to_device``, the JAX function of that name):
+every training, validation and decode loop takes its batches from a
+background thread that copies the next batch to the rank's card, from
+pinned memory on a side stream, while the step runs on this one.
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
 import os
+import queue
+import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 TIMEOUT_S = 600.0              # process group timeout: a lost rank raises
 BUCKET_BYTES = 128 << 20       # largest flat all-reduce bucket
@@ -292,6 +300,160 @@ def gather_batch(part: Dict[str, Any]) -> Dict[str, Any]:
         else:
             out[k] = sum(vs)
     return out
+
+
+# ------------------------------------------------------------ input pipeline
+ASR_KEYS = ("wave", "wave_len", "text", "text_len")
+# the step's dtype where it is not the loader's: labels and their lengths
+# as int64 (the losses' gathers and the embedding lookups take them so);
+# waves stay int16 on the wire where the loader packed them
+STEP_DTYPES = {"text": np.int64, "text_len": np.int64}
+SLOT_WAIT_S = 0.2           # the worker's cancellable wait for a free slot
+_STOP = object()
+
+
+def stage_batch(batch: Dict[str, Any], keys: Sequence[str],
+                device: torch.device, stream=None):
+    """``(device tensors, host tensors, event)`` of the entries of ``keys``
+    that ``batch`` holds, each in its step dtype (``STEP_DTYPES``). On the
+    CPU (``stream`` None) the host tensors are the device tensors, from
+    ``torch.from_numpy``, and the event is None. On a card each array is
+    pinned and copied under ``stream`` (``non_blocking``), and the event is
+    recorded on ``stream`` after the copies: the pinned tensors must stay
+    referenced until it has passed."""
+    host = {k: torch.from_numpy(np.ascontiguousarray(batch[k],
+                                                     STEP_DTYPES.get(k)))
+            for k in keys if k in batch}
+    if stream is None:
+        return host, host, None
+    host = {k: t.pin_memory() for k, t in host.items()}
+    with torch.cuda.stream(stream):
+        dev = {k: t.to(device, non_blocking=True) for k, t in host.items()}
+        event = torch.cuda.Event()
+        event.record(stream)
+    return dev, host, event
+
+
+def _ready(dev: Dict[str, torch.Tensor], event, batch: Dict[str, Any],
+           device: torch.device):
+    """``(dev, batch)`` once the current stream waits for the copies: each
+    device tensor recorded on it, for the caching allocator."""
+    if event is not None:
+        current = torch.cuda.current_stream(device)
+        current.wait_event(event)
+        for v in dev.values():
+            v.record_stream(current)
+    return dev, batch
+
+
+def prefetch_to_device(batches, device, depth: int = 2,
+                       keys: Sequence[str] = ASR_KEYS):
+    """Wrap a host-batch iterable with device-side double buffering, the
+    counterpart of the JAX package's ``prefetch_to_device``: a daemon
+    worker thread draws the batches, puts their ``keys`` entries on
+    ``device`` (``stage_batch``) and queues them, so that the copy of the
+    next batch overlaps the step on this one. Yields ``(device_batch,
+    host_batch)``: the dict of device tensors and the loader's batch as it
+    came (names, raw text, ``rows``, numpy arrays). It does not pad, as the
+    JAX worker does: the loader already hands each rank its rows padded to
+    the global batch (``data/dataset.py`` ``_rank_rows``).
+
+    A prefetcher holds at most ``depth`` batches on the device, the one the
+    consumer was given last included: the worker stages a batch only once
+    it holds one of ``depth`` slots, and the consumer frees a slot when it
+    asks for the next batch. So the source runs at most ``depth`` batches
+    ahead of those taken, and two prefetchers alive at once (validation
+    inside a training epoch) hold at most ``2 * depth``. The wait for a
+    slot is the cancellable one: the JAX worker's ``put(timeout=0.2)``
+    loop on its bounded queue, here on the slots, so the queue itself is
+    unbounded and the stop sentinel always lands.
+
+    On a card the worker binds its thread to ``device`` (under ``torchrun``
+    the rank's ``cuda:$LOCAL_RANK``, not card 0) and owns one side stream:
+    it pins each array, copies it under the side stream and records an
+    event, and keeps the pinned tensors until that event has passed. The
+    consumer makes its current stream wait for the event and calls
+    ``record_stream`` on each device tensor before yielding it, so the
+    caching allocator does not hand the block back to the side stream
+    while the step still reads it. A failure to pin, copy or record raises
+    in the consumer, as any producer exception does, after the batches
+    already yielded; nothing falls back to an inline copy. The consumer's
+    wait for a batch is the profiler range ``data.wait``.
+
+    Closing the generator (a ``max_step`` break, an exception in the
+    consumer) stops the worker, which closes the source iterator in its
+    own thread (a generator cannot be closed from another thread while it
+    runs; ``epoch_iter``'s ``finally`` shuts its thread pool down), waits
+    for the worker and drops the queued batches. The worker makes no
+    collective call; those stay on the consumer's thread."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    q: "queue.Queue" = queue.Queue()
+    slots = threading.Semaphore(max(1, int(depth)))
+    cancel = threading.Event()
+    error: List[BaseException] = []
+
+    def take_slot() -> bool:
+        while not cancel.is_set():
+            if slots.acquire(timeout=SLOT_WAIT_S):
+                return True
+        return False
+
+    def staged(b, stream):
+        # a function of its own, so that no local of the worker keeps a
+        # device batch alive past its slot
+        dev, host, event = stage_batch(b, keys, device, stream)
+        if event is not None:
+            event.synchronize()   # the copies are done: the pinned tensors go
+        return dev, event, b
+
+    def worker():
+        it = None
+        try:
+            it = iter(batches)
+            with (torch.cuda.device(device) if on_card
+                  else contextlib.nullcontext()):
+                stream = torch.cuda.Stream(device) if on_card else None
+                for b in it:
+                    if not take_slot():
+                        return
+                    q.put(staged(b, stream))
+        except BaseException as e:  # the consumer raises it
+            error.append(e)
+        finally:
+            try:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+            except BaseException as e:
+                error.append(e)
+            finally:
+                q.put(_STOP)
+
+    t = threading.Thread(target=worker, name="prefetch_to_device",
+                         daemon=True)
+    t.start()
+    try:
+        while True:
+            with record_function("data.wait"):
+                item = q.get()
+            if item is _STOP:
+                if error:
+                    raise error[0]
+                return
+            yield _ready(*item, device)
+            item = None
+            slots.release()
+    finally:
+        cancel.set()
+        t.join()
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
 
 
 # ------------------------------------------------------- global-shape draws

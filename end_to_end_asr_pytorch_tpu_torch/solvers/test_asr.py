@@ -15,7 +15,9 @@ fusion of the RNN-LM from ``decode.lm_config`` / ``decode.lm_path`` when
 ``lm_weight > 0``, of the embedding plugin's fused log-probs when
 ``model.plugin`` has ``fuse > 0``; each step's tail through K8 within its
 scope, see ``decode/beam.py``) decodes models with an attention decoder;
-a CTC-only model decodes greedily. Rows stream to ``<outdir>/<name>_sd<seed>/{split}_output.csv``
+a CTC-only model decodes greedily. The batches come through
+``parallel/mesh.prefetch_to_device``, so the next batch's waves are copied
+to the card while this one decodes. Rows stream to ``<outdir>/<name>_sd<seed>/{split}_output.csv``
 (``idx\\thyp\\ttruth``, the best hypothesis) and ``{split}_beam.csv``
 (``idx\\trank\\tscore\\thyp``, the n-best with 4-decimal scores) batch by
 batch, and one summary line per split gives WER / CER, throughput, the beam
@@ -40,6 +42,8 @@ from ..ops.audio import create_transform
 from ..parallel import mesh, tp
 from ..utils.jax_ckpt import load_checkpoint
 from ..utils.metrics import edit_distance
+
+WAVE_KEYS = ("wave", "wave_len")   # the entries a decode batch reads
 
 
 class Solver(BaseSolver):
@@ -117,8 +121,9 @@ class Solver(BaseSolver):
                 f_out.write("idx\thyp\ttruth\n")
                 f_beam.write("idx\trank\tscore\thyp\n")
             wrote_nbest = False
-            for batch in dataset:
-                out = self._run_batch(batch)
+            for dev, batch in mesh.prefetch_to_device(dataset, self.device,
+                                                      keys=WAVE_KEYS):
+                out = self._run_batch(dev, batch)
                 out.update({k: batch[k] for k in ("name", "text_raw",
                                                   "text_len", "wave_len")})
                 out["k8"] = 0
@@ -170,15 +175,14 @@ class Solver(BaseSolver):
             return None
         return edit_distance(hs, rs) / len(rs)
 
-    def _run_batch(self, batch):
+    def _run_batch(self, dev, batch):
         with tp.gathered(self.params, self.split):
-            return self._decode_batch(batch)
+            return self._decode_batch(dev, batch)
 
-    def _decode_batch(self, batch):
-        dev = self.device
-        wave = torch.from_numpy(batch["wave"]).to(dev)
-        wave_len = torch.from_numpy(batch["wave_len"]).to(dev)
-        feat, feat_len = self.frontend(wave, wave_len)
+    def _decode_batch(self, dev, batch):
+        """Hypotheses and n-best lists of one batch from its waves on the
+        device (``dev``, the prefetcher's); ``batch`` is its host half."""
+        feat, feat_len = self.frontend(dev["wave"], dev["wave_len"])
         B = len(batch["name"])
         if self.decoder is not None:
             out = self.decoder.forward(feat, feat_len)

@@ -14,7 +14,10 @@ the reference layout (directories in the JAX package's orbax layout under
 (``use_pallas_ctc: auto | true``) or the plain autograd CTC (``false``,
 and ``auto`` on the CPU); the encoder's LSTMs through K2 / K2b (GRUs
 through K4 / K4b). The step runs eagerly, one batch at a time, with no
-host synchronisation between progress prints.
+host synchronisation between progress prints. Training and validation
+batches come through ``parallel/mesh.prefetch_to_device``: a background
+thread copies the next batch to the card (pinned, on a side stream) while
+the step runs on this one.
 
 ``hparas.amp`` or ``--amp`` runs the step's model in bf16, as the JAX
 solver's amp ``loss_fn`` does: the f32 front end (K1) feeds features cast
@@ -196,13 +199,6 @@ class Solver(BaseSolver):
         frac = min(max(self.step / max(self.tf_step, 1), 0.0), 1.0)
         return self.tf_start - (self.tf_start - self.tf_end) * frac
 
-    def _to_device(self, batch):
-        dev = self.device
-        return (torch.from_numpy(batch["wave"]).to(dev),
-                torch.from_numpy(batch["wave_len"]).to(dev),
-                torch.from_numpy(batch["text"]).to(dev, torch.int64),
-                torch.from_numpy(batch["text_len"]).to(dev, torch.int64))
-
     def train_step(self, wave, wave_len, text, text_len,
                    rows=None) -> Dict[str, torch.Tensor]:
         """One optimizer step on a batch: front end, teacher-forced model,
@@ -283,9 +279,11 @@ class Solver(BaseSolver):
         last_t, last_u, utts = time.time(), 0, 0
         while self.step < self.max_step:
             shuffle = epoch >= self.curriculum
-            for batch in self.tr_set.epoch_iter(shuffle=shuffle):
+            for dev, batch in mesh.prefetch_to_device(
+                    self.tr_set.epoch_iter(shuffle=shuffle), self.device):
                 rows = batch.get("rows")
-                metrics = self.train_step(*self._to_device(batch), rows=rows)
+                metrics = self.train_step(*(dev[k] for k in mesh.ASR_KEYS),
+                                          rows=rows)
                 utts += (rows[2] if rows else
                          int(np.sum(batch["text_len"] > 0)))
                 self.step += 1
@@ -359,9 +357,9 @@ class Solver(BaseSolver):
         cers = {"att": [], "ctc": []}
         losses = {"att": [], "ctc": []}
         shown = 0
-        for batch in self.dv_set:
+        for dev, batch in mesh.prefetch_to_device(self.dv_set, self.device):
             with tp.gathered(self.params, self.split):
-                out = self.valid_batch(*self._to_device(batch))
+                out = self.valid_batch(*(dev[k] for k in mesh.ASR_KEYS))
             if shown >= self.DEV_N_EXAMPLE:
                 out.pop("att_align", None)     # no figure left to draw
             out = {k: v.cpu().numpy() for k, v in out.items()}

@@ -10,7 +10,9 @@ optimizer with its gradient clip, perplexity logged every
 ``best_ppx.pth`` / ``latest.pth`` in the reference layout, which the
 decode solver's ``decode.lm_path`` reads. Each layer's scan goes through
 K2 / K2b (LSTM) or K4 / K4b (GRU) on the card. Training runs in f32, as
-the JAX solver's does: ``--amp`` and ``hparas.amp`` are ignored. Under
+the JAX solver's does: ``--amp`` and ``hparas.amp`` are ignored. The
+train and dev batches come through ``parallel/mesh.prefetch_to_device``
+(the next batch's copy overlaps the step), as the ASR solver's. Under
 ``torchrun`` each rank trains on its rows of the global batch, the NLL
 divides by the global token count, the gradients are summed, and the dev
 perplexity sums every rank's NLL and tokens; with ``model_parallel: M``
@@ -35,6 +37,8 @@ from ..optim import Optimizer
 from ..parallel import mesh, tp
 from ..utils.jax_ckpt import load_checkpoint, resumed
 from ..utils.text import EOS_IDX
+
+LM_KEYS = ("text", "text_len")   # the entries an LM step reads
 
 
 def lm_nll(lm: RNNLM, text: torch.Tensor, text_len: torch.Tensor,
@@ -95,11 +99,6 @@ class Solver(BaseSolver):
         self.split = tp.shard_module(self.lm)
         tp.shard_slots(self.optimizer, self.split)
 
-    def _to_device(self, batch):
-        return (torch.from_numpy(batch["text"]).to(self.device, torch.int64),
-                torch.from_numpy(batch["text_len"]).to(self.device,
-                                                       torch.int64))
-
     def train_step(self, text, text_len, rows=None) -> Dict[str, torch.Tensor]:
         """One optimizer step on a batch; returns device scalars (``loss``,
         and ``grad_norm`` before the clip). Its parts are profiler ranges:
@@ -136,8 +135,10 @@ class Solver(BaseSolver):
         self.verbose(f"LM training from step {self.step} to {self.max_step}")
         t0, toks = time.time(), 0
         while self.step < self.max_step:
-            for batch in self.tr_set:
-                m = self.train_step(*self._to_device(batch),
+            for dev, batch in mesh.prefetch_to_device(self.tr_set,
+                                                      self.device,
+                                                      keys=LM_KEYS):
+                m = self.train_step(*(dev[k] for k in LM_KEYS),
                                     rows=batch.get("rows"))
                 toks += batch.get("tokens", int(batch["text_len"].sum()))
                 self.step += 1
@@ -161,9 +162,10 @@ class Solver(BaseSolver):
         batch's sums added over the ranks); writes ``best_ppx.pth`` when it
         improves and ``latest.pth`` always."""
         total, count = 0.0, 0.0
-        for batch in self.dv_set:
+        for dev, _ in mesh.prefetch_to_device(self.dv_set, self.device,
+                                              keys=LM_KEYS):
             with tp.gathered(self.params, self.split):
-                t, c = lm_nll(self.lm, *self._to_device(batch))
+                t, c = lm_nll(self.lm, *(dev[k] for k in LM_KEYS))
             if mesh.active():
                 t, c = mesh.all_reduce_sum(torch.stack([t, c]))
             total += float(t)
