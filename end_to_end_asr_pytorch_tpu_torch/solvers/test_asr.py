@@ -20,8 +20,9 @@ a CTC-only model decodes greedily. The batches come through
 to the card while this one decodes. Rows stream to ``<outdir>/<name>_sd<seed>/{split}_output.csv``
 (``idx\\thyp\\ttruth``, the best hypothesis) and ``{split}_beam.csv``
 (``idx\\trank\\tscore\\thyp``, the n-best with 4-decimal scores) batch by
-batch, and one summary line per split gives WER / CER, throughput, the beam
-route and, on the card, K8's launches.
+batch, and one summary line per split gives WER / CER (a batch's scored
+in two calls of the native edit distance, ``utils/metrics.error_rates``),
+throughput, the beam route and, on the card, K8's launches.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from ..models.plugin import plugin_from_config
 from ..ops.audio import create_transform
 from ..parallel import mesh, tp
 from ..utils.jax_ckpt import load_checkpoint
-from ..utils.metrics import edit_distance
+from ..utils.metrics import error_rates
 
 WAVE_KEYS = ("wave", "wave_len")   # the entries a decode batch reads
 
@@ -132,24 +133,24 @@ class Solver(BaseSolver):
                     out["k8"] = self.decoder.last_k8_launches
                 out = mesh.gather_batch(out)
                 k8 += out["k8"]
-                for i in range(len(out["name"])):
-                    if out["text_len"][i] == 0:
-                        continue
+                rows = [i for i in range(len(out["name"]))
+                        if out["text_len"][i] != 0]
+                hyps = [out["best"][i] for i in rows]
+                refs = [out["text_raw"][i] for i in rows]
+                wers = error_rates(hyps, refs, "wer")
+                cers = error_rates(hyps, refs, "cer")
+                for j, i in enumerate(rows):
                     name = out["name"][i]
-                    ref = out["text_raw"][i]
-                    hyp = out["best"][i]
                     if lead:
-                        f_out.write(f"{name}\t{hyp}\t{ref}\n")
+                        f_out.write(f"{name}\t{hyps[j]}\t{refs[j]}\n")
                         for k, (h, s) in enumerate(out["nbest"][i]):
                             f_beam.write(f"{name}\t{k}\t{s:.4f}\t{h}\n")
                     wrote_nbest = wrote_nbest or bool(out["nbest"][i])
-                    e = self._er_one(hyp, ref, "wer")
-                    if e is not None:
-                        wer_sum += e
+                    if wers[j] is not None:
+                        wer_sum += wers[j]
                         wer_n += 1
-                    e = self._er_one(hyp, ref, "cer")
-                    if e is not None:
-                        cer_sum += e
+                    if cers[j] is not None:
+                        cer_sum += cers[j]
                         cer_n += 1
                     audio_sec += float(out["wave_len"][i]) / 16000.0
                     n_utts += 1
@@ -166,14 +167,6 @@ class Solver(BaseSolver):
             f"{n_utts / dt:.2f} utts/sec | RTF-inverse {audio_sec / dt:.1f}x "
             f"realtime | {route} | wrote {out_file}")
         return {"wer": wer, "cer": cer, "utts_per_sec": n_utts / dt}
-
-    @staticmethod
-    def _er_one(h, r, mode):
-        hs, rs = (h.split(), r.split()) if mode == "wer" else (list(h),
-                                                               list(r))
-        if not rs:
-            return None
-        return edit_distance(hs, rs) / len(rs)
 
     def _run_batch(self, dev, batch):
         with tp.gathered(self.params, self.split):

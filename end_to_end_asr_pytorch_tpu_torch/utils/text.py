@@ -9,14 +9,16 @@ Index contract shared with the JAX package and the reference:
 ``decode(idxs, ignore_repeat=True)`` performs CTC collapse (merge repeats,
 drop blanks). Subword mode takes a binary sentencepiece ``.model`` (unigram
 Viterbi, ``utils/sentencepiece_model.py``) or the JSON BPE of the repo's
-vocab tool, told apart by the file's first byte. The BPE encoder is the
-pure-Python one; the JAX package's optional native encoder gives the same
-ids and is not carried over.
+vocab tool, told apart by the file's first byte. The JSON BPE encodes
+through the port's native encoder (``utils/native.py`` ``BpeEncoder``,
+built at first use, no fallback); ``encode_py``, the Python walk, is the
+plain version the tests hold it to.
 """
 from __future__ import annotations
 
 import abc
 import json
+import threading
 from typing import List, Sequence
 
 PAD_IDX = 0
@@ -120,7 +122,8 @@ class WordTextEncoder(TextEncoder):
 class SubwordTextEncoder(TextEncoder):
     """Greedy-merge BPE. Model = JSON {vocab: [...], merges: [[a,b], ...]}.
     A leading U+2581 marks a word-initial piece (sentencepiece style), so
-    decode is reversible."""
+    decode is reversible. ``encode`` goes through the native encoder, made
+    at the first call (so a model that only decodes needs no compiler)."""
 
     BOUNDARY = "▁"
 
@@ -129,7 +132,10 @@ class SubwordTextEncoder(TextEncoder):
             raise ValueError("vocab must start with <pad> <eos> <unk>")
         self._vocab = vocab_list
         self._idx = {tok: i for i, tok in enumerate(vocab_list)}
+        self._merges = merges
         self._merge_rank = {tuple(m): r for r, m in enumerate(merges)}
+        self._native = None
+        self._native_lock = threading.Lock()
 
     @classmethod
     def load_from_file(cls, vocab_file: str) -> "SubwordTextEncoder":
@@ -156,6 +162,17 @@ class SubwordTextEncoder(TextEncoder):
         return pieces
 
     def encode(self, text: str) -> List[int]:
+        if self._native is None:
+            with self._native_lock:
+                if self._native is None:
+                    from .native import BpeEncoder
+                    self._native = BpeEncoder(self._vocab, self._merges,
+                                              UNK_IDX)
+        return self._native.encode(text) + [EOS_IDX]
+
+    def encode_py(self, text: str) -> List[int]:
+        """The Python walk (the JAX package's reference for its native
+        encoder): ``encode``'s ids."""
         ids: List[int] = []
         for word in text.split():
             for piece in self._bpe_word(word):

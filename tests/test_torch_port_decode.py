@@ -304,7 +304,8 @@ def test_port_imports_no_jax_and_no_jax_package():
             "utils/torch_ckpt.py", "solvers/train_lm.py", "data/flac.py",
             "utils/native.py", "ops/augment.py", "models/plugin.py",
             "utils/bert_embedding.py", "utils/orbax.py", "utils/ocdbt.py",
-            "utils/zstd.py"} <= rel
+            "utils/zstd.py", "utils/generate_vocab.py",
+            "utils/metrics.py"} <= rel
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -317,6 +318,43 @@ def test_port_imports_no_jax_and_no_jax_package():
                 if n.split(".")[0] in banned:
                     bad.append(f"{f.relative_to(ROOT)}:{node.lineno} {n}")
     assert not bad, bad
+
+
+def test_port_builds_no_source_outside_its_package(tmp_path, monkeypatch):
+    """Every source the port compiles lies inside its package: the four
+    host libraries as ``utils/native.build`` is asked for them when each is
+    first used (the FLAC decoder, the edit distance, the BPE encoder, the
+    zstd decoder), the module constants that name them, and the CUDA
+    sources' directory."""
+    from end_to_end_asr_pytorch_tpu_torch.data.flac import read_flac
+    from end_to_end_asr_pytorch_tpu_torch.ops.cuda import build as cuda_build
+    from end_to_end_asr_pytorch_tpu_torch.utils import metrics, native, zstd
+    from end_to_end_asr_pytorch_tpu_torch.utils.text import SubwordTextEncoder
+    from tests.flac_encoder import encode_flac
+    pkg = ROOT / "end_to_end_asr_pytorch_tpu_torch"
+    asked, real = [], native.build
+
+    def spy(source, what):
+        asked.append(Path(source).resolve())
+        return real(source, what)
+    monkeypatch.setattr(native, "build", spy)
+    for attr in ("_lib", "_edit_lib", "_bpe_lib"):
+        monkeypatch.setattr(native, attr, None)
+    monkeypatch.setattr(zstd, "_lib", None)
+    (tmp_path / "a.flac").write_bytes(encode_flac(np.arange(-50, 50,
+                                                            dtype=np.int16)))
+    assert len(read_flac(str(tmp_path / "a.flac"))[0]) == 100
+    assert metrics.edit_distance("ab", "b") == 1
+    assert SubwordTextEncoder(["<pad>", "<eos>", "<unk>", "\u2581a"],
+                              []).encode("a a") == [3, 3, 1]
+    assert zstd.xxh64(b"") == 0xEF46DB3751D8E999
+    assert sorted(p.name for p in asked) == [
+        "bpe_encoder.cc", "edit_distance.cc", "flac_decoder.cc",
+        "zstd_decoder.cc"]
+    constants = [native.SOURCE, native.EDIT_SOURCE, native.BPE_SOURCE,
+                 zstd.SOURCE, cuda_build.CSRC]
+    for p in asked + constants:
+        assert pkg in Path(p).resolve().parents, p
 
 
 def test_cpu_tensors_launch_no_kernel_and_entry_points_need_cuda(
